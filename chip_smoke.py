@@ -14,11 +14,14 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    beside its plain version, one PyTorch call of the same function
    (``library_ms``) and the card's bound for the same work;
 4. run the paper's measured anomaly sweep — ``aatb`` over
-   (400, 800, 1200)³ and ``abcd`` over (400, 1200)⁵ — on the ``cuda``
+   (400, 800, 1200)³, ``abcd`` over (400, 1200)⁵ and ``abab``, whose
+   alg2 is the fused GEMM+SYRK, over (400, 800, 1200)³ — on the ``cuda``
    backend into a temporary atlas, with every kernel's launch count set
-   to 0 just before and read just after; then resume it (``measured=0``)
-   and check every algorithm of both families against the plain
-   ``torch`` backend on the same operands.
+   to 0 just before and read just after; then resume it (``measured=0``);
+5. check every algorithm of all ten families against the plain ``torch``
+   backend on the same operands, at one point each inside the paper's
+   Experiment 1 box, and ``abab``'s alg2 once more with
+   ``REPRO_NO_FUSION`` set (two kernels instead of one).
 
 The last two lines are the card's ``nvidia-smi`` name/power line and
 ``{"ok": true, "device": {...}}``.
@@ -27,6 +30,7 @@ The last two lines are the card's ``nvidia-smi`` name/power line and
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -43,7 +47,15 @@ HBM_BYTES_PER_S = 3.35e12
 SEED = 0
 REPS = 3
 #: (name, axis values): the paper-scale grids the sweep phase covers.
-SWEEPS = (("aatb", (400, 800, 1200)), ("abcd", (400, 1200)))
+SWEEPS = (("aatb", (400, 800, 1200)), ("abcd", (400, 1200)),
+          ("abab", (400, 800, 1200)))
+#: One point per family inside the paper's Experiment 1 box (dims <= 1200).
+ALGORITHM_POINTS = (
+    ("aatb", (1200, 800, 400)), ("abcd", (400, 800, 1200, 600, 1000)),
+    ("abab", (1200, 400, 800)), ("abcde", (400, 800, 1200, 600, 1000, 500)),
+    ("abtb", (1200, 800, 400)), ("atab", (1200, 400, 800)),
+    ("btsb", (1200, 400)), ("decproj", (8, 1024, 1200)),
+    ("decattn", (8, 1024, 128, 1200)), ("decmlp", (8, 1024, 1200)))
 
 #: Kernel -> (source, the TPU kernel it replaces).
 KERNEL_SOURCES = {
@@ -55,13 +67,21 @@ KERNEL_SOURCES = {
              "src/repro/kernels/symm.py:54"),
     "chain_gemm": ("src/repro_torch/kernels/csrc/chain_gemm.cu",
                    "src/repro/kernels/chain_gemm.py:64"),
+    "gemm_syrk": ("src/repro_torch/kernels/csrc/gemm_syrk.cu",
+                  "src/repro/kernels/chain_gemm.py:142"),
 }
 
-#: Element-wise tolerance |kernel - plain| <= atol + rtol·|plain| (float32
-#: sums in another order; the chain's second contraction runs over values
-#: ~30x larger and its atomics add in a varying order, hence its atol).
+#: (rtol, atol). Element-wise |kernel - plain| <= atol + rtol·|plain|
+#: (float32 sums in another order; the chain's second contraction runs
+#: over values ~30x larger and its atomics add in a varying order, hence
+#: its atol). gemm_syrk is held as check_algorithms holds an algorithm,
+#: max|kernel - plain| <= atol + rtol·max|plain|: its diagonal is ~l·k
+#: (3.2e5 at 1200·400·800) and entries off it ~sqrt(l)·k (1.1e4), so one
+#: element-wise atol cannot fit both; float32 rounding of sums that large
+#: is ~1e-7 of the largest value per term, and its atomics add the
+#: l-chunks in a varying order.
 TOL = {"gemm": (1e-4, 1e-3), "syrk": (1e-4, 1e-3), "symm": (1e-4, 1e-3),
-       "chain_gemm": (1e-4, 1e-2)}
+       "chain_gemm": (1e-4, 1e-2), "gemm_syrk": (1e-5, 1e-2)}
 
 
 def nvidia_smi_line() -> str:
@@ -101,8 +121,9 @@ def bound(flops: int, nbytes: int):
 
 
 def kernel_cases(torch, rng):
-    """(kernel, label, kernel call, plain call, library call, flops, bytes)
-    at a main-path shape and at a ragged one with transposed views."""
+    """(kernel, label, kernel call, plain call, library call, flops, bytes
+    [, flops the kernel executes where they differ]) at a main-path shape
+    and at a ragged one with transposed views."""
     from repro_torch.kernels import ops, ref
 
     def mat(r, c):
@@ -162,15 +183,43 @@ def kernel_cases(torch, rng):
                       lambda A=A, B=B, C=C: torch.mm(torch.mm(A, B), C),
                       2 * m * k * l + 2 * m * l * n,
                       f * (m * k + k * l + l * n + m * n)))
+    # gemm_syrk: abab alg2's pair at the paper's top corner; ragged with A
+    # as a transposed view. The bound charges the paper's count of the pair.
+    for label, (m, k, l), a in (
+            ("1200·400·800", (1200, 400, 800), None),
+            ("1100·333·1037, A=Xᵀ view", (1100, 333, 1037), "t")):
+        A = mat(k, m).mT if a == "t" else mat(m, k)
+        B = mat(k, l)
+
+        def library(A=A, B=B):
+            m1 = torch.mm(A, B)
+            return torch.tril(torch.mm(m1, m1.mT))
+
+        cases.append(("gemm_syrk", label,
+                      lambda A=A, B=B: ops.gemm_syrk(A, B),
+                      lambda A=A, B=B: ref.gemm_syrk(A, B), library,
+                      2 * m * l * k + (m + 1) * m * l,
+                      f * (m * k + k * l + m * m),
+                      gemm_syrk_executed_flops(m, k, l)))
     return cases
+
+
+def gemm_syrk_executed_flops(m: int, k: int, l: int) -> int:
+    """Flops the gemm_syrk kernel executes (csrc/gemm_syrk.cu): every
+    block of each 64-wide l-chunk builds the 64x64 M1 pieces of its row
+    tile and of every row tile above it, then multiplies each pair."""
+    mt, lt = -(-m // 64), -(-l // 64)
+    pairs = mt * (mt + 1) // 2
+    return pairs * lt * 2 * 64 * 64 * k + pairs * 2 * 64 * 64 * l
 
 
 def check_kernels(torch, np) -> dict:
     """Phase 3: every kernel against its plain version, plus timings."""
     rng = np.random.default_rng(SEED)
     results = {}
-    for name, label, run, plain, library, flops, nbytes in kernel_cases(
-            torch, rng):
+    for name, label, run, plain, library, flops, nbytes, *extra in \
+            kernel_cases(torch, rng):
+        executed = extra[0] if extra else None
         out, expect = run(), plain()
         torch.cuda.synchronize()
         if out.shape != expect.shape or not bool(torch.isfinite(out).all()):
@@ -179,8 +228,17 @@ def check_kernels(torch, np) -> dict:
         rtol, atol = TOL[name]
         diff = (out - expect).abs()
         max_abs = float(diff.max())
-        rel = max_abs / float(expect.abs().max())
-        ok = bool((diff <= atol + rtol * expect.abs()).all())
+        scale = float(expect.abs().max())
+        rel = max_abs / scale
+        if name == "gemm_syrk":
+            ok = max_abs <= atol + rtol * scale
+            # The scaled tolerance would let small entries above the
+            # diagonal pass, and they must be exactly zero.
+            if bool((torch.triu(out, 1) != 0).any()):
+                raise AssertionError(f"gemm_syrk [{label}]: nonzero entries "
+                                     f"above the diagonal")
+        else:
+            ok = bool((diff <= atol + rtol * expect.abs()).all())
         ms, plain_ms, lib_ms = (time_ms(torch, run), time_ms(torch, plain),
                                 time_ms(torch, library))
         b_ms, b_by = bound(flops, nbytes)
@@ -188,7 +246,8 @@ def check_kernels(torch, np) -> dict:
               f"rel_err={rel:.3e} (tol rtol={rtol:g} atol={atol:g}) "
               f"{'ok' if ok else 'FAIL'}; ms={ms:.4f} plain_ms={plain_ms:.4f} "
               f"library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
-              f"GFLOP/s={flops / ms / 1e6:.0f}")
+              f"GFLOP/s={flops / ms / 1e6:.0f}"
+              + (f" executed_GFLOP={executed / 1e9:.3f}" if executed else ""))
         if not ok:
             raise AssertionError(f"{name} [{label}] disagrees with its plain "
                                  f"version beyond tolerance")
@@ -244,6 +303,13 @@ def run_sweeps(torch, atlas_dir: Path):
     missing = [k for k, v in launches.items() if v <= 0]
     if missing:
         raise AssertionError(f"the sweep never launched: {missing}")
+    # Exactly abab's one fused algorithm (alg2) at every point, once per
+    # run: 27 points x (1 warm-up + REPS timed runs) = 108.
+    expected = grids["abab"][1].n_points * (1 + REPS)
+    if launches["gemm_syrk"] != expected:
+        raise AssertionError(
+            f"gemm_syrk launched {launches['gemm_syrk']} times in the sweep, "
+            f"not {expected} (abab alg2 x points x runs)")
 
     for name, (spec, grid) in grids.items():
         again = sweep(spec, grid.points(), runner=runner,
@@ -255,30 +321,60 @@ def run_sweeps(torch, atlas_dir: Path):
     return launches
 
 
+def _agree(torch, label: str, got, want) -> None:
+    """max|got - want| <= 1e-3 + 1e-4·max|want|, finite, same shape."""
+    torch.cuda.synchronize()
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    print(f"algorithm {label}: max_abs_err={err:.3e} "
+          f"(max |value| {scale:.3e})")
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()) \
+            or err > 1e-3 + 1e-4 * scale:
+        raise AssertionError(f"{label} disagrees with the plain torch backend")
+
+
 def check_algorithms(torch):
-    """Every algorithm of both families on the ``cuda`` backend against the
-    plain ``torch`` backend on the same operands, at paper-scale points."""
+    """Phase 5: every algorithm of every family on the ``cuda`` backend
+    against the plain ``torch`` backend on the same operands, at one
+    paper-scale point each; then abab's fused alg2 with fusion off."""
     from repro_torch.core.backends import get_backend
-    from repro_torch.core.expressions import get_spec
+    from repro_torch.core.expressions import get_spec, registered_names
+    from repro_torch.kernels import ops
 
     cuda = get_backend("cuda", reps=1, seed=SEED)
     plain = get_backend("torch", reps=1, seed=SEED)
-    for name, point in (("aatb", (1200, 800, 400)),
-                        ("abcd", (400, 800, 1200, 600, 1000))):
-        spec = get_spec(name)
-        for alg in spec.algorithms(point):
+    checked = [name for name, _ in ALGORITHM_POINTS]
+    if sorted(checked) != registered_names():
+        raise AssertionError(f"families checked {sorted(checked)} are not "
+                             f"the registry's {registered_names()}")
+    for name, point in ALGORITHM_POINTS:
+        for alg in get_spec(name).algorithms(point):
             operands = cuda.make_operands(alg)
-            got = cuda.execute(alg, operands)
-            want = plain.execute(alg, operands)
-            torch.cuda.synchronize()
-            scale = float(want.abs().max())
-            err = float((got - want).abs().max())
-            print(f"algorithm {name}{point} {alg.name}: max_abs_err="
-                  f"{err:.3e} (max |value| {scale:.3e})")
-            if got.shape != want.shape or not bool(torch.isfinite(got).all()) \
-                    or err > 1e-3 + 1e-4 * scale:
-                raise AssertionError(f"{name} {alg.name} disagrees with the "
-                                     f"plain torch backend")
+            _agree(torch, f"{name}{point} {alg.name}",
+                   cuda.execute(alg, operands), plain.execute(alg, operands))
+
+    point = dict(ALGORITHM_POINTS)["abab"]
+    (alg,) = [a for a in get_spec("abab").algorithms(point)
+              if a.name == "alg2[gemm+syrk+tri2full]"]
+    operands = cuda.make_operands(alg)
+    ops.reset_launch_counts()
+    fused = cuda.execute(alg, operands)
+    fused_launches = ops.launch_counts()
+    os.environ["REPRO_NO_FUSION"] = "1"
+    try:
+        ops.reset_launch_counts()
+        unfused = cuda.execute(alg, operands)
+        unfused_launches = ops.launch_counts()
+    finally:
+        del os.environ["REPRO_NO_FUSION"]
+    print(f"abab{point} alg2 launches: fused {fused_launches}, "
+          f"REPRO_NO_FUSION {unfused_launches}")
+    if fused_launches != dict.fromkeys(fused_launches, 0) | {"gemm_syrk": 1} \
+            or unfused_launches != dict.fromkeys(unfused_launches, 0) | {
+                "gemm": 1, "syrk": 1}:
+        raise AssertionError("abab alg2 did not run as one gemm_syrk fused, "
+                             "and as gemm + syrk without fusion")
+    _agree(torch, f"abab{point} alg2 REPRO_NO_FUSION vs fused", unfused, fused)
 
 
 def main() -> int:
@@ -288,6 +384,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    # The sweep's launch counts assume the default, fused dispatch.
+    os.environ.pop("REPRO_NO_FUSION", None)
     from repro_torch.kernels import _build
 
     smi = nvidia_smi_line()

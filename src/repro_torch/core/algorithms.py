@@ -26,17 +26,19 @@ The enumeration reproduces the paper's sets exactly: 6 algorithms for
 GEMM+GEMM, GEMM(AᵀB)+GEMM).
 
 For long chains full enumeration explodes as (n-1)!·kernel-choices, so
-:func:`enumerate_algorithms` takes a cap.
+:func:`enumerate_algorithms` takes a cap, and :func:`optimal_chain_order`
+provides the classic O(n³) dynamic program over parenthesizations for the
+FLOPs-only discriminant (what Linnea/Julia do).
 
 This is the PyTorch port's own copy of the reference package's
-``core/algorithms.py``; the reference's opt-in static verification of
-each enumerated family is not carried over.
+``core/algorithms.py``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import itertools
+import os
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 from .expr import Chain, Transpose, bind_dims
@@ -271,10 +273,16 @@ def canonical_key(steps: Sequence[Step]) -> Tuple:
                  for s in steps)
 
 
+#: Env var turning on post-enumeration static verification everywhere a
+#: caller doesn't pass ``verify=`` explicitly (debug runs set this).
+VERIFY_ENUMERATION_ENV = "REPRO_VERIFY_ENUMERATION"
+
+
 def enumerate_algorithms(
     c: Chain,
     env: Optional[Dict[str, int]] = None,
     max_algorithms: int = 512,
+    verify: Optional[bool] = None,
 ) -> List[Algorithm]:
     """Enumerate all kernel-call sequences evaluating chain ``c``.
 
@@ -284,6 +292,13 @@ def enumerate_algorithms(
     so transpose-equal *intermediates* (``(AB)(AB)ᵀ``) enumerate their
     SYRK variant too, with dead transpose-twin steps pruned.
 
+    ``verify=True`` runs the static plan verifier
+    (:mod:`repro_torch.core.analysis`) over the enumerated family and raises
+    :class:`~repro_torch.core.analysis.AnalysisError` on any error finding —
+    a debug-mode self-check for enumeration changes. ``verify=None``
+    (the default) defers to the ``REPRO_VERIFY_ENUMERATION`` env var so
+    a debug run can switch the check on globally without touching call
+    sites.
     """
     dims = bind_dims(c, env or {})
     leaves = _leaf_nodes(c, dims)
@@ -357,7 +372,64 @@ def enumerate_algorithms(
 
     rec(leaves, ())
     # Stable, human-auditable naming: ordinal + per-step kernel labels.
-    return [
+    named = [
         Algorithm(name=f"alg{i + 1}[{a.name}]", steps=a.steps)
         for i, a in enumerate(out)
     ]
+    if verify is None:
+        verify = bool(os.environ.get(VERIFY_ENUMERATION_ENV))
+    if verify:
+        # Lazy import: analysis depends on this module, not vice versa.
+        from .analysis import assert_algorithms_valid
+
+        assert_algorithms_valid(named, chain=c, env=env,
+                                context=f"enumerate_algorithms({c!r})")
+    return named
+
+
+def optimal_chain_order(dims: Sequence[int]) -> Tuple[int, Tuple]:
+    """Classic matrix-chain DP: min-FLOPs parenthesization.
+
+    Returns (flops, tree) where tree is a nested tuple of operand indices.
+    This is the FLOPs-only discriminant used by Linnea/Julia/Armadillo, i.e.
+    the strategy whose reliability the paper interrogates. O(n³).
+    """
+    n = len(dims) - 1
+    if n < 1:
+        raise ValueError("empty chain")
+    INF = float("inf")
+    cost = [[0] * n for _ in range(n)]
+    split = [[0] * n for _ in range(n)]
+    for span in range(1, n):
+        for i in range(n - span):
+            j = i + span
+            best, arg = INF, i
+            for k in range(i, j):
+                c = (cost[i][k] + cost[k + 1][j]
+                     + 2 * dims[i] * dims[k + 1] * dims[j + 1])
+                if c < best:
+                    best, arg = c, k
+            cost[i][j] = int(best)
+            split[i][j] = arg
+
+    def tree(i: int, j: int):
+        if i == j:
+            return i
+        k = split[i][j]
+        return (tree(i, k), tree(k + 1, j))
+
+    return cost[0][n - 1], tree(0, n - 1)
+
+
+def chain_flops_of_order(dims: Sequence[int], order: Sequence[int]) -> int:
+    """FLOPs of reducing adjacent pairs in the given order.
+
+    ``order`` lists, per step, the index of the left operand of the pair to
+    merge, with indices referring to the *current* working list.
+    """
+    ds = list(dims)
+    fl = 0
+    for i in order:
+        fl += 2 * ds[i] * ds[i + 1] * ds[i + 2]
+        del ds[i + 1]
+    return fl

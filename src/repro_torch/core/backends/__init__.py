@@ -12,6 +12,7 @@ from .base import (
     register_backend,
     registered_backends,
     synthetic_algorithm,
+    synthetic_fused_algorithm,
     walk_steps,
 )
 from .torch_backend import (
@@ -27,5 +28,5 @@ __all__ = [
     "TorchBackend", "TorchOps", "fusable_pattern", "get_backend",
     "get_backend_class", "num_inputs", "operands_from_numpy",
     "register_backend", "register_torch_backends", "registered_backends",
-    "synthetic_algorithm", "walk_steps",
+    "synthetic_algorithm", "synthetic_fused_algorithm", "walk_steps",
 ]

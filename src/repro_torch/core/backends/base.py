@@ -7,9 +7,12 @@ interface:
 
 * :class:`KernelOps` — a backend's kernel vocabulary: one callable per
   :data:`~repro_torch.core.flops.KERNEL_KINDS` entry (plus ``transpose``
-  and the optional fused ``chain_gemm``).
+  and the optional fused ``chain_gemm`` and ``gemm_syrk``).
 * :func:`walk_steps` — the one DAG walker, parameterized by
   :class:`KernelOps`; adjacent fusable steps dispatch to one fused launch.
+* :func:`synthetic_algorithm` / :func:`synthetic_fused_algorithm` — one
+  kernel call, or one fused pair, as an algorithm, so a single launch is
+  timed through the same ``time_algorithm`` path as whole algorithms.
 * :class:`ExecutionBackend` — ``make_operands`` / ``execute`` /
   ``build`` / ``time_algorithm`` / ``benchmark_call``, implemented
   generically on the walker; backends override operand placement
@@ -62,11 +65,20 @@ class KernelOps:
         raise NotImplementedError
 
     def fused_kinds(self) -> frozenset:
-        """Fused step patterns this vocabulary implements (default none)."""
+        """Fused step patterns this vocabulary implements (default none).
+
+        The walker consults this before dispatching: when two adjacent
+        steps match an advertised pattern (see :func:`fusable_pattern`),
+        it calls the fused method instead of the two single-kind ones.
+        """
         return frozenset()
 
     def chain_gemm(self, a, b, c):
         """Fused ``(a·b)·c`` (pattern ``"gemm+gemm"``)."""
+        raise NotImplementedError
+
+    def gemm_syrk(self, a, b):
+        """Fused lower triangle of ``(a·b)(a·b)ᵀ`` (``"gemm+syrk"``)."""
         raise NotImplementedError
 
 
@@ -87,10 +99,12 @@ def fusable_pattern(first: Step, second: Step,
 
     ``first`` must be a gemm whose output ``X`` is consumed *only* as
     ``second``'s left operand and never fetched by any later step (its
-    materialization is what the fusion deletes):
+    materialization in device memory is what the fusion deletes):
 
-    * ``"gemm+gemm"`` — ``second`` is a gemm with ``lhs == X``;
-    * ``"gemm+syrk"`` — ``second`` is a syrk on ``X``.
+    * ``"gemm+gemm"`` — ``second`` is a gemm with ``lhs == X``
+      (``(A·B)·C``, the ``chain_gemm`` kernel);
+    * ``"gemm+syrk"`` — ``second`` is a syrk on ``X``
+      (``tril((A·B)(A·B)ᵀ)``, the ``gemm_syrk`` kernel).
     """
     if first.call.kind != "gemm":
         return None
@@ -115,8 +129,11 @@ def walk_steps(steps: Sequence[Step], leaf_fetch: Callable[[int], object],
     ``leaf_fetch(base)`` returns the *untransposed* operand for a leaf
     base index; transposition is applied here via ``ops.transpose`` (a
     strided view for tensors, so no copy is made). When
-    ``ops.fused_kinds()`` advertises ``"gemm+gemm"``, adjacent steps
-    matching :func:`fusable_pattern` run as one ``ops.chain_gemm`` launch.
+    ``ops.fused_kinds()`` advertises a pattern, adjacent steps matching
+    it (:func:`fusable_pattern`) run as one launch: ``"gemm+gemm"`` as
+    ``ops.chain_gemm``, ``"gemm+syrk"`` as ``ops.gemm_syrk``. The fused
+    intermediate is dead by the pattern's definition, so only the second
+    step's output id is bound.
     """
     inter: Dict[int, object] = {}
 
@@ -134,10 +151,13 @@ def walk_steps(steps: Sequence[Step], leaf_fetch: Callable[[int], object],
         step = steps[i]
         if fused and i + 1 < n:
             pattern = fusable_pattern(step, steps[i + 1], steps[i + 2:])
-            if pattern == "gemm+gemm" and pattern in fused:
+            if pattern is not None and pattern in fused:
                 nxt = steps[i + 1]
-                out = ops.chain_gemm(fetch(step.lhs), fetch(step.rhs),
-                                     fetch(nxt.rhs))
+                if pattern == "gemm+gemm":
+                    out = ops.chain_gemm(fetch(step.lhs), fetch(step.rhs),
+                                         fetch(nxt.rhs))
+                else:
+                    out = ops.gemm_syrk(fetch(step.lhs), fetch(step.rhs))
                 inter[nxt.out] = out
                 i += 2
                 continue
@@ -200,6 +220,47 @@ def synthetic_algorithm(call: KernelCall) -> Algorithm:
     else:
         raise ValueError(call.kind)
     return Algorithm(name=f"bench_{call.kind}", steps=(step,))
+
+
+def synthetic_fused_algorithm(kind: str, dims: Sequence[int]) -> Algorithm:
+    """A two-step algorithm exercising exactly one fused pattern.
+
+    The step pair matches :func:`fusable_pattern`, so a backend that
+    advertises the pattern times the fused launch and any other backend
+    times the two-kernel form — one Algorithm measures both sides of the
+    fusion trade.
+
+    * ``"chain_gemm"``, dims ``(m, k, l, n)`` — ``(A·B)·C`` with
+      A ``(m,k)``, B ``(k,l)``, C ``(l,n)``;
+    * ``"gemm_syrk"``, dims ``(m, k, l)`` — ``tril((A·B)(A·B)ᵀ)`` with
+      A ``(m,k)``, B ``(k,l)``.
+    """
+    if kind == "chain_gemm":
+        m, k, l, n = dims
+        a = Leaf(index=0, base=0, transposed=False, rows=m, cols=k)
+        b = Leaf(index=1, base=1, transposed=False, rows=k, cols=l)
+        c = Leaf(index=2, base=2, transposed=False, rows=l, cols=n)
+        s1 = Step(call=KernelCall("gemm", (m, l, k)), lhs=a, rhs=b, out=0,
+                  out_rows=m, out_cols=l, out_storage="full",
+                  out_symmetric=False)
+        s2 = Step(call=KernelCall("gemm", (m, n, l)), lhs=0, rhs=c, out=1,
+                  out_rows=m, out_cols=n, out_storage="full",
+                  out_symmetric=False)
+    elif kind == "gemm_syrk":
+        m, k, l = dims
+        a = Leaf(index=0, base=0, transposed=False, rows=m, cols=k)
+        b = Leaf(index=1, base=1, transposed=False, rows=k, cols=l)
+        s1 = Step(call=KernelCall("gemm", (m, l, k)), lhs=a, rhs=b, out=0,
+                  out_rows=m, out_cols=l, out_storage="full",
+                  out_symmetric=False)
+        s2 = Step(call=KernelCall("syrk", (m, l)), lhs=0, rhs=None, out=1,
+                  out_rows=m, out_cols=m, out_storage="tri",
+                  out_symmetric=True)
+    else:
+        raise ValueError(
+            f"unknown fused pattern {kind!r}; expected 'chain_gemm' or "
+            f"'gemm_syrk'")
+    return Algorithm(name=f"bench_{kind}", steps=(s1, s2))
 
 
 def operands_from_numpy(operands: Mapping[int, np.ndarray],

@@ -5,8 +5,8 @@ Counterpart of the reference package's ``core/backends/jax_backend.py``:
 * ``torch`` (:class:`TorchBackend`) lowers every kernel kind to plain
   ATen calls — the counterpart of ``jax``;
 * ``cuda`` (:class:`CudaBackend`) routes gemm/syrk/symm and the fused
-  ``gemm+gemm`` chain through the hand-written kernels of
-  :mod:`repro_torch.kernels.ops` — the counterpart of ``pallas``.
+  ``gemm+gemm`` and ``gemm+syrk`` pairs through the hand-written kernels
+  of :mod:`repro_torch.kernels.ops` — the counterpart of ``pallas``.
 
 Both measure under the ``float32`` label, so both switch TF32 off: a TF32
 product would be a different result under that label. The default device
@@ -31,7 +31,8 @@ from .base import (ExecutionBackend, KernelOps, register_backend,
 
 
 class TorchOps(KernelOps):
-    """Plain ATen kernel vocabulary."""
+    """Plain ATen kernel vocabulary, one kernel per step (no fused
+    patterns, like the reference's ``jax`` backend)."""
 
     def transpose(self, a):
         return a.mT
@@ -57,14 +58,15 @@ class CudaOps(TorchOps):
     transposition stay tensor ops (a transpose is a strided view the
     kernels read in place).
 
-    Advertises the fused ``gemm+gemm`` pattern (``chain_gemm``) unless
-    ``REPRO_NO_FUSION`` is set, as the reference's ``pallas`` does.
+    Advertises the fused ``gemm+gemm`` (``chain_gemm``) and ``gemm+syrk``
+    (``gemm_syrk``) patterns unless ``REPRO_NO_FUSION`` is set, as the
+    reference's ``pallas`` does.
     """
 
     def fused_kinds(self) -> frozenset:
         if os.environ.get("REPRO_NO_FUSION"):
             return frozenset()
-        return frozenset({"gemm+gemm"})
+        return frozenset({"gemm+gemm", "gemm+syrk"})
 
     def gemm(self, a, b):
         return kops.gemm(a, b)
@@ -84,6 +86,9 @@ class CudaOps(TorchOps):
 
     def chain_gemm(self, a, b, c):
         return kops.chain_gemm(a, b, c)
+
+    def gemm_syrk(self, a, b):
+        return kops.gemm_syrk(a, b)
 
 
 class TorchBackend(ExecutionBackend):
@@ -127,7 +132,7 @@ class TorchBackend(ExecutionBackend):
 
 
 class CudaBackend(TorchBackend):
-    """The ``cuda`` registry entry: the hand-written kernels as a backend."""
+    """Execute and time algorithms through the hand-written CUDA kernels."""
 
     name = "cuda"
 

@@ -1,7 +1,6 @@
 """Expression IR for dense linear algebra expressions.
 
-The PyTorch port's own copy of the reference package's ``core/expr.py``,
-cut to what the ``abcd`` and ``aatb`` families need.
+The PyTorch port's own copy of the reference package's ``core/expr.py``.
 
 The paper (López, Karlsson, Bientinesi, ICPP'22) studies the Linear Algebra
 Mapping Problem (LAMP): one expression, many mathematically equivalent
@@ -143,6 +142,68 @@ def gram_times(d0: Dim, d1: Dim, d2: Dim) -> Chain:
     A = Matrix("A", d0, d1)
     B = Matrix("B", d0, d2)
     return Chain((A, A.T(), B))
+
+
+def gram_right_times(d0: Dim, d1: Dim, d2: Dim) -> Chain:
+    """Right-sided Gram product ``A·Bᵀ·B`` with A: d0×d1, B: d2×d1.
+
+    The mirrored companion of :func:`gram_times`: the SYRK-able pair
+    ``Bᵀ·B`` sits on the *right*, so the symmetric intermediate flows into
+    the chain as a right operand (exercising SYMM side R).
+    """
+    A = Matrix("A", d0, d1)
+    B = Matrix("B", d2, d1)
+    return Chain((A, B.T(), B))
+
+
+def gram_left_times(d0: Dim, d1: Dim, d2: Dim) -> Chain:
+    """Tall-skinny Gram chain ``Aᵀ·A·B`` with A: d0×d1, B: d1×d2.
+
+    For d0 ≫ d1 this is the normal-equations shape: SYRK on ``Aᵀ·A``
+    produces a triangle-stored d1×d1 intermediate whose storage choice
+    (SYMM vs TRI2FULL+GEMM) propagates into the tail of the chain.
+    """
+    A = Matrix("A", d0, d1)
+    B = Matrix("B", d1, d2)
+    return Chain((A.T(), A, B))
+
+
+def symmetric_sandwich(d0: Dim, d1: Dim) -> Chain:
+    """Symmetric sandwich ``Bᵀ·S·B`` with S: d0×d0 symmetric, B: d0×d1.
+
+    The congruence-transform shape (covariance projection, FEM assembly):
+    the symmetric operand sits mid-chain, so SYMM fires on either side
+    depending on the multiplication order.
+    """
+    S = Matrix("S", d0, d0, symmetric=True)
+    B = Matrix("B", d0, d1)
+    return Chain((B.T(), S, B))
+
+
+def gram_of_product(d0: Dim, d1: Dim, d2: Dim) -> Chain:
+    """Gram of a product ``(A·B)(A·B)ᵀ = A·B·Bᵀ·Aᵀ``, A: d0×d1, B: d1×d2.
+
+    The stress case for enumeration: the SYRK-able pair is the
+    *intermediate* ``(AB)(AB)ᵀ``, which leaf-adjacency inspection never
+    sees — algorithm generation must recognize transpose-equal
+    intermediates (see :mod:`repro_torch.core.algorithms`).
+    """
+    A = Matrix("A", d0, d1)
+    B = Matrix("B", d1, d2)
+    return Chain((A, B, B.T(), A.T()))
+
+
+def is_gram_pair(x: Operand, y: Operand) -> bool:
+    """True iff ``x @ y`` is ``A @ Aᵀ`` (a SYRK-able product)."""
+    return (
+        isinstance(x, Matrix)
+        and isinstance(y, Transpose)
+        and y.operand is x
+    ) or (
+        isinstance(x, Transpose)
+        and isinstance(y, Matrix)
+        and x.operand is y
+    )
 
 
 def bind_dims(c: Chain, env: Dict[str, int]) -> Tuple[int, ...]:

@@ -16,6 +16,8 @@ CLI::
     PYTHONPATH=src python -m repro_torch.core.sweep --expr aatb --grid smoke  # resumes: measured=0
     PYTHONPATH=src python -m repro_torch.core.sweep --expr abcd --grid 400,1200 --seed 0
     PYTHONPATH=src python -m repro_torch.core.sweep --backend cuda --device cpu --grid smoke
+    PYTHONPATH=src python -m repro_torch.core.sweep --expr abab --grid 400,800,1200 --no-fusion
+    PYTHONPATH=src python -m repro_torch.core.sweep --list-exprs
 """
 
 from __future__ import annotations
@@ -34,7 +36,8 @@ from ..kernels import ops as kops
 from .algorithms import Algorithm, Leaf
 from .anomaly import Classification, Region, classify, cluster_regions, region_summary
 from .backends import get_backend, register_torch_backends
-from .expressions import SWEEP_GRIDS, ExpressionSpec, GridSpec, get_spec, registered_names
+from .expressions import (REGISTRY, SWEEP_GRIDS, ExpressionSpec, GridSpec, get_spec,
+                          registered_names)
 from .fingerprint import HardwareFingerprint, cache_base_dir
 
 # --------------------------------------------------- instance measurement ---
@@ -412,13 +415,34 @@ def parse_grid(spec: ExpressionSpec, text: str) -> GridSpec:
     return GridSpec.uniform(values, spec.ndims)
 
 
+def _registry_epilog() -> str:
+    """The family, backend and analysis-rule registries, generated when
+    the parser is built so the help text never omits an entry."""
+    from .cli_help import analysis_rules_epilog, backends_epilog
+
+    lines = ["registered expression families (repro_torch.core.expressions):"]
+    for cli_name in registered_names():
+        s = REGISTRY[cli_name]
+        lines.append(f"  {cli_name:<7} {s.name:<7} ndims={s.ndims}  "
+                     f"{s.description}")
+    return "\n".join(lines) + "\n\n" + backends_epilog() + "\n\n" \
+        + analysis_rules_epilog()
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.core.sweep",
         description="Measured anomaly sweep over a problem-size grid on "
                     "the PyTorch port; results persist in the resumable "
-                    "anomaly atlas.")
-    ap.add_argument("--expr", choices=registered_names(), default="aatb")
+                    "anomaly atlas.",
+        epilog=_registry_epilog(),
+        formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--expr", choices=registered_names(), default="aatb",
+                    help="expression family to sweep (see the registry "
+                         "listing below)")
+    ap.add_argument("--list-exprs", action="store_true",
+                    help="print the registered expression families (one "
+                         "CLI name per line) and exit")
     ap.add_argument("--grid", default="small",
                     help=f"named grid {sorted(SWEEP_GRIDS)} or "
                          "comma-separated axis values, e.g. 400,800,1200")
@@ -428,6 +452,10 @@ def main(argv: Optional[List[str]] = None) -> int:
                     help="cuda (default; fails without a card) or cpu, "
                          "where the kernels' plain versions run")
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--no-fusion", action="store_true",
+                    help="cuda: disable fused adjacent-step dispatch (sets "
+                         "REPRO_NO_FUSION) — every step launches its own "
+                         "kernel")
     ap.add_argument("--seed", type=int, default=None,
                     help="operand-synthesis seed: every leaf becomes a "
                          "pure function of (seed, base, shape)")
@@ -437,6 +465,15 @@ def main(argv: Optional[List[str]] = None) -> int:
                          "~/.cache/repro/atlas)")
     ap.add_argument("--quiet", action="store_true")
     args = ap.parse_args(argv)
+
+    if args.list_exprs:
+        for cli_name in registered_names():
+            print(cli_name)
+        return 0
+    # Process-wide on purpose, as in the reference: the walker reads it at
+    # every dispatch.
+    if args.no_fusion:
+        os.environ["REPRO_NO_FUSION"] = "1"
 
     spec = get_spec(args.expr)
     try:

@@ -50,6 +50,8 @@ SIGNATURES: Dict[str, List[type]] = {
     # a, sa0, sa1, b, sb0, sb1, c, sc0, sc1, out, m, k, l, n, stream
     "repro_chain_gemm_f32": [_P, _L, _L, _P, _L, _L, _P, _L, _L, _P,
                              _I, _I, _I, _I, _P],
+    # a, sa0, sa1, b, sb0, sb1, out, m, k, l, stream
+    "repro_gemm_syrk_f32": [_P, _L, _L, _P, _L, _L, _P, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -21,6 +21,7 @@ import torch
 
 from . import chain_gemm as _chain_gemm
 from . import gemm as _gemm
+from . import gemm_syrk as _gemm_syrk
 from . import ref
 from . import symm as _symm
 from . import syrk as _syrk
@@ -28,7 +29,7 @@ from ._checks import check_matrices, check_same
 
 #: The kernel modules, each holding its own ``launches`` counter.
 KERNELS = {"gemm": _gemm, "syrk": _syrk, "symm": _symm,
-           "chain_gemm": _chain_gemm}
+           "chain_gemm": _chain_gemm, "gemm_syrk": _gemm_syrk}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -90,6 +91,17 @@ def chain_gemm(a: torch.Tensor, b: torch.Tensor,
     if _on_card("chain_gemm", a):
         return _chain_gemm.chain_gemm_cuda(a, b, c)
     return ref.chain_gemm(a, b, c)
+
+
+def gemm_syrk(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Lower triangle of (A·B)(A·B)ᵀ without materializing A·B (on the
+    card); strictly-upper entries zero."""
+    check_matrices("gemm_syrk", A=a, B=b)
+    check_same("gemm_syrk", "contraction dim k",
+               ("A.shape[1]", a.shape[1]), ("B.shape[0]", b.shape[0]))
+    if _on_card("gemm_syrk", a):
+        return _gemm_syrk.gemm_syrk_cuda(a, b)
+    return ref.gemm_syrk(a, b)
 
 
 def tri2full(t: torch.Tensor) -> torch.Tensor:

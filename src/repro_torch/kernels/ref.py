@@ -36,3 +36,9 @@ def chain_gemm(a: torch.Tensor, b: torch.Tensor,
                c: torch.Tensor) -> torch.Tensor:
     """(A @ B) @ C."""
     return (a @ b) @ c
+
+
+def gemm_syrk(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Lower triangle of (A @ B) @ (A @ B)ᵀ (strictly-upper entries zero)."""
+    m1 = a @ b
+    return torch.tril(m1 @ m1.mT)

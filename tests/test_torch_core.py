@@ -21,9 +21,10 @@ from repro.core import expressions as ref_expressions
 from repro.core.backends import base as ref_base
 from repro.core.backends.base import fusable_pattern as ref_fusable
 from repro_torch.core import anomaly, expressions
-from repro_torch.core.backends import (CudaBackend, TorchBackend,
-                                       fusable_pattern, num_inputs,
-                                       synthetic_algorithm)
+from repro_torch.core.backends import (CudaBackend, CudaOps, TorchBackend,
+                                       TorchOps, fusable_pattern, num_inputs,
+                                       synthetic_algorithm,
+                                       synthetic_fused_algorithm, walk_steps)
 from repro_torch.core.flops import KernelCall
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -78,7 +79,9 @@ def test_paper_algorithm_sets_and_fusable_pairs():
 
 
 def test_registry_and_grids_match_reference():
-    assert expressions.registered_names() == ["aatb", "abcd"]
+    assert expressions.registered_names() == \
+        ref_expressions.registered_names()
+    assert len(expressions.registered_names()) == 10
     for name in expressions.registered_names():
         mine, theirs = expressions.get_spec(name), ref_expressions.get_spec(name)
         assert (mine.name, mine.ndims) == (theirs.name, theirs.ndims)
@@ -184,3 +187,87 @@ def test_float32_label_only_and_tf32_off():
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = saved
+
+
+class _RecordingOps(CudaOps):
+    """The ``cuda`` vocabulary on CPU tensors, recording every dispatch."""
+
+    def __init__(self):
+        self.calls = []
+
+    def _record(self, name, *args):
+        self.calls.append(name)
+        return getattr(super(), name)(*args)
+
+    def gemm(self, a, b):
+        return self._record("gemm", a, b)
+
+    def syrk(self, a):
+        return self._record("syrk", a)
+
+    def symm(self, s, b):
+        return self._record("symm", s, b)
+
+    def symm_r(self, b, s):
+        return self._record("symm_r", b, s)
+
+    def tri2full(self, t):
+        return self._record("tri2full", t)
+
+    def chain_gemm(self, a, b, c):
+        return self._record("chain_gemm", a, b, c)
+
+    def gemm_syrk(self, a, b):
+        return self._record("gemm_syrk", a, b)
+
+
+@pytest.mark.parametrize("no_fusion", [False, True])
+def test_walk_steps_dispatches_gemm_syrk_exactly_when_advertised(
+        no_fusion, monkeypatch):
+    if no_fusion:
+        monkeypatch.setenv("REPRO_NO_FUSION", "1")
+    else:
+        monkeypatch.delenv("REPRO_NO_FUSION", raising=False)
+    backend = TorchBackend(device="cpu", seed=0)
+    for alg in expressions.get_spec("abab").algorithms((40, 30, 20)):
+        ops = _RecordingOps()
+        operands = backend.make_operands(alg)
+        got = walk_steps(alg.steps, operands.__getitem__, ops)
+        want = walk_steps(alg.steps, operands.__getitem__, TorchOps())
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)
+        if no_fusion:
+            assert len(ops.calls) == len(alg.steps)
+            assert not {"chain_gemm", "gemm_syrk"} & set(ops.calls)
+        else:
+            pairs = _fusions(alg, fusable_pattern)
+            assert ops.calls.count("gemm_syrk") == int("gemm+syrk" in pairs)
+        if alg.name == "alg2[gemm+syrk+tri2full]":
+            assert ops.calls == (["gemm", "syrk", "tri2full"] if no_fusion
+                                 else ["gemm_syrk", "tri2full"])
+
+
+def test_cuda_ops_advertise_both_patterns_unless_no_fusion(monkeypatch):
+    monkeypatch.delenv("REPRO_NO_FUSION", raising=False)
+    assert CudaOps().fused_kinds() == {"gemm+gemm", "gemm+syrk"}
+    assert TorchOps().fused_kinds() == frozenset()
+    monkeypatch.setenv("REPRO_NO_FUSION", "1")
+    assert CudaOps().fused_kinds() == frozenset()
+
+
+@pytest.mark.parametrize("kind,dims", [("chain_gemm", (30, 20, 10, 40)),
+                                       ("gemm_syrk", (30, 20, 10))])
+def test_synthetic_fused_algorithm_matches_reference_and_runs(kind, dims):
+    mine = synthetic_fused_algorithm(kind, dims)
+    theirs = ref_base.synthetic_fused_algorithm(kind, dims)
+    assert _norm(mine) == _norm(theirs)
+    pattern = {"chain_gemm": "gemm+gemm", "gemm_syrk": "gemm+syrk"}[kind]
+    assert _fusions(mine, fusable_pattern) == (pattern,)
+    fused = CudaBackend(device="cpu", reps=1, seed=0)
+    plain = TorchBackend(device="cpu", reps=1, seed=0)
+    operands = fused.make_operands(mine)
+    torch.testing.assert_close(fused.execute(mine, operands),
+                               plain.execute(mine, operands),
+                               rtol=1e-4, atol=1e-3)
+    assert fused.time_algorithm(mine, operands) > 0
+    with pytest.raises(ValueError, match="unknown fused pattern"):
+        synthetic_fused_algorithm("syrk_symm", dims)

@@ -3,8 +3,9 @@
 ``repro_torch.kernels.ops`` runs each kernel's plain PyTorch version for
 CPU tensors; ``repro.kernels.ops`` runs the Pallas kernels in interpret
 mode here, as the reference's own tests do. Same numpy inputs into both;
-float32 compares at rtol=1e-4, atol=1e-3, the chain at atol=1e-2 (its
-second contraction runs over larger values), as in tests/test_kernels.py.
+float32 compares at rtol=1e-4, atol=1e-3, the chain and the fused
+GEMM+SYRK at atol=1e-2 (their second contraction runs over larger values:
+the fused product's diagonal is ~l·k), as in tests/test_kernels.py.
 The CUDA kernels themselves are checked on the card by
 tests/test_torch_gpu.py and chip_smoke.py.
 """
@@ -92,6 +93,25 @@ def test_chain_gemm_matches_reference(m, k, l, n):
                                **CHAIN_TOL)
 
 
+@pytest.mark.parametrize("m,k,l,a_view", [(130, 70, 64, False),
+                                           (256, 128, 128, False),
+                                           (97, 45, 150, True)])
+def test_gemm_syrk_matches_reference(m, k, l, a_view):
+    rng = np.random.default_rng(m + k + l)
+    a_store = _rand(rng, k, m) if a_view else _rand(rng, m, k)
+    b = _rand(rng, k, l)
+    a_np = a_store.T if a_view else a_store
+    a_t = torch.from_numpy(a_store).mT if a_view else torch.from_numpy(a_store)
+    out = ops.gemm_syrk(a_t, torch.from_numpy(b)).numpy()
+    want = np.asarray(jops.gemm_syrk(jnp.asarray(a_np), jnp.asarray(b)))
+    np.testing.assert_allclose(out, want, **CHAIN_TOL)
+    assert out.shape == (m, m)
+    assert np.all(np.triu(out, 1) == 0.0)
+    # The fused pair equals the two kernels it replaces.
+    two = ops.syrk(ops.gemm(a_t, torch.from_numpy(b))).numpy()
+    np.testing.assert_allclose(out, two, **CHAIN_TOL)
+
+
 def test_tri2full_matches_reference():
     rng = np.random.default_rng(3)
     jt, tt = _both(_rand(rng, 70, 70))
@@ -111,6 +131,11 @@ def test_shape_mismatches_raise_valueerror_naming_the_dim():
         ops.chain_gemm(z(8, 8), z(8, 100), z(99, 8))
     with pytest.raises(ValueError, match="contraction dim k"):
         ops.chain_gemm(z(8, 7), z(8, 100), z(100, 8))
+    with pytest.raises(ValueError, match=r"gemm_syrk: contraction dim k.*"
+                                         r"A.shape\[1\]=7"):
+        ops.gemm_syrk(z(8, 7), z(8, 100))
+    with pytest.raises(ValueError, match="must be a matrix"):
+        ops.gemm_syrk(z(8, 7), z(7))
     with pytest.raises(ValueError, match="square dim"):
         ops.tri2full(z(8, 9))
     with pytest.raises(ValueError, match="must be a matrix"):
@@ -134,7 +159,9 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     ops.syrk(a)
     ops.symm(torch.eye(4), a)
     ops.chain_gemm(a, a.mT, a)
+    ops.gemm_syrk(a, a.mT)
     assert ops.launch_counts() == before
+    assert set(before) == {"gemm", "syrk", "symm", "chain_gemm", "gemm_syrk"}
 
 
 def test_build_without_nvcc_raises(monkeypatch):

@@ -108,3 +108,41 @@ def test_cli_measures_then_resumes(tmp_path):
                             timeout=120)
     assert second.returncode == 0, second.stderr
     assert re.search(r"points=8 measured=0 skipped=8", second.stdout)
+
+
+def _cli(*args):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env.pop("REPRO_NO_FUSION", None)
+    return subprocess.run([sys.executable, "-m", "repro_torch.core.sweep",
+                           *args], env=env, capture_output=True, text=True,
+                          timeout=120)
+
+
+def test_cli_lists_the_reference_families():
+    from repro.core.expressions import registered_names
+    out = _cli("--list-exprs")
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == registered_names()
+    assert len(out.stdout.split()) == 10
+    helped = _cli("--help")
+    assert all(f"  {name} " in helped.stdout for name in registered_names())
+
+
+@pytest.mark.parametrize("no_fusion", [False, True])
+def test_cli_sweeps_abab_resumes_and_the_reference_reads_it(tmp_path,
+                                                            no_fusion):
+    args = ["--expr", "abab", "--grid", "smoke", "--device", "cpu", "--reps",
+            "1", "--seed", "0", "--atlas-dir", str(tmp_path), "--quiet"]
+    if no_fusion:
+        args.append("--no-fusion")
+    first = _cli(*args)
+    assert first.returncode == 0, first.stderr
+    assert re.search(r"points=8 measured=8 skipped=0", first.stdout)
+    second = _cli(*args)
+    assert second.returncode == 0, second.stderr
+    assert re.search(r"points=8 measured=0 skipped=8", second.stdout)
+    (path,) = tmp_path.glob("atlas-abab-*.jsonl")
+    replay = load_atlas_records(path)
+    assert replay.spec_name == "ABAB" and len(replay.records) == 8
+    names = [a.name for a in ref_get_spec("abab").algorithms((64, 64, 64))]
+    assert all(sorted(r.times) == sorted(names) for r in replay.records)
