@@ -21,7 +21,17 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
 5. check every algorithm of all ten families against the plain ``torch``
    backend on the same operands, at one point each inside the paper's
    Experiment 1 box, and ``abab``'s alg2 once more with
-   ``REPRO_NO_FUSION`` set (two kernels instead of one).
+   ``REPRO_NO_FUSION`` set (two kernels instead of one);
+6. hold the flash-attention kernel against its plain version at Yi-9B's
+   prefill shape (bf16, strided (B, S, H, D) views), a ragged float32
+   non-causal shape, a gemma2-shaped bf16 window + soft-cap shape and a
+   float32 MHA window + soft-cap shape, and time it beside its plain
+   version, PyTorch's ``scaled_dot_product_attention`` and its bound;
+7. serve Yi-9B at full width and depth in bf16 on random weights: prefill
+   2 requests of 2048 tokens through ``api.prefill`` (the flash kernel
+   in each of the 48 layers), decode 128 greedy tokens from that cache
+   with ``api.decode_step``, prefill the 2176 tokens again, and hold the
+   decode logits and tokens against the re-prefill's.
 
 The last two lines are the card's ``nvidia-smi`` name/power line and
 ``{"ok": true, "device": {...}}``.
@@ -31,6 +41,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -40,8 +51,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-#: NVIDIA H100 SXM data sheet: FP32 outside the tensor cores, HBM3 rate.
+#: NVIDIA H100 SXM data sheet: FP32 outside the tensor cores, dense BF16
+#: on the tensor cores, HBM3 rate.
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 HBM_BYTES_PER_S = 3.35e12
 
 SEED = 0
@@ -69,7 +82,12 @@ KERNEL_SOURCES = {
                    "src/repro/kernels/chain_gemm.py:64"),
     "gemm_syrk": ("src/repro_torch/kernels/csrc/gemm_syrk.cu",
                   "src/repro/kernels/chain_gemm.py:142"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:89"),
 }
+#: The kernels the anomaly sweep (phases 4-5) runs; the served model
+#: (phase 7) runs flash_attention.
+SWEEP_KERNELS = ("gemm", "syrk", "symm", "chain_gemm", "gemm_syrk")
 
 #: (rtol, atol). Element-wise |kernel - plain| <= atol + rtol·|plain|
 #: (float32 sums in another order; the chain's second contraction runs
@@ -113,9 +131,9 @@ def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
     return times[len(times) // 2]
 
 
-def bound(flops: int, nbytes: int):
+def bound(flops: int, nbytes: int, peak: float = PEAK_FP32_FLOPS):
     """Least time (ms) the card could take, and what bounds it."""
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     t_mem = nbytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
 
@@ -300,7 +318,7 @@ def run_sweeps(torch, atlas_dir: Path):
     launches = ops.launch_counts()
     print("sweep kernel launches: " + " ".join(
         f"{k}={v}" for k, v in launches.items()))
-    missing = [k for k, v in launches.items() if v <= 0]
+    missing = [k for k in SWEEP_KERNELS if launches[k] <= 0]
     if missing:
         raise AssertionError(f"the sweep never launched: {missing}")
     # Exactly abab's one fused algorithm (alg2) at every point, once per
@@ -377,6 +395,265 @@ def check_algorithms(torch):
     _agree(torch, f"abab{point} alg2 REPRO_NO_FUSION vs fused", unfused, fused)
 
 
+#: Phase 6 cases: (label, B, H, Hkv, S, D, dtype, keyword arguments).
+#: The first is the main path's shape: one Yi-9B prefill layer.
+FLASH_CASES = (
+    ("yi-9b prefill B2 H32/4 S2048 D128 bf16 causal", 2, 32, 4, 2048, 128,
+     "bfloat16", dict(causal=True)),
+    ("B1 H8/2 S1000 D96 f32 non-causal (ragged)", 1, 8, 2, 1000, 96,
+     "float32", dict(causal=False)),
+    ("gemma2 B1 H16/8 S1024 D256 bf16 window 512 softcap 50", 1, 16, 8,
+     1024, 256, "bfloat16", dict(causal=True, window=512,
+                                 logit_softcap=50.0)),
+    ("B1 H4/4 S384 D64 f32 window 64 softcap 20", 1, 4, 4, 384, 64,
+     "float32", dict(causal=True, window=64, logit_softcap=20.0)),
+)
+#: (rtol, atol) by dtype, element-wise. Float32 sums in another order;
+#: bfloat16 outputs are weighted means of values of magnitude ~1, where
+#: one ulp is 2**-7, and kernel and plain version round p at different
+#: points (before and after normalising) and the output once each.
+FLASH_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2 ** -6, 2 ** -6)}
+
+
+def attention_pairs(s: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the masks leave visible in one head."""
+    total = 0
+    for q in range(s):
+        lo = max(0, q - window + 1) if window > 0 else 0
+        hi = q + 1 if causal else s
+        total += max(0, hi - lo)
+    return total
+
+
+def check_flash(torch, np) -> dict:
+    """Phase 6: the flash-attention kernel against its plain version."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+
+    rng = np.random.default_rng(SEED)
+    result = {"max_abs_err": 0.0}
+    for label, b, h, hkv, s, d, dtype, kw in FLASH_CASES:
+        dt = getattr(torch, dtype)
+
+        def heads(n, scale):   # a (B, S, n, D) buffer as a (B, n, S, D) view
+            x = rng.standard_normal((b, s, n, d)) * scale
+            return torch.from_numpy(x).to(dt).cuda().transpose(1, 2)
+
+        q, k, v = heads(h, 0.3), heads(hkv, 0.3), heads(hkv, 1.0)
+        run = lambda: ops.flash_attention(q, k, v, **kw)
+        plain = lambda: ref.flash_attention(q, k, v, **kw)
+        out, expect = run(), plain()
+        torch.cuda.synchronize()
+        if out.shape != expect.shape or out.dtype != dt or \
+                not bool(torch.isfinite(out.float()).all()):
+            raise AssertionError(f"flash_attention [{label}]: bad output")
+        rtol, atol = FLASH_TOL[dtype]
+        diff = (out.float() - expect.float()).abs()
+        max_abs = float(diff.max())
+        ok = bool((diff <= atol + rtol * expect.float().abs()).all())
+        library = None
+        if not kw.get("logit_softcap") and not kw.get("window"):
+            library = lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=kw["causal"], enable_gqa=True)
+        ms, plain_ms = time_ms(torch, run), time_ms(torch, plain)
+        lib_ms = time_ms(torch, library) if library else None
+        pairs = attention_pairs(s, kw["causal"], kw.get("window", 0))
+        flops = 4 * d * pairs * b * h
+        nbytes = q.element_size() * (2 * b * h * s * d + 2 * b * hkv * s * d)
+        b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS
+                           if dtype == "bfloat16" else PEAK_FP32_FLOPS)
+        print(f"flash_attention [{label}]: max_abs_err={max_abs:.3e} "
+              f"(tol rtol={rtol:g} atol={atol:g}) {'ok' if ok else 'FAIL'}; "
+              f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms="
+              f"{'n/a' if lib_ms is None else f'{lib_ms:.4f}'} "
+              f"bound_ms={b_ms:.4f} ({b_by}) GFLOP/s={flops / ms / 1e6:.0f}")
+        if not ok:
+            raise AssertionError(f"flash_attention [{label}] disagrees with "
+                                 f"its plain version beyond tolerance")
+        result["max_abs_err"] = max(result["max_abs_err"], max_abs)
+        if "ms" not in result:   # the first case is the main path's shape
+            result.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                          bound_ms=b_ms, bound_by=b_by, shape=label)
+    return result
+
+
+#: Phase 7: requests, prompt tokens and greedy tokens of the served model.
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 2, 2048, 128
+#: |decode logit - re-prefill logit| limit, in logit units (the random
+#: model's logits have a standard deviation of ~1). Both paths run in
+#: bfloat16 with the KV cache stored in bfloat16; they differ in where
+#: they round (the flash kernel rounds p to bfloat16 before P·V, decode
+#: keeps float32 probabilities) and in the GEMM shapes (one token against
+#: 2176), so their hidden states drift apart by a few bfloat16 ulps per
+#: layer over 48 layers.
+DECODE_LOGIT_TOL = 0.5
+
+
+def aten_calls_per_decode_step(torch, api, model, cfg, batch: int) -> int:
+    """ATen operator calls one decode step dispatches (views included),
+    counted on a scratch cache: the host-side work of an eager step."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    caches = api.init_caches(model, cfg, batch, 2)
+    tokens = torch.zeros((batch, 1), dtype=torch.long, device="cuda")
+    with Count() as count:
+        api.decode_step(model, cfg, tokens, caches)
+    return count.n
+
+
+def serve_model(torch, np) -> dict:
+    """Phase 7: Yi-9B at full width and depth on the card."""
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as flash_mod
+    from repro_torch.kernels import ops
+    from repro_torch.models import api
+
+    cfg = configs.get("yi_9b")
+    t0 = time.perf_counter()
+    model = api.init(cfg, seed=SEED, device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    # The config's analytic count leaves out the RMSNorm gains.
+    n_norms = (2 * cfg.n_layers + 1) * cfg.d_model
+    print(f"serve {cfg.name}: {cfg.n_layers} layers d_model {cfg.d_model} "
+          f"heads {cfg.n_heads}/{cfg.n_kv_heads} head_dim {cfg.head_dim} "
+          f"d_ff {cfg.d_ff} vocab {cfg.vocab}; {n_params} parameters "
+          f"(config count {cfg.param_count()} + {n_norms} norm gains) in "
+          f"bf16, init {time.perf_counter() - t0:.1f}s")
+    if n_params != cfg.param_count() + n_norms:
+        raise AssertionError("parameter count differs from the config's")
+    b, s0, n_new = SERVE_BATCH, SERVE_PROMPT, SERVE_NEW
+    max_s = s0 + n_new
+    rng = np.random.default_rng(SEED)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (b, s0))).cuda()
+
+    # Warm-up prefill (cuBLAS heuristics, allocator), not counted.
+    api.prefill(model, cfg, {"tokens": prompt},
+                api.init_caches(model, cfg, b, max_s))
+    torch.cuda.synchronize()
+
+    # The served path: counts from 0, the flash launches timed one by one.
+    flash_events = []
+    launch = flash_mod.flash_attention_cuda
+
+    def timed_launch(*args, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = launch(*args, **kw)
+        end.record()
+        flash_events.append((start, end))
+        return out
+
+    ops.reset_launch_counts()
+    caches = api.init_caches(model, cfg, b, max_s)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    flash_mod.flash_attention_cuda = timed_launch
+    try:
+        start.record()
+        logits, caches = api.prefill(model, cfg, {"tokens": prompt}, caches)
+        end.record()
+        torch.cuda.synchronize()
+    finally:
+        flash_mod.flash_attention_cuda = launch
+    prefill_ms = start.elapsed_time(end)
+    flash_ms = sum(a.elapsed_time(z) for a, z in flash_events)
+    after_prefill = ops.launch_counts()
+    print(f"prefill {b}x{s0}: {prefill_ms:.1f} ms, flash_attention "
+          f"{flash_ms:.1f} ms in {len(flash_events)} launches "
+          f"({flash_ms / prefill_ms:.1%} of prefill); launches "
+          f"{after_prefill}")
+    if after_prefill["flash_attention"] != cfg.n_layers:
+        raise AssertionError(f"prefill launched flash_attention "
+                             f"{after_prefill['flash_attention']} times, "
+                             f"not once per layer ({cfg.n_layers})")
+    if logits.shape != (b, s0, cfg.vocab) or \
+            not bool(torch.isfinite(logits).all()) or caches.kv.length != s0:
+        raise AssertionError("prefill: bad logits or cache length")
+
+    # Greedy decode from the prefill's cache.
+    last = logits[:, -1]
+    tok = torch.argmax(last, dim=-1)[:, None]
+    generated, decode_logits = [tok], []
+    start.record()
+    for _ in range(n_new):
+        step_logits, caches = api.decode_step(model, cfg, tok, caches)
+        decode_logits.append(step_logits[:, 0])
+        tok = torch.argmax(step_logits[:, -1], dim=-1)[:, None]
+        generated.append(tok)
+    end.record()
+    torch.cuda.synchronize()
+    decode_ms = start.elapsed_time(end) / n_new
+    print(f"decode {n_new} tokens x {b} requests: {decode_ms:.2f} ms/token "
+          f"({aten_calls_per_decode_step(torch, api, model, cfg, b)} ATen "
+          f"calls a step); launches {ops.launch_counts()}")
+    if ops.launch_counts() != after_prefill or caches.kv.length != max_s:
+        raise AssertionError("decode launched a kernel or lost a token")
+
+    # Re-prefill over prompt + the 128 tokens fed to decode.
+    seq = torch.cat([prompt] + generated[:-1], dim=1)
+    start.record()
+    logits2, _ = api.prefill(model, cfg, {"tokens": seq},
+                             api.init_caches(model, cfg, b, max_s))
+    end.record()
+    torch.cuda.synchronize()
+    reprefill_ms = start.elapsed_time(end)
+    launches = ops.launch_counts()
+    print(f"re-prefill {b}x{max_s}: {reprefill_ms:.1f} ms; launches "
+          f"{launches}")
+    if launches["flash_attention"] != 2 * cfg.n_layers:
+        raise AssertionError("re-prefill did not run flash_attention once "
+                             "per layer")
+
+    dec = torch.stack([last] + decode_logits, dim=1)           # (B, 129, V)
+    ref_logits = logits2[:, s0 - 1:]                           # (B, 129, V)
+    diff = (dec - ref_logits).abs()
+    max_err, mean_err = float(diff.max()), float(diff.mean())
+    top2 = torch.topk(ref_logits, 2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]
+    chosen = torch.cat(generated, dim=1)                       # (B, 129)
+    agree = chosen == torch.argmax(ref_logits, dim=-1)
+    decided = margin > DECODE_LOGIT_TOL
+    print(f"decode vs re-prefill logits over {dec.shape[1]} positions x "
+          f"{b}: max|d|={max_err:.4f} mean|d|={mean_err:.5f} (tol "
+          f"{DECODE_LOGIT_TOL}); logit std {float(ref_logits.std()):.3f}; "
+          f"greedy tokens agree at {int(agree.sum())}/{agree.numel()}, at "
+          f"{int((agree & decided).sum())}/{int(decided.sum())} where the "
+          f"re-prefill's top-2 margin exceeds the tolerance")
+    if not bool(torch.isfinite(dec).all()) or max_err > DECODE_LOGIT_TOL \
+            or not bool(agree[decided].all()):
+        raise AssertionError("decode disagrees with the re-prefill")
+    return {"prefill_ms": prefill_ms, "flash_ms": flash_ms,
+            "decode_ms_per_token": decode_ms, "reprefill_ms": reprefill_ms,
+            "launches": launches}
+
+
+def print_ptxas_report(log: Path) -> None:
+    """Registers, shared memory and spills per kernel (``-Xptxas=-v``);
+    the flash kernel's instantiations are named by type and head_dim."""
+    name = ""
+    for line in log.read_text().splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            inst = re.search(r"flash_kernelI(13__nv_bfloat16|f)Li(\d+)E",
+                             entry.group(1))
+            name = (f"flash_kernel<{'bf16' if inst.group(1) != 'f' else 'f32'}"
+                    f",{inst.group(2)}> " if inst else "")
+        if line.startswith("=="):
+            name = ""
+            print(f"  ptxas {line.strip()}")
+        elif "registers" in line or "spill" in line:
+            text = line.replace("ptxas info    :", "").strip()
+            print(f"  ptxas {name}{text}")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -394,19 +671,21 @@ def main() -> int:
           f"cuda {torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 GEMMs accumulate in float32 (no reduced-precision split-K).
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
     t0 = time.perf_counter()
     _build.library()
     print(f"build: {time.perf_counter() - t0:.1f}s ({_build.library_path().name})")
-    log = _build.library_path().with_suffix(".log")
-    for line in log.read_text().splitlines():
-        if line.startswith("==") or "registers" in line or "spill" in line:
-            print(f"  ptxas {line.strip()}")
+    print_ptxas_report(_build.library_path().with_suffix(".log"))
 
     results = check_kernels(torch, np)
     with tempfile.TemporaryDirectory(prefix="chip-smoke-atlas-") as d:
         launches = run_sweeps(torch, Path(d))
     check_algorithms(torch)
+    results["flash_attention"] = check_flash(torch, np)
+    served = serve_model(torch, np)
+    launches["flash_attention"] = served["launches"]["flash_attention"]
 
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():

@@ -1,0 +1,18 @@
+"""Architecture configs of the port (the dense family) and the shape
+cells, copied from the reference package's ``configs``."""
+
+from .base import (
+    ALIASES,
+    ARCH_IDS,
+    PORTED_ARCHS,
+    SHAPES,
+    ShapeSpec,
+    get,
+    get_smoke,
+    normalize,
+)
+
+__all__ = [
+    "ALIASES", "ARCH_IDS", "PORTED_ARCHS", "SHAPES", "ShapeSpec", "get",
+    "get_smoke", "normalize",
+]

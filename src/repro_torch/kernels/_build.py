@@ -36,7 +36,8 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v",
               *ARCH_FLAGS]
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_STRIDED = [_P, _L, _L, _L, _L]   # data pointer, then (B, H, S, D) strides
 
 #: C entry points and their argument types (pointers and the stream as
 #: ``c_void_p`` so ctypes never truncates them to 32 bits).
@@ -52,6 +53,10 @@ SIGNATURES: Dict[str, List[type]] = {
                              _I, _I, _I, _I, _P],
     # a, sa0, sa1, b, sb0, sb1, out, m, k, l, stream
     "repro_gemm_syrk_f32": [_P, _L, _L, _P, _L, _L, _P, _I, _I, _I, _P],
+    # dtype, head_dim, q, k, v, o (each strided), batch, heads, kv_heads,
+    # seq, scale, softcap, causal, window, stream
+    "repro_flash_attention": [_I, _I, *(_STRIDED * 4), _I, _I, _I, _I,
+                              _F, _F, _I, _I, _P],
 }
 
 _lock = threading.Lock()

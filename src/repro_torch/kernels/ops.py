@@ -9,27 +9,30 @@ mismatched dims), then dispatches on where the operands lie:
 * on the CPU, it runs the plain PyTorch version in :mod:`.ref`, which is
   what the CPU tests compare with the reference package.
 
-``tri2full`` is data movement (the paper charges it no flops) and stays a
-plain tensor op on either device, as in the reference.
+``flash_attention`` keeps the reference's (B, H, S, D) layout at its
+boundary. ``tri2full`` is data movement (the paper charges it no flops)
+and stays a plain tensor op on either device, as in the reference.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
 from . import chain_gemm as _chain_gemm
+from . import flash_attention as _flash
 from . import gemm as _gemm
 from . import gemm_syrk as _gemm_syrk
 from . import ref
 from . import symm as _symm
 from . import syrk as _syrk
-from ._checks import check_matrices, check_same
+from ._checks import check_attention, check_matrices, check_same
 
 #: The kernel modules, each holding its own ``launches`` counter.
 KERNELS = {"gemm": _gemm, "syrk": _syrk, "symm": _symm,
-           "chain_gemm": _chain_gemm, "gemm_syrk": _gemm_syrk}
+           "chain_gemm": _chain_gemm, "gemm_syrk": _gemm_syrk,
+           "flash_attention": _flash}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -102,6 +105,25 @@ def gemm_syrk(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if _on_card("gemm_syrk", a):
         return _gemm_syrk.gemm_syrk_cuda(a, b)
     return ref.gemm_syrk(a, b)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, scale: Optional[float] = None,
+                    logit_softcap: float = 0.0,
+                    window: int = 0) -> torch.Tensor:
+    """Attention over q (B, H, S, D) and k/v (B, Hkv, S, D) with GQA,
+    optional causal mask, sliding window and logit soft-cap; any S (on the
+    card the kernel masks the ragged tile, so there is no fallback)."""
+    check_attention("flash_attention", _flash.HEAD_DIMS,
+                    tuple(_flash.DTYPES), q, k, v, window)
+    if scale is None:
+        scale = q.shape[3] ** -0.5
+    if _on_card("flash_attention", q):
+        return _flash.flash_attention_cuda(
+            q, k, v, causal=causal, scale=scale,
+            logit_softcap=logit_softcap, window=window)
+    return ref.flash_attention(q, k, v, causal=causal, scale=scale,
+                               logit_softcap=logit_softcap, window=window)
 
 
 def tri2full(t: torch.Tensor) -> torch.Tensor:

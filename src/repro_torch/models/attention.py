@@ -1,0 +1,222 @@
+"""GQA attention with full / flash / sliding-window variants + KV cache.
+
+Counterpart of the reference's ``models/attention.py`` for inference:
+
+* ``apply_train`` — full sequence, causal (or bidirectional); with
+  ``differentiable=False`` (prefill) it runs the hand-written flash
+  kernel when the sequence is a multiple of 128 and at least 256, else
+  masked dense attention — the reference's routing exactly. The chunked
+  attention with its custom VJP is the training path and is not ported
+  (ROADMAP A8): a differentiable call that would take it raises.
+* ``apply_prefill`` — the same forward, writing K/V into the cache.
+* ``apply_decode`` — one new token against the cache.
+
+Caches are updated in place (the reference returns new arrays): a
+serving loop owns its cache, and a functional update would copy all of
+it every token (~0.4 GB for Yi-9B serving 2 × 2176 tokens). The sharding hooks of the reference are
+identity outside a mesh and are left out.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.kernels import ops as kops
+
+from .layers import Dense, apply_rope, dense, softcap
+
+
+class AttnConfig(NamedTuple):
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    rope_theta: float = 10000.0
+    logit_softcap: float = 0.0      # gemma2: 50.0
+    window: int = 0                 # 0 = global; >0 = sliding window
+    causal: bool = True
+    use_flash: bool = True
+    query_pre_scale: Optional[float] = None  # gemma2 scales by head_dim**-.5
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor     # (B, max_s, Hkv, Dh)
+    v: torch.Tensor     # (B, max_s, Hkv, Dh)
+    length: int         # tokens currently valid
+
+
+class Attention(nn.Module):
+    def __init__(self, cfg: AttnConfig, *, generator, device, dtype):
+        super().__init__()
+        kw = dict(generator=generator, device=device, dtype=dtype)
+        hd = cfg.head_dim
+        self.wq = Dense(cfg.d_model, cfg.n_heads * hd, **kw)
+        self.wk = Dense(cfg.d_model, cfg.n_kv_heads * hd, **kw)
+        self.wv = Dense(cfg.d_model, cfg.n_kv_heads * hd, **kw)
+        self.wo = Dense(cfg.n_heads * hd, cfg.d_model, **kw)
+
+
+def _project_qkv(p: Attention, cfg: AttnConfig, x: torch.Tensor,
+                 positions: torch.Tensor, rope: Optional[Tuple]):
+    b, s, _ = x.shape
+    q = dense(p.wq, x).view(b, s, cfg.n_heads, cfg.head_dim)
+    k = dense(p.wk, x).view(b, s, cfg.n_kv_heads, cfg.head_dim)
+    v = dense(p.wv, x).view(b, s, cfg.n_kv_heads, cfg.head_dim)
+    if rope is not None:
+        cos, sin = rope
+        q = apply_rope(q, cos, sin, positions)
+        k = apply_rope(k, cos, sin, positions)
+    return q, k, v
+
+
+def _dense_attention(cfg: AttnConfig, q, k, v) -> torch.Tensor:
+    """Masked dense attention; q: (B,Sq,H,Dh), k/v: (B,Sk,Hkv,Dh)."""
+    b, sq, h, dh = q.shape
+    sk = k.shape[1]
+    group = h // k.shape[2]
+    scale = cfg.query_pre_scale or dh ** -0.5
+    kq = k.repeat_interleave(group, dim=2)
+    vq = v.repeat_interleave(group, dim=2)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), kq.float()) * scale
+    logits = softcap(logits, cfg.logit_softcap)
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if cfg.causal:
+        mask &= qpos >= kpos
+    if cfg.window > 0:
+        mask &= qpos - kpos < cfg.window
+    logits = logits.masked_fill(~mask, -1e30)
+    p = torch.softmax(logits, dim=-1).to(vq.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", p, vq)
+
+
+# Sequence length above which training uses the chunked (flash-style)
+# attention instead of materializing the S×S logits.
+CHUNKED_THRESHOLD = 2048
+
+
+def apply_train(p: Attention, cfg: AttnConfig, x: torch.Tensor,
+                rope: Optional[Tuple] = None,
+                positions: Optional[torch.Tensor] = None,
+                return_kv: bool = False,
+                differentiable: bool = True):
+    """Full-sequence attention (training forward / prefill compute).
+
+    ``differentiable=False`` (inference prefill) routes through the flash
+    kernel; the (B, S, H, D) projections go in as (B, H, S, D) views and
+    the kernel's output comes back (B, S, H, D)-contiguous, so neither
+    transpose copies on the card.
+    """
+    b, s, _ = x.shape
+    if positions is None:
+        positions = torch.arange(s, device=x.device).expand(b, s)
+    q, k, v = _project_qkv(p, cfg, x, positions, rope)
+    use_flash = (not differentiable and cfg.use_flash
+                 and s % 128 == 0 and s >= 256)
+    if use_flash:
+        scale = cfg.query_pre_scale or cfg.head_dim ** -0.5
+        out = kops.flash_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            causal=cfg.causal, scale=scale,
+            logit_softcap=cfg.logit_softcap, window=cfg.window,
+        ).transpose(1, 2)
+    elif s >= CHUNKED_THRESHOLD and s % 512 == 0:
+        raise NotImplementedError(
+            f"differentiable attention at S={s} takes the chunked path with "
+            f"its custom VJP, which comes with the training slice (ROADMAP "
+            f"A8); inference prefill passes differentiable=False")
+    else:
+        out = _dense_attention(cfg, q, k, v)
+    out = out.reshape(b, s, cfg.n_heads * cfg.head_dim)
+    proj = dense(p.wo, out)
+    if return_kv:
+        return proj, (k, v)
+    return proj
+
+
+def apply_prefill(p: Attention, cfg: AttnConfig, x: torch.Tensor,
+                  cache: KVCache, rope: Optional[Tuple] = None
+                  ) -> Tuple[torch.Tensor, KVCache]:
+    """Prefill attention; K/V are stored at positions 0..S-1 in place."""
+    s = x.shape[1]
+    proj, (k, v) = apply_train(p, cfg, x, rope=rope, return_kv=True,
+                               differentiable=False)
+    cache.k[:, :s] = k
+    cache.v[:, :s] = v
+    return proj, KVCache(cache.k, cache.v, s)
+
+
+def planned_pv_right_first(t: int, s: int, head_dim: int,
+                           d_model: int) -> bool:
+    """Associate decode P·V·Wo right-first? Always left here.
+
+    The reference asks its serving plan cache (``REPRO_SERVE_PLANNER``);
+    that cache is not ported yet (ROADMAP A6), so this returns the left
+    association, which is the reference's ``REPRO_SERVE_PLANNER=0``
+    behaviour. For the decode geometries of all four dense configs
+    (t = 1, head_dim ≤ d_model) the reference's planner picks left too:
+    right costs s·head_dim·d_model multiply-adds per head against left's
+    s·head_dim.
+    """
+    return False
+
+
+def pv_wo_output(p_attn: torch.Tensor, v: torch.Tensor, wo: Dense,
+                 n_heads: int, head_dim: int, out_dtype) -> torch.Tensor:
+    """Decode value→output tail ``(P·V)·Wo``, left-associated (see
+    :func:`planned_pv_right_first`).
+
+    ``p_attn`` (B, H, 1, K) are the softmax probabilities and ``v``
+    (B, K, Hkv, head_dim) the cached values. Query head ``h`` reads kv
+    head ``h // (H // Hkv)``: the same products as the reference's
+    head-expanded ``repeat``, without copying the cache.
+    """
+    b, _, _, kk = p_attn.shape
+    hkv = v.shape[2]
+    pg = p_attn.reshape(b, hkv, n_heads // hkv, kk)
+    out = torch.einsum("bhgk,bkhd->bhgd", pg, v.to(p_attn.dtype))
+    out = out.reshape(b, 1, n_heads * head_dim)
+    return dense(wo, out.to(out_dtype))
+
+
+def apply_decode(p: Attention, cfg: AttnConfig, x: torch.Tensor,
+                 cache: KVCache, rope: Optional[Tuple] = None
+                 ) -> Tuple[torch.Tensor, KVCache]:
+    """One-token step: x (B, 1, d). K/V are written into the cache at
+    ``length`` (in place), then the new token attends to positions
+    0..length (the last ``window`` of them if ``window`` > 0).
+
+    The cache quantizes *storage* only (bf16 k/v): the contraction runs
+    at activation precision, float32 logits and probabilities, as in the
+    reference. Only the visible slice of the cache is read; the reference
+    masks the rest with -1e30, whose softmax weights are exactly zero.
+    """
+    b, s1, _ = x.shape
+    if s1 != 1:
+        raise ValueError(f"apply_decode takes one token per sequence, got "
+                         f"x of shape {tuple(x.shape)}")
+    idx = cache.length
+    if idx >= cache.k.shape[1]:
+        raise ValueError(f"KV cache full: length {idx} of "
+                         f"{cache.k.shape[1]} positions")
+    pos = torch.full((b, 1), idx, device=x.device, dtype=torch.long)
+    q, k, v = _project_qkv(p, cfg, x, pos, rope)
+    cache.k[:, idx] = k[:, 0]
+    cache.v[:, idx] = v[:, 0]
+    lo = max(0, idx + 1 - cfg.window) if cfg.window > 0 else 0
+    keys = cache.k[:, lo:idx + 1]             # (B, n, Hkv, Dh)
+    vals = cache.v[:, lo:idx + 1]
+    hkv = cfg.n_kv_heads
+    scale = cfg.query_pre_scale or cfg.head_dim ** -0.5
+    qg = q.reshape(b, hkv, cfg.n_heads // hkv, cfg.head_dim)
+    logits = torch.einsum("bhgd,bkhd->bhgk", qg.float(),
+                          keys.to(q.dtype).float()) * scale
+    logits = softcap(logits, cfg.logit_softcap)
+    p_attn = torch.softmax(logits, dim=-1).reshape(b, cfg.n_heads, 1, -1)
+    proj = pv_wo_output(p_attn, vals.to(q.dtype), p.wo, cfg.n_heads,
+                        cfg.head_dim, x.dtype)
+    return proj, KVCache(cache.k, cache.v, idx + 1)

@@ -1,0 +1,77 @@
+"""Carry the reference package's weights into the port.
+
+``from_reference_params(params, cfg)`` takes the reference's parameter
+pytree — nested dicts of arrays (numpy or anything ``numpy.asarray``
+reads, bfloat16 included), the blocks stacked on axis 0 — and returns a
+:class:`~repro_torch.models.transformer.DecoderLM` holding the same
+values. Every leaf must land on exactly one parameter of the same shape:
+a missing, unused or mis-shaped leaf raises :class:`ValueError`. This
+module imports no JAX; callers hand it arrays.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+from . import transformer
+from .layers import resolve_device
+from .transformer import DecoderLM, ModelConfig
+
+
+def _flatten(tree: Mapping[str, Any], prefix: str,
+             out: Dict[str, np.ndarray]) -> None:
+    for key, value in tree.items():
+        if isinstance(value, Mapping):
+            _flatten(value, f"{prefix}{key}.", out)
+        else:
+            out[f"{prefix}{key}"] = np.asarray(value)
+
+
+def _reference_state(params: Mapping[str, Any],
+                    cfg: ModelConfig) -> Dict[str, np.ndarray]:
+    """The reference pytree as state-dict keys: ``blocks.<i>.<path>`` for
+    each layer ``i`` of a stacked block leaf, ``<path>`` otherwise."""
+    flat: Dict[str, np.ndarray] = {}
+    for key, value in params.items():
+        if key != "blocks":
+            _flatten({key: value}, "", flat)
+            continue
+        stacked: Dict[str, np.ndarray] = {}
+        _flatten(value, "", stacked)
+        for path, arr in stacked.items():
+            if arr.ndim == 0 or arr.shape[0] != cfg.n_layers:
+                raise ValueError(f"blocks.{path}: leading axis of shape "
+                                 f"{arr.shape} is not the {cfg.n_layers} "
+                                 f"layers")
+            for i in range(cfg.n_layers):
+                flat[f"blocks.{i}.{path}"] = arr[i]
+    return flat
+
+
+@torch.no_grad()
+def from_reference_params(params: Mapping[str, Any], cfg: ModelConfig, *,
+                          device=None, dtype=torch.float32) -> DecoderLM:
+    """The reference's weights in a port model on ``device`` (the card
+    unless ``device="cpu"``), cast to ``dtype``."""
+    device = resolve_device(device)
+    model = transformer.init(cfg, None, device="meta", dtype=dtype)
+    flat = _reference_state(params, cfg)
+    expected = model.state_dict()
+    missing = sorted(set(expected) - set(flat))
+    unused = sorted(set(flat) - set(expected))
+    if missing or unused:
+        raise ValueError(f"{cfg.name}: reference parameters do not match "
+                         f"the port's: missing {missing}, unused {unused}")
+    for name, want in expected.items():
+        if tuple(flat[name].shape) != tuple(want.shape):
+            raise ValueError(f"{name}: reference shape "
+                             f"{tuple(flat[name].shape)}, port shape "
+                             f"{tuple(want.shape)}")
+    model = model.to_empty(device=device)
+    for name, param in model.state_dict().items():
+        value = np.array(flat[name], dtype=np.float32)   # a writable copy
+        param.copy_(torch.from_numpy(value).to(dtype))
+    return model

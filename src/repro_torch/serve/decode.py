@@ -1,0 +1,91 @@
+"""Serving steps: single-token decode (greedy/temperature) and generation.
+
+Counterpart of the reference's ``serve/decode.py``. ``serve_step`` is one
+new token for the whole batch against the KV cache; ``generate`` feeds a
+prompt token by token (teacher-forced) and then decodes. The reference
+consults its serving plan cache in the decode attention tail and warms
+it in :func:`plan_warmup`; that cache is not ported yet (ROADMAP A6), so
+decode takes the left association and :func:`plan_warmup` warms nothing.
+Sampling draws from an explicit ``torch.Generator`` seeded by ``seed``
+(its numbers differ from ``jax.random``'s; greedy decoding does not
+sample).
+"""
+
+from __future__ import annotations
+
+import functools
+import time
+from typing import Any, List, NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.models import api
+from repro_torch.models.transformer import ModelConfig
+from repro_torch.runtime.supervisor import StragglerMonitor
+
+
+def plan_warmup(cfg: ModelConfig, max_s: int) -> List[Tuple[str, Tuple]]:
+    """The (family, dims) pairs warmed in the plan cache: none until the
+    plan cache is ported (the reference's ``REPRO_SERVE_PLANNER=0``)."""
+    return []
+
+
+class ServeState(NamedTuple):
+    caches: Any
+    last_tokens: torch.Tensor     # (B, 1) int64
+    rng: torch.Generator
+
+
+def serve_step(state: ServeState, params: Any, *, cfg: ModelConfig,
+               temperature: float = 0.0
+               ) -> Tuple[ServeState, torch.Tensor]:
+    """One decode step for the whole batch → (new state, next tokens)."""
+    logits, caches = api.decode_step(params, cfg, state.last_tokens,
+                                     state.caches)
+    logits = logits[:, -1, :]
+    if temperature > 0:
+        probs = torch.softmax(logits / temperature, dim=-1)
+        nxt = torch.multinomial(probs, 1, generator=state.rng)[:, 0]
+    else:
+        nxt = torch.argmax(logits, dim=-1)
+    nxt = nxt[:, None]
+    return state._replace(caches=caches, last_tokens=nxt), nxt
+
+
+def make_serve_step(cfg: ModelConfig, **kw):
+    return functools.partial(serve_step, cfg=cfg, **kw)
+
+
+def generate(params: Any, cfg: ModelConfig, prompt, max_new: int,
+             max_s: Optional[int] = None, temperature: float = 0.0,
+             seed: int = 0,
+             monitor: Optional[StragglerMonitor] = None) -> torch.Tensor:
+    """Greedy/temperature generation: prompt (B, S0) → (B, S0 + max_new).
+
+    The prompt fills the caches token by token, as in the reference (its
+    predictions are ignored). Pass a ``monitor`` to feed decode step wall
+    times (synchronised with the card) into a straggler watchdog.
+    """
+    device = params.embed.w.device
+    prompt = torch.as_tensor(prompt, device=device).long()
+    b, s0 = prompt.shape
+    max_s = max_s or (s0 + max_new + 1)
+    plan_warmup(cfg, max_s)
+    caches = api.init_caches(params, cfg, b, max_s)
+    state = ServeState(caches=caches, last_tokens=prompt[:, :1],
+                       rng=torch.Generator(device=device).manual_seed(seed))
+    step = make_serve_step(cfg, temperature=temperature)
+    # Teacher-forced prefill: feed prompt tokens, ignore predictions.
+    for i in range(s0 - 1):
+        state, _ = step(state, params)
+        state = state._replace(last_tokens=prompt[:, i + 1: i + 2])
+    gen = []
+    for n in range(max_new):
+        t0 = time.perf_counter()
+        state, nxt = step(state, params)
+        if monitor is not None:
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            monitor.observe(n, time.perf_counter() - t0)
+        gen.append(nxt)
+    return torch.cat([prompt] + gen, dim=1)

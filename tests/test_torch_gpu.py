@@ -15,6 +15,10 @@ The fused GEMM+SYRK is held as chip_smoke.py holds it: max |kernel - plain|
 while entries off it are ~sqrt(l)·k, so one element-wise atol cannot fit
 both; float32 rounding of sums that large is ~1e-7 of the largest value
 per term added, and the atomics add the l-chunks in a varying order.
+Flash attention compares at rtol=atol=1e-4 in float32 and 2**-6 in
+bfloat16 (outputs of magnitude ~1, one bfloat16 ulp is 2**-7; kernel and
+plain version round p at different points), as in
+tests/test_torch_kernels.py.
 """
 
 import numpy as np
@@ -27,6 +31,9 @@ pytestmark = pytest.mark.gpu
 
 TOL = dict(rtol=1e-4, atol=1e-3)
 CHAIN_TOL = dict(rtol=1e-4, atol=1e-2)
+#: The kernels the algorithm backends dispatch to (flash attention serves
+#: the models).
+SWEEP_KERNELS = ("gemm", "syrk", "symm", "chain_gemm", "gemm_syrk")
 
 
 @pytest.fixture
@@ -106,7 +113,8 @@ def test_every_algorithm_on_cuda_backend_matches_torch_backend(cuda):
             operands = kernels.make_operands(alg)
             _close(kernels.execute(alg, operands),
                    plain.execute(alg, operands), CHAIN_TOL)
-    assert all(v > 0 for v in ops.launch_counts().values())
+    counts = ops.launch_counts()
+    assert all(counts[k] > 0 for k in SWEEP_KERNELS), counts
 
 
 def _close_scaled(got, want, atol=1e-2, rtol=1e-5):
@@ -148,7 +156,8 @@ def test_every_family_on_cuda_backend_matches_torch_backend(cuda,
             operands = kernels.make_operands(alg)
             _close_scaled(kernels.execute(alg, operands),
                           plain.execute(alg, operands), rtol=1e-4)
-    assert all(v > 0 for v in ops.launch_counts().values())
+    counts = ops.launch_counts()
+    assert all(counts[k] > 0 for k in SWEEP_KERNELS), counts
 
 
 def test_abab_alg2_without_fusion_launches_gemm_and_syrk(cuda, monkeypatch):
@@ -162,9 +171,72 @@ def test_abab_alg2_without_fusion_launches_gemm_and_syrk(cuda, monkeypatch):
     ops.reset_launch_counts()
     fused = backend.execute(alg, operands)
     assert ops.launch_counts() == {"gemm": 0, "syrk": 0, "symm": 0,
-                                   "chain_gemm": 0, "gemm_syrk": 1}
+                                   "chain_gemm": 0, "gemm_syrk": 1,
+                                   "flash_attention": 0}
     monkeypatch.setenv("REPRO_NO_FUSION", "1")
     ops.reset_launch_counts()
     _close_scaled(backend.execute(alg, operands), fused)
     assert ops.launch_counts() == {"gemm": 1, "syrk": 1, "symm": 0,
-                                   "chain_gemm": 0, "gemm_syrk": 0}
+                                   "chain_gemm": 0, "gemm_syrk": 0,
+                                   "flash_attention": 0}
+
+
+ATTN_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
+            torch.bfloat16: dict(rtol=2 ** -6, atol=2 ** -6)}
+
+
+@pytest.mark.parametrize("b,h,hkv,s,d,dtype,kwargs", [
+    (2, 4, 2, 256, 64, torch.float32, dict(causal=True)),
+    (2, 4, 2, 256, 64, torch.float32, dict(causal=False)),
+    (2, 4, 2, 256, 64, torch.float32, dict(logit_softcap=30.0)),
+    (2, 4, 2, 256, 64, torch.float32, dict(window=128)),
+    (2, 4, 2, 256, 64, torch.float32, dict(window=64, logit_softcap=20.0)),
+    (1, 2, 2, 384, 32, torch.float32, dict()),
+    (1, 8, 2, 1000, 96, torch.float32, dict(causal=False)),
+    (1, 4, 4, 70, 16, torch.float32, dict(causal=False, window=20)),
+    (2, 32, 4, 512, 128, torch.bfloat16, dict()),
+    (1, 16, 8, 640, 256, torch.bfloat16, dict(window=300,
+                                               logit_softcap=50.0)),
+    (1, 4, 2, 333, 256, torch.float32, dict()),
+    (1, 4, 1, 1, 128, torch.bfloat16, dict()),
+])
+def test_flash_attention_kernel(cuda, b, h, hkv, s, d, dtype, kwargs):
+    rng = np.random.default_rng(b * h + s + d)
+
+    def heads(n, scale):   # (B, S, n, D) buffer seen as (B, n, S, D)
+        x = rng.standard_normal((b, s, n, d)) * scale
+        return torch.from_numpy(x).to(dtype).to(cuda).transpose(1, 2)
+
+    q, k, v = heads(h, 0.3), heads(hkv, 0.3), heads(hkv, 1.0)
+    before = ops.launch_counts()["flash_attention"]
+    out = ops.flash_attention(q, k, v, **kwargs)
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    assert out.shape == (b, h, s, d) and out.dtype == dtype
+    assert out.transpose(1, 2).is_contiguous()
+    want = ref.flash_attention(q, k, v, **kwargs)
+    _close(out.float(), want.float(), ATTN_TOL[dtype])
+
+
+
+@pytest.mark.parametrize("arch", ["yi_9b", "gemma2_9b", "phi3_mini"])
+def test_smoke_model_prefill_on_card_runs_flash_and_matches_cpu(cuda, arch):
+    """A float32 smoke model: prefill at S=256 launches the kernel once per
+    layer and agrees with the same weights on the CPU (plain version)."""
+    import copy
+
+    from repro_torch import configs
+    from repro_torch.models import api
+    cfg = configs.get_smoke(arch)
+    cpu = api.init(cfg, seed=0, device="cpu")
+    card = copy.deepcopy(cpu).to(cuda)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, (2, 256))
+    ops.reset_launch_counts()
+    got, caches = api.prefill(card, cfg, {"tokens": toks},
+                              api.init_caches(card, cfg, 2, 260))
+    assert ops.launch_counts()["flash_attention"] == cfg.n_layers
+    want, _ = api.prefill(cpu, cfg, {"tokens": toks},
+                          api.init_caches(cpu, cfg, 2, 260))
+    _close(got, want, dict(rtol=1e-4, atol=1e-4))
+    step, _ = api.decode_step(card, cfg, toks[:, :1], caches)
+    assert step.shape == (2, 1, cfg.vocab)
+    assert bool(torch.isfinite(step).all())

@@ -5,7 +5,12 @@ CPU tensors; ``repro.kernels.ops`` runs the Pallas kernels in interpret
 mode here, as the reference's own tests do. Same numpy inputs into both;
 float32 compares at rtol=1e-4, atol=1e-3, the chain and the fused
 GEMM+SYRK at atol=1e-2 (their second contraction runs over larger values:
-the fused product's diagonal is ~l·k), as in tests/test_kernels.py.
+the fused product's diagonal is ~l·k), as in tests/test_kernels.py;
+flash attention at rtol=atol=1e-4 in float32 (as the reference's own
+flash tests) and rtol=atol=2**-6 in bfloat16: outputs are weighted means
+of values of magnitude ~1, where one bfloat16 ulp is 2**-7, and the two
+sides round p at different points (the kernel before normalising, the
+reference after) and round the output once each.
 The CUDA kernels themselves are checked on the card by
 tests/test_torch_gpu.py and chip_smoke.py.
 """
@@ -160,8 +165,11 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     ops.symm(torch.eye(4), a)
     ops.chain_gemm(a, a.mT, a)
     ops.gemm_syrk(a, a.mT)
+    q = torch.ones(1, 2, 5, 16)
+    ops.flash_attention(q, q, q)
     assert ops.launch_counts() == before
-    assert set(before) == {"gemm", "syrk", "symm", "chain_gemm", "gemm_syrk"}
+    assert set(before) == {"gemm", "syrk", "symm", "chain_gemm", "gemm_syrk",
+                           "flash_attention"}
 
 
 def test_build_without_nvcc_raises(monkeypatch):
@@ -172,3 +180,92 @@ def test_build_without_nvcc_raises(monkeypatch):
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build()
+
+
+# ------------------------------------------------------- flash attention ---
+
+ATTN_TOL = dict(rtol=1e-4, atol=1e-4)
+ATTN_BF16_TOL = dict(rtol=2 ** -6, atol=2 ** -6)
+
+
+def _attention_inputs(seed, b, h, hkv, s, d):
+    rng = np.random.default_rng(seed)
+    return (_rand(rng, b, h, s, d) * 0.3, _rand(rng, b, hkv, s, d) * 0.3,
+            _rand(rng, b, hkv, s, d))
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(causal=True),
+    dict(causal=False),
+    dict(causal=True, logit_softcap=30.0),
+    dict(causal=True, window=128),
+    dict(causal=True, window=64, logit_softcap=20.0),
+])
+def test_flash_attention_matches_reference_variants(kwargs):
+    q, k, v = _attention_inputs(11, 2, 4, 2, 256, 64)
+    want = np.asarray(jops.flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), **kwargs))
+    got = ops.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                              torch.from_numpy(v), **kwargs)
+    assert got.shape == (2, 4, 256, 64) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, **ATTN_TOL)
+
+
+@pytest.mark.parametrize("b,h,hkv,s,d,kwargs", [
+    (1, 2, 2, 384, 32, dict()),                       # MHA, no GQA
+    (1, 2, 1, 100, 32, dict(causal=False)),           # ragged S
+    (1, 4, 2, 200, 96, dict(window=50)),              # phi3's head_dim
+])
+def test_flash_attention_matches_reference_shapes(b, h, hkv, s, d, kwargs):
+    q, k, v = _attention_inputs(b + h + s, b, h, hkv, s, d)
+    want = np.asarray(jops.flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), **kwargs))
+    got = ops.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                              torch.from_numpy(v), **kwargs)
+    np.testing.assert_allclose(got.numpy(), want, **ATTN_TOL)
+
+
+def test_flash_attention_bf16_matches_reference():
+    q, k, v = _attention_inputs(5, 1, 4, 2, 256, 32)
+    to_j = lambda x: jnp.asarray(x, dtype=jnp.bfloat16)
+    to_t = lambda x: torch.from_numpy(x).to(torch.bfloat16)
+    kwargs = dict(causal=True, window=96, logit_softcap=50.0)
+    want = jops.flash_attention(to_j(q), to_j(k), to_j(v), **kwargs)
+    got = ops.flash_attention(to_t(q), to_t(k), to_t(v), **kwargs)
+    assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, dtype=np.float32),
+                               **ATTN_BF16_TOL)
+
+
+def test_flash_attention_reads_strided_views():
+    """The model passes (B, S, H, D) buffers as (B, H, S, D) views."""
+    q, k, v = _attention_inputs(9, 2, 4, 2, 130, 16)
+    views = [torch.from_numpy(np.ascontiguousarray(x.transpose(0, 2, 1, 3)))
+             .transpose(1, 2) for x in (q, k, v)]
+    assert not views[0].is_contiguous()
+    dense = ops.flash_attention(*(torch.from_numpy(x) for x in (q, k, v)))
+    np.testing.assert_array_equal(ops.flash_attention(*views).numpy(),
+                                  dense.numpy())
+
+
+def test_flash_attention_bad_head_dim_and_heads_raise_valueerror():
+    z = torch.zeros
+    with pytest.raises(ValueError, match=r"head_dim D=48 is not one of"):
+        ops.flash_attention(z(1, 2, 8, 48), z(1, 2, 8, 48), z(1, 2, 8, 48))
+    with pytest.raises(ValueError, match=r"mismatched heads: H=6.*Hkv=4"):
+        ops.flash_attention(z(1, 6, 8, 16), z(1, 4, 8, 16), z(1, 4, 8, 16))
+    with pytest.raises(ValueError, match=r"kv heads Hkv"):
+        ops.flash_attention(z(1, 4, 8, 16), z(1, 2, 8, 16), z(1, 1, 8, 16))
+    with pytest.raises(ValueError, match=r"sequence dim S"):
+        ops.flash_attention(z(1, 4, 8, 16), z(1, 2, 9, 16), z(1, 2, 9, 16))
+    with pytest.raises(ValueError, match=r"head_dim D mismatch"):
+        ops.flash_attention(z(1, 4, 8, 16), z(1, 2, 8, 32), z(1, 2, 8, 32))
+    with pytest.raises(ValueError, match=r"share one dtype"):
+        ops.flash_attention(z(1, 2, 8, 16, dtype=torch.float64),
+                            z(1, 2, 8, 16), z(1, 2, 8, 16))
+    with pytest.raises(ValueError, match=r"must be \(B, H, S, D\)"):
+        ops.flash_attention(z(2, 8, 16), z(1, 2, 8, 16), z(1, 2, 8, 16))
+    with pytest.raises(ValueError, match=r"window=-1"):
+        ops.flash_attention(z(1, 2, 8, 16), z(1, 2, 8, 16), z(1, 2, 8, 16),
+                            window=-1)
