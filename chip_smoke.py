@@ -12,7 +12,10 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
 3. hold each kernel against its plain PyTorch version at a main-path
    shape and at a ragged shape with transposed-view inputs, and time it
    beside its plain version, one PyTorch call of the same function
-   (``library_ms``) and the card's bound for the same work;
+   (``library_ms``) and the card's bound for the same work, one call per
+   event pair (``ms``) and ten back to back (``ms_b2b``); time the GEMM
+   at the sweep's three shapes under the launch ``gemm_config`` picks,
+   with blocks, waves over the SMs, TFLOP/s and share of bound;
 4. run the paper's measured anomaly sweep — ``aatb`` over
    (400, 800, 1200)³, ``abcd`` over (400, 1200)⁵ and ``abab``, whose
    alg2 is the fused GEMM+SYRK, over (400, 800, 1200)³ — on the ``cuda``
@@ -24,9 +27,12 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    ``REPRO_NO_FUSION`` set (two kernels instead of one);
 6. hold the flash-attention kernel against its plain version at Yi-9B's
    prefill shape (bf16, strided (B, S, H, D) views), a ragged float32
-   non-causal shape, a gemma2-shaped bf16 window + soft-cap shape and a
-   float32 MHA window + soft-cap shape, and time it beside its plain
-   version, PyTorch's ``scaled_dot_product_attention`` and its bound;
+   non-causal shape, a gemma2-shaped bf16 window + soft-cap shape, a
+   float32 MHA window + soft-cap shape and bf16 at every other head_dim
+   of the tensor-core kernel, on logits sharp enough that the check
+   rejects a planted fault (one key tile dropped), and time it beside its
+   plain version, PyTorch's ``scaled_dot_product_attention`` and its
+   bound;
 7. serve Yi-9B at full width and depth in bf16 on random weights: prefill
    2 requests of 2048 tokens through ``api.prefill`` (the flash kernel
    in each of the 48 layers), decode 128 greedy tokens from that cache
@@ -82,7 +88,9 @@ KERNEL_SOURCES = {
                    "src/repro/kernels/chain_gemm.py:64"),
     "gemm_syrk": ("src/repro_torch/kernels/csrc/gemm_syrk.cu",
                   "src/repro/kernels/chain_gemm.py:142"),
-    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+    # The main path (bf16 prefill) runs the tensor-core kernel; float32
+    # runs csrc/flash_attention.cu.
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention_tc.cu",
                         "src/repro/kernels/flash_attention.py:89"),
 }
 #: The kernels the anomaly sweep (phases 4-5) runs; the served model
@@ -110,11 +118,18 @@ def nvidia_smi_line() -> str:
     return out.strip().splitlines()[0].strip()
 
 
-def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median device time of ``fn`` in ms (CUDA events, warm-up excluded).
+def time_ms(torch, fn, reps: int = 20, warmup: int = 3,
+            inner: int = 1) -> float:
+    """Median time of one call of ``fn`` in ms: CUDA events around
+    ``inner`` calls, divided by ``inner``, warm-up excluded.
 
-    The inputs stay resident in the 50 MB L2 between calls, as they do
-    between the repetitions of a sweep.
+    With ``inner=1`` (every ``ms`` this script prints) the card is idle
+    when the first event is recorded, so the time includes the host's
+    work up to the launch: what one call, as the sweep makes it, costs. With
+    ``inner=10`` (``ms_b2b``) the host enqueues the next call while the
+    card runs this one, so a kernel longer than its wrapper's host work is
+    timed alone. The inputs stay resident in the 50 MB L2 between calls,
+    as they do between the repetitions of a sweep.
     """
     for _ in range(warmup):
         fn()
@@ -123,10 +138,11 @@ def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / inner)
     times.sort()
     return times[len(times) // 2]
 
@@ -231,6 +247,37 @@ def gemm_syrk_executed_flops(m: int, k: int, l: int) -> int:
     return pairs * lt * 2 * 64 * 64 * k + pairs * 2 * 64 * 64 * l
 
 
+#: (m, k, n) of the GEMM timings: the main-path row of PERF.md and the
+#: sweep's small shapes.
+GEMM_SHAPES = ((1200, 400, 1200), (400, 1200, 400), (800, 800, 800))
+
+
+def time_gemm_configs(torch, np) -> None:
+    """Phase 3: the GEMM at the sweep's shapes under the launch
+    ``gemm_config`` picks (``ab_bench.py`` times the other tiles)."""
+    from repro_torch.kernels import gemm as gemm_mod
+    from repro_torch.kernels import ops
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rng = np.random.default_rng(SEED)
+    for m, k, n in GEMM_SHAPES:
+        a = torch.from_numpy(rng.standard_normal((m, k))).float().cuda()
+        b = torch.from_numpy(rng.standard_normal((k, n))).float().cuda()
+        cfg = gemm_mod.gemm_config(m, n, k, sms)
+        flops = 2 * m * n * k
+        b_ms, b_by = bound(flops, 4 * (m * k + k * n + m * n))
+        ms = time_ms(torch, lambda: ops.gemm(a, b))
+        ms_b2b = time_ms(torch, lambda: ops.gemm(a, b), inner=10)
+        lib_ms = time_ms(torch, lambda: torch.mm(a, b))
+        blocks = cfg.blocks(m, n)
+        print(f"gemm {m}x{k}x{n} [{cfg.name}]: blocks={blocks} "
+              f"waves={blocks / sms:.2f} ms={ms:.4f} ms_b2b={ms_b2b:.4f} "
+              f"TFLOP/s={flops / ms / 1e9:.2f} (b2b "
+              f"{flops / ms_b2b / 1e9:.2f}) bound_share={b_ms / ms:.1%} "
+              f"({b_by}) library_ms={lib_ms:.4f} "
+              f"ms/library_ms={ms / lib_ms:.2f}")
+
+
 def check_kernels(torch, np) -> dict:
     """Phase 3: every kernel against its plain version, plus timings."""
     rng = np.random.default_rng(SEED)
@@ -259,12 +306,16 @@ def check_kernels(torch, np) -> dict:
             ok = bool((diff <= atol + rtol * expect.abs()).all())
         ms, plain_ms, lib_ms = (time_ms(torch, run), time_ms(torch, plain),
                                 time_ms(torch, library))
+        ms_b2b = time_ms(torch, run, inner=10)
+        plain_b2b = time_ms(torch, plain, inner=10)
         b_ms, b_by = bound(flops, nbytes)
         print(f"{name:10s} [{label}]: max_abs_err={max_abs:.3e} "
               f"rel_err={rel:.3e} (tol rtol={rtol:g} atol={atol:g}) "
               f"{'ok' if ok else 'FAIL'}; ms={ms:.4f} plain_ms={plain_ms:.4f} "
               f"library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
-              f"GFLOP/s={flops / ms / 1e6:.0f}"
+              f"GFLOP/s={flops / ms / 1e6:.0f} ms/plain_ms={ms / plain_ms:.3f}"
+              f"; b2b ms={ms_b2b:.4f} plain_ms={plain_b2b:.4f} "
+              f"ms/plain_ms={ms_b2b / plain_b2b:.3f}"
               + (f" executed_GFLOP={executed / 1e9:.3f}" if executed else ""))
         if not ok:
             raise AssertionError(f"{name} [{label}] disagrees with its plain "
@@ -272,8 +323,9 @@ def check_kernels(torch, np) -> dict:
         r = results.setdefault(name, {"max_abs_err": 0.0})
         r["max_abs_err"] = max(r["max_abs_err"], max_abs)
         if "ms" not in r:   # the first case of each kernel is its main-path shape
-            r.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                     bound_ms=b_ms, bound_by=b_by, shape=label)
+            r.update(ms=ms, ms_b2b=ms_b2b, plain_ms=plain_ms,
+                     library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                     shape=label)
     return results
 
 
@@ -407,22 +459,71 @@ FLASH_CASES = (
                                  logit_softcap=50.0)),
     ("B1 H4/4 S384 D64 f32 window 64 softcap 20", 1, 4, 4, 384, 64,
      "float32", dict(causal=True, window=64, logit_softcap=20.0)),
+    # bf16 at the tensor-core kernel's other head dims (ragged S).
+    ("B1 H8/2 S1000 D16 bf16 causal", 1, 8, 2, 1000, 16, "bfloat16",
+     dict(causal=True)),
+    ("B1 H8/2 S1000 D32 bf16 non-causal", 1, 8, 2, 1000, 32, "bfloat16",
+     dict(causal=False)),
+    ("B1 H8/8 S1000 D64 bf16 window 100", 1, 8, 8, 1000, 64, "bfloat16",
+     dict(causal=True, window=100)),
+    ("phi3 B1 H32/32 S1000 D96 bf16 causal", 1, 32, 32, 1000, 96,
+     "bfloat16", dict(causal=True)),
 )
 #: (rtol, atol) by dtype, element-wise. Float32 sums in another order;
-#: bfloat16 outputs are weighted means of values of magnitude ~1, where
-#: one ulp is 2**-7, and kernel and plain version round p at different
+#: bfloat16 outputs are weighted means of values of magnitude ~1 (one ulp
+#: at 1 is 2**-7), and kernel and plain version round p at different
 #: points (before and after normalising) and the output once each.
 FLASH_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2 ** -6, 2 ** -6)}
+#: Scale of q and k (v is standard normal): logits q·k/√D of standard
+#: deviation QK_SCALE² ≈ 2.9, so each row's softmax puts most of its
+#: weight on a few keys and outputs are O(1), as in trained attention.
+#: At 0.3 (logits ~0.09) every row is near uniform, outputs ~1/√(q+1),
+#: and a kernel that dropped a whole key tile could pass the bf16 check.
+QK_SCALE = 1.7
+#: Keys [lo, hi) of the planted fault: one 32-key tile of the main case,
+#: hidden from every query past it, as a kernel that skipped one fully
+#: visible tile would return. The check must reject it.
+PLANTED_TILE = (1024, 1056)
+
+
+def attention_heads(torch, rng, b, s, n, d, dtype, scale, device="cuda"):
+    """A (B, S, n, D) buffer of standard normals times ``scale``, seen as
+    the (B, n, S, D) view the model hands the kernel."""
+    x = rng.standard_normal((b, s, n, d)) * scale
+    return torch.from_numpy(x).to(dtype).to(device).transpose(1, 2)
+
+
+def flash_close(out, expect, dtype: str):
+    """(|out - expect| <= atol + rtol·|expect| everywhere, max|out - expect|)
+    at :data:`FLASH_TOL`."""
+    rtol, atol = FLASH_TOL[dtype]
+    diff = (out.float() - expect.float()).abs()
+    return (bool((diff <= atol + rtol * expect.float().abs()).all()),
+            float(diff.max()))
+
+
+def attention_hiding_keys(torch, q, k, v, lo: int, hi: int):
+    """Causal attention as ``ref.flash_attention`` computes it, with keys
+    [lo, hi) hidden from every query at or past ``hi``."""
+    b, h, s, d = q.shape
+    group = h // k.shape[1]
+    kq = k.repeat_interleave(group, dim=1).float()
+    vq = v.repeat_interleave(group, dim=1).float()
+    logits = (q.float() @ kq.mT) * d ** -0.5
+    i = torch.arange(s, device=q.device)
+    hidden = (i[:, None] < i[None, :]) | (
+        (i[None, :] >= lo) & (i[None, :] < hi) & (i[:, None] >= hi))
+    p = torch.softmax(logits.masked_fill(hidden, float("-inf")), dim=-1)
+    return (p.to(v.dtype).float() @ vq).to(q.dtype)
 
 
 def attention_pairs(s: int, causal: bool, window: int) -> int:
-    """(query, key) pairs the masks leave visible in one head."""
-    total = 0
-    for q in range(s):
-        lo = max(0, q - window + 1) if window > 0 else 0
-        hi = q + 1 if causal else s
-        total += max(0, hi - lo)
-    return total
+    """(query, key) pairs the masks leave visible in one head: query q
+    sees keys [max(0, q - window + 1), q] (causal) or up to s - 1."""
+    w = window if 0 < window < s else s
+    if causal:   # sum over q of min(q + 1, w)
+        return w * (w + 1) // 2 + (s - w) * w
+    return s * s - (s - w) * (s - w + 1) // 2
 
 
 def check_flash(torch, np) -> dict:
@@ -434,12 +535,9 @@ def check_flash(torch, np) -> dict:
     result = {"max_abs_err": 0.0}
     for label, b, h, hkv, s, d, dtype, kw in FLASH_CASES:
         dt = getattr(torch, dtype)
-
-        def heads(n, scale):   # a (B, S, n, D) buffer as a (B, n, S, D) view
-            x = rng.standard_normal((b, s, n, d)) * scale
-            return torch.from_numpy(x).to(dt).cuda().transpose(1, 2)
-
-        q, k, v = heads(h, 0.3), heads(hkv, 0.3), heads(hkv, 1.0)
+        q, k, v = (attention_heads(torch, rng, b, s, n, d, dt, scale)
+                   for n, scale in ((h, QK_SCALE), (hkv, QK_SCALE),
+                                    (hkv, 1.0)))
         run = lambda: ops.flash_attention(q, k, v, **kw)
         plain = lambda: ref.flash_attention(q, k, v, **kw)
         out, expect = run(), plain()
@@ -448,14 +546,23 @@ def check_flash(torch, np) -> dict:
                 not bool(torch.isfinite(out.float()).all()):
             raise AssertionError(f"flash_attention [{label}]: bad output")
         rtol, atol = FLASH_TOL[dtype]
-        diff = (out.float() - expect.float()).abs()
-        max_abs = float(diff.max())
-        ok = bool((diff <= atol + rtol * expect.float().abs()).all())
+        ok, max_abs = flash_close(out, expect, dtype)
+        if "ms" not in result:   # the main case: a dropped tile must fail
+            lo, hi = PLANTED_TILE
+            passes, err = flash_close(
+                out, attention_hiding_keys(torch, q, k, v, lo, hi), dtype)
+            print(f"flash_attention [{label}] against a planted fault "
+                  f"(keys [{lo}, {hi}) dropped past them): max_abs_err="
+                  f"{err:.3e} {'ACCEPTED' if passes else 'rejected'}")
+            if passes:
+                raise AssertionError("the flash check cannot tell a kernel "
+                                     "that drops a key tile")
         library = None
         if not kw.get("logit_softcap") and not kw.get("window"):
             library = lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=kw["causal"], enable_gqa=True)
         ms, plain_ms = time_ms(torch, run), time_ms(torch, plain)
+        ms_b2b = time_ms(torch, run, inner=10)
         lib_ms = time_ms(torch, library) if library else None
         pairs = attention_pairs(s, kw["causal"], kw.get("window", 0))
         flops = 4 * d * pairs * b * h
@@ -464,16 +571,19 @@ def check_flash(torch, np) -> dict:
                            if dtype == "bfloat16" else PEAK_FP32_FLOPS)
         print(f"flash_attention [{label}]: max_abs_err={max_abs:.3e} "
               f"(tol rtol={rtol:g} atol={atol:g}) {'ok' if ok else 'FAIL'}; "
-              f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms="
-              f"{'n/a' if lib_ms is None else f'{lib_ms:.4f}'} "
-              f"bound_ms={b_ms:.4f} ({b_by}) GFLOP/s={flops / ms / 1e6:.0f}")
+              f"ms={ms:.4f} ms_b2b={ms_b2b:.4f} plain_ms={plain_ms:.4f} "
+              f"library_ms={'n/a' if lib_ms is None else f'{lib_ms:.4f}'} "
+              f"bound_ms={b_ms:.4f} ({b_by}) TFLOP/s={flops / ms / 1e9:.1f} "
+              f"bound_share={b_ms / ms:.1%}"
+              + ("" if lib_ms is None else f" ms/library_ms={ms / lib_ms:.2f}"))
         if not ok:
             raise AssertionError(f"flash_attention [{label}] disagrees with "
                                  f"its plain version beyond tolerance")
         result["max_abs_err"] = max(result["max_abs_err"], max_abs)
         if "ms" not in result:   # the first case is the main path's shape
-            result.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                          bound_ms=b_ms, bound_by=b_by, shape=label)
+            result.update(ms=ms, ms_b2b=ms_b2b, plain_ms=plain_ms,
+                          library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                          shape=label)
     return result
 
 
@@ -637,15 +747,20 @@ def serve_model(torch, np) -> dict:
 
 def print_ptxas_report(log: Path) -> None:
     """Registers, shared memory and spills per kernel (``-Xptxas=-v``);
-    the flash kernel's instantiations are named by type and head_dim."""
+    the flash kernels' instantiations are named by type and head_dim, the
+    GEMM's by tile."""
     name = ""
     for line in log.read_text().splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
-            inst = re.search(r"flash_kernelI(13__nv_bfloat16|f)Li(\d+)E",
-                             entry.group(1))
-            name = (f"flash_kernel<{'bf16' if inst.group(1) != 'f' else 'f32'}"
-                    f",{inst.group(2)}> " if inst else "")
+            fn = entry.group(1)
+            f32 = re.search(r"flash_kernelILi(\d+)E", fn)
+            tc = re.search(r"flash_tc_kernelILi(\d+)E", fn)
+            gemm = re.search(r"gemm_kernelILi(\d+)ELi(\d+)E", fn)
+            name = (f"flash_kernel<f32,{f32.group(1)}> " if f32 else
+                    f"flash_tc_kernel<bf16,{tc.group(1)}> " if tc else
+                    f"gemm_kernel<{gemm.group(1)}x{gemm.group(2)}> "
+                    if gemm else "")
         if line.startswith("=="):
             name = ""
             print(f"  ptxas {line.strip()}")
@@ -680,6 +795,7 @@ def main() -> int:
     print_ptxas_report(_build.library_path().with_suffix(".log"))
 
     results = check_kernels(torch, np)
+    time_gemm_configs(torch, np)
     with tempfile.TemporaryDirectory(prefix="chip-smoke-atlas-") as d:
         launches = run_sweeps(torch, Path(d))
     check_algorithms(torch)
@@ -694,9 +810,9 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "shape": r["shape"]})
+            "ms_b2b": r["ms_b2b"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "shape": r["shape"]})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -31,7 +31,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 
 #: ``sm_90a`` (not ``sm_90``): the Hopper target with ``wgmma`` and
-#: ``setmaxnreg``, which later versions of these kernels will use.
+#: ``setmaxnreg``.
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v",
               *ARCH_FLAGS]
@@ -42,8 +42,10 @@ _STRIDED = [_P, _L, _L, _L, _L]   # data pointer, then (B, H, S, D) strides
 #: C entry points and their argument types (pointers and the stream as
 #: ``c_void_p`` so ctypes never truncates them to 32 bits).
 SIGNATURES: Dict[str, List[type]] = {
-    # a, sa0, sa1, b, sb0, sb1, c, m, n, k, stream
-    "repro_gemm_f32": [_P, _L, _L, _P, _L, _L, _P, _I, _I, _I, _P],
+    # a, sa0, sa1, b, sb0, sb1, c, workspace, m, n, k, config, split,
+    # kchunk, stream
+    "repro_gemm_f32": [_P, _L, _L, _P, _L, _L, _P, _P, _I, _I, _I, _I, _I,
+                       _I, _P],
     # a, sa0, sa1, c, m, k, stream
     "repro_syrk_f32": [_P, _L, _L, _P, _I, _I, _P],
     # s, ss0, ss1, b, sb0, sb1, c, m, n, stream
@@ -160,9 +162,13 @@ def library() -> ctypes.CDLL:
         return _lib
 
 
-def stream(device: torch.device) -> int:
-    """Handle of PyTorch's current stream on ``device``."""
-    return torch.cuda.current_stream(device).cuda_stream
+def stream(device: torch.device | int) -> int:
+    """Handle of PyTorch's current stream on ``device``, read without
+    making a ``torch.cuda.Stream`` object (a few microseconds a launch)."""
+    index = device if isinstance(device, int) else device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def check(code: int, kernel: str) -> None:

@@ -1,5 +1,6 @@
-// Forward attention with an online softmax on Hopper (sm_90a), float32 or
-// bfloat16 inputs, float32 statistics and accumulator.
+// Forward attention with an online softmax on Hopper (sm_90a): the float32
+// kernel on the CUDA cores, and the C entry point, which sends bfloat16 to
+// the tensor-core kernel of flash_attention_tc.cu.
 //
 // Replaces: src/repro/kernels/flash_attention.py:flash_attention_pallas
 // (_flash_kernel), the TPU kernel whose grid (b·h, q block, kv block) runs
@@ -8,10 +9,9 @@
 // map, whole causal or out-of-window kv blocks are skipped, logits are
 // soft-capped, masked with -1e30, and p is cast to v's dtype before P·V.
 //
-// Bound on the H100 SXM: operations at the main-path shape. Yi-9B prefill
-// (B 2, H 32, S 2048, D 128, bf16, causal) needs 2·D·S(S+1)·B·H = 68.7
-// GFLOP (~70 us at the 989 TFLOP/s bf16 tensor-core peak) on 2·(B·S·H·D
-// + 2·B·S·Hkv·D) = 37.7 MB (~11 us at 3.35 TB/s).
+// Bound on the H100 SXM, float32: operations, 2·D·S(S+1)·B·H flops at the
+// 67 TFLOP/s FP32 peak. Float32 stays on the CUDA cores: TF32 tensor cores
+// would be a different result under the float32 label (as tile.cuh).
 //
 // Design. Blocks run in parallel in no order, so the kv walk becomes a
 // loop inside the block: one block of 256 threads owns one (b·h, 64-row
@@ -28,53 +28,27 @@
 // Rows and keys past S are masked here (loads zero-filled, keys set to
 // -1e30), so S need not divide the tile and there is no fallback.
 //
-// This is the simple version: CUDA-core float32 FMAs, scalar shared-memory
-// loads (rows padded by one 32-bit word against bank conflicts); wgmma,
-// TMA and a producer warp are later work. Shared memory per block is
-// 2·64 floats + (2·64·(D+pad) + 64·D + 64·(64+pad)) elements of the input
-// type: 214 KB at D = 256 in float32, above the 48 KB default, so every
-// launch opts in to its size first.
-#include <cuda_bf16.h>
+// CUDA-core float32 FMAs, scalar shared-memory loads (rows padded by one
+// 32-bit word against bank conflicts). Shared memory per block is 2·64
+// floats + (2·64·(D+1) + 64·D + 64·(64+1)) floats: 214 KB at D = 256,
+// above the 48 KB default, so every launch opts in to its size first.
 #include <cuda_runtime.h>
 
+#include "flash_args.cuh"
+
 namespace {
+
+using repro_flash::Args;
+using repro_flash::Strides;
 
 constexpr int BQ = 64;
 constexpr int BKV = 64;
 constexpr int THREADS = 256;
 constexpr float NEG_INF = -1e30f;
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);   // round to nearest even, as astype does
-}
-
-// Element strides of a (B, H, S, D) view.
-struct Strides {
-  long long b, h, s, d;
-};
-
-struct Args {
-  const void* q;
-  const void* k;
-  const void* v;
-  void* o;
-  Strides sq, sk, sv, so;
-  int heads, kv_heads, seq;
-  float scale, softcap;
-  int causal, window;
-};
-
-template <typename T, int D>
+template <int D>
 struct Layout {
-  static constexpr int PAD = 4 / static_cast<int>(sizeof(T));   // one 32-bit word
+  static constexpr int PAD = 1;          // one 32-bit word
   static constexpr int QLD = D + PAD;    // row stride of the Q and K tiles
   static constexpr int PLD = BKV + PAD;  // row stride of the P tile
   // Accumulator: thread (ax, ay) owns rows ay·RM .. ay·RM+RM-1 and columns
@@ -85,44 +59,44 @@ struct Layout {
   static constexpr int DC = D / TX;
   static constexpr size_t bytes =
       2 * BQ * sizeof(float) +
-      sizeof(T) * (static_cast<size_t>(BQ) * QLD + static_cast<size_t>(BKV) * QLD +
+      sizeof(float) * (static_cast<size_t>(BQ) * QLD + static_cast<size_t>(BKV) * QLD +
                    static_cast<size_t>(BKV) * D + static_cast<size_t>(BQ) * PLD);
   static_assert(D % TX == 0 && BQ % TY == 0, "head_dim does not fit the thread layout");
 };
 
 // dst[r][c] = src[start + r][c] for the 64 rows of a tile, zero past seq.
-template <typename T, int D, int LD>
-__device__ __forceinline__ void load_tile(T* dst, const T* src, long long ss, long long sd,
+template <int D, int LD>
+__device__ __forceinline__ void load_tile(float* dst, const float* src, long long ss, long long sd,
                                           int start, int seq) {
   for (int i = threadIdx.x; i < 64 * D; i += THREADS) {
     const int r = i / D, c = i % D;
     const int pos = start + r;
-    dst[r * LD + c] = pos < seq ? src[pos * ss + c * sd] : from_float<T>(0.f);
+    dst[r * LD + c] = pos < seq ? src[pos * ss + c * sd] : 0.f;
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS) flash_kernel(Args a) {
-  using L = Layout<T, D>;
+  using L = Layout<D>;
   extern __shared__ __align__(16) unsigned char smem[];
   float* alpha_s = reinterpret_cast<float*>(smem);   // per-row rescale of this tile
   float* l_s = alpha_s + BQ;                         // per-row denominators at the end
-  T* qs = reinterpret_cast<T*>(l_s + BQ);
-  T* ks = qs + BQ * L::QLD;
-  T* vs = ks + BKV * L::QLD;
-  T* ps = vs + BKV * D;
+  float* qs = reinterpret_cast<float*>(l_s + BQ);
+  float* ks = qs + BQ * L::QLD;
+  float* vs = ks + BKV * L::QLD;
+  float* ps = vs + BKV * D;
 
   const int tid = threadIdx.x;
   const int bh = blockIdx.x;
   const int q_start = (gridDim.y - 1 - blockIdx.y) * BQ;
   const int b = bh / a.heads, h = bh % a.heads;
   const int hk = h / (a.heads / a.kv_heads);
-  const T* q = static_cast<const T*>(a.q) + b * a.sq.b + h * a.sq.h;
-  const T* k = static_cast<const T*>(a.k) + b * a.sk.b + hk * a.sk.h;
-  const T* v = static_cast<const T*>(a.v) + b * a.sv.b + hk * a.sv.h;
-  T* o = static_cast<T*>(a.o) + b * a.so.b + h * a.so.h;
+  const float* q = static_cast<const float*>(a.q) + b * a.sq.b + h * a.sq.h;
+  const float* k = static_cast<const float*>(a.k) + b * a.sk.b + hk * a.sk.h;
+  const float* v = static_cast<const float*>(a.v) + b * a.sv.b + hk * a.sv.h;
+  float* o = static_cast<float*>(a.o) + b * a.so.b + h * a.so.h;
 
-  load_tile<T, D, L::QLD>(qs, q, a.sq.s, a.sq.d, q_start, a.seq);
+  load_tile<D, L::QLD>(qs, q, a.sq.s, a.sq.d, q_start, a.seq);
 
   // Scores: thread (sx, sy) owns rows sy·4 .. sy·4+3 and columns sx + 16j;
   // the 16 threads of one row group are one half-warp.
@@ -147,8 +121,8 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(Args a) {
     if (a.causal && k_start > q_start + BQ - 1) break;
     if (a.window > 0 && !(k_start + BKV > q_start - a.window + 1)) continue;
     __syncthreads();   // Q is in place; nobody still reads the last K, V, P
-    load_tile<T, D, L::QLD>(ks, k, a.sk.s, a.sk.d, k_start, a.seq);
-    load_tile<T, D, D>(vs, v, a.sv.s, a.sv.d, k_start, a.seq);
+    load_tile<D, L::QLD>(ks, k, a.sk.s, a.sk.d, k_start, a.seq);
+    load_tile<D, D>(vs, v, a.sv.s, a.sv.d, k_start, a.seq);
     __syncthreads();
 
     float s[4][4];
@@ -160,9 +134,9 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(Args a) {
     for (int d = 0; d < D; ++d) {
       float qv[4], kv[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = to_float(qs[(sy * 4 + i) * L::QLD + d]);
+      for (int i = 0; i < 4; ++i) qv[i] = qs[(sy * 4 + i) * L::QLD + d];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = to_float(ks[(sx + 16 * j) * L::QLD + d]);
+      for (int j = 0; j < 4; ++j) kv[j] = ks[(sx + 16 * j) * L::QLD + d];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -194,8 +168,7 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(Args a) {
       for (int j = 0; j < 4; ++j) {
         const float p = expf(s[i][j] - m_new);
         sum += p;
-        // P·V takes p rounded to v's type, as the reference does.
-        ps[row * L::PLD + sx + 16 * j] = from_float<T>(p);
+        ps[row * L::PLD + sx + 16 * j] = p;
       }
 #pragma unroll
       for (int off = 8; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
@@ -215,9 +188,9 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(Args a) {
     for (int kk = 0; kk < BKV; ++kk) {
       float pv[L::RM], vv[L::DC];
 #pragma unroll
-      for (int i = 0; i < L::RM; ++i) pv[i] = to_float(ps[(ay * L::RM + i) * L::PLD + kk]);
+      for (int i = 0; i < L::RM; ++i) pv[i] = ps[(ay * L::RM + i) * L::PLD + kk];
 #pragma unroll
-      for (int j = 0; j < L::DC; ++j) vv[j] = to_float(vs[kk * D + ax + L::TX * j]);
+      for (int j = 0; j < L::DC; ++j) vv[j] = vs[kk * D + ax + L::TX * j];
 #pragma unroll
       for (int i = 0; i < L::RM; ++i)
 #pragma unroll
@@ -238,33 +211,32 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(Args a) {
     const float denom = fmaxf(l_s[row], 1e-30f);
 #pragma unroll
     for (int j = 0; j < L::DC; ++j)
-      o[qpos * a.so.s + (ax + L::TX * j) * a.so.d] = from_float<T>(acc[i][j] / denom);
+      o[qpos * a.so.s + (ax + L::TX * j) * a.so.d] = acc[i][j] / denom;
   }
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch(const Args& a, int batch, cudaStream_t st) {
-  using L = Layout<T, D>;
+  using L = Layout<D>;
   const int smem = static_cast<int>(L::bytes);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        flash_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
   }
   const dim3 grid(batch * a.heads, (a.seq + BQ - 1) / BQ);
-  flash_kernel<T, D><<<grid, THREADS, smem, st>>>(a);
+  flash_kernel<D><<<grid, THREADS, smem, st>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(int head_dim, const Args& a, int batch, cudaStream_t st) {
+cudaError_t dispatch_f32(int head_dim, const Args& a, int batch, cudaStream_t st) {
   switch (head_dim) {
-    case 16: return launch<T, 16>(a, batch, st);
-    case 32: return launch<T, 32>(a, batch, st);
-    case 64: return launch<T, 64>(a, batch, st);
-    case 96: return launch<T, 96>(a, batch, st);
-    case 128: return launch<T, 128>(a, batch, st);
-    case 256: return launch<T, 256>(a, batch, st);
+    case 16: return launch<16>(a, batch, st);
+    case 32: return launch<32>(a, batch, st);
+    case 64: return launch<64>(a, batch, st);
+    case 96: return launch<96>(a, batch, st);
+    case 128: return launch<128>(a, batch, st);
+    case 256: return launch<256>(a, batch, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -273,7 +245,9 @@ cudaError_t dispatch(int head_dim, const Args& a, int batch, cudaStream_t st) {
 
 // o (B, H, S, D) = softmax(mask(softcap(scale · q kᵀ))) v per head, with
 // q (B, H, S, D), k and v (B, Hkv, S, D), each tensor given by its data
-// pointer and four element strides. dtype 0 is float32, 1 is bfloat16.
+// pointer and four element strides. dtype 0 is float32 (CUDA cores, this
+// file), 1 is bfloat16 (tensor cores, flash_attention_tc.cu, which needs
+// 16-byte-aligned rows with D contiguous).
 extern "C" int repro_flash_attention(int dtype, int head_dim,
                                      const void* q, long long sqb, long long sqh, long long sqs,
                                      long long sqd,
@@ -294,9 +268,9 @@ extern "C" int repro_flash_attention(int dtype, int head_dim,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0) {
-    err = dispatch<float>(head_dim, a, batch, st);
+    err = dispatch_f32(head_dim, a, batch, st);
   } else if (dtype == 1) {
-    err = dispatch<__nv_bfloat16>(head_dim, a, batch, st);
+    err = repro_flash::flash_bf16_tc(head_dim, a, batch, st);
   } else {
     err = cudaErrorInvalidValue;
   }

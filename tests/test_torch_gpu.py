@@ -53,9 +53,22 @@ def _close(got, want, tol):
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **tol)
 
 
+#: Shapes (m, k, n) at and across each boundary between the launch
+#: configurations of ``gemm_config`` (tiles 128x128 / 128x64 / 64x64 and
+#: contraction splits) on a 132-SM card, 1 x k and k x 1 edges included.
+GEMM_CONFIG_SHAPES = [
+    (1152, 40, 1152), (1024, 40, 1152), (640, 40, 1024), (640, 40, 960),
+    (576, 600, 576), (512, 600, 512), (1025, 40, 1024), (1000, 40, 1000),
+    (400, 1200, 400), (400, 255, 400), (400, 256, 400), (64, 4096, 64),
+    (65, 1000, 33), (1, 700, 1), (1, 3000, 900), (900, 3000, 1),
+    (700, 1, 700), (16, 17, 15), (400, 383, 400), (400, 384, 400),
+    (256, 383, 768), (256, 600, 1200), (384, 800, 1024), (640, 1200, 800),
+    (768, 1200, 1200)]
+
+
 @pytest.mark.parametrize("m,k,n", [
     (64, 64, 64), (1, 128, 128), (130, 70, 200), (129, 257, 130),
-    (1200, 400, 1200), (1100, 333, 1037)])
+    (1200, 400, 1200), (1100, 333, 1037)] + GEMM_CONFIG_SHAPES)
 @pytest.mark.parametrize("layout", ["nn", "tn", "nt", "tt"])
 def test_gemm_kernel(cuda, m, k, n, layout):
     rng = np.random.default_rng(m * 7 + n)
@@ -64,6 +77,30 @@ def test_gemm_kernel(cuda, m, k, n, layout):
     before = ops.launch_counts()["gemm"]
     _close(ops.gemm(a, b), ref.gemm(a, b), TOL)
     assert ops.launch_counts()["gemm"] == before + 1
+
+
+@pytest.mark.parametrize("ld", [333, 1037])
+@pytest.mark.parametrize("transposed", [False, True])
+def test_gemm_kernel_unaligned_leading_dims(cuda, ld, transposed):
+    """Operands cut from buffers whose rows are not 16-byte aligned."""
+    rng = np.random.default_rng(ld)
+    m, k, n = 300, 320, 290
+    if transposed:   # A = Xᵀ, B = Yᵀ with X (k x ld), Y (n x ld)
+        a = _mat(rng, k, ld, cuda)[:, :m].mT
+        b = _mat(rng, n, ld, cuda)[:, :k].mT
+    else:
+        a = _mat(rng, m, ld, cuda)[:, :k]
+        b = _mat(rng, k, ld, cuda)[:, :n]
+    _close(ops.gemm(a, b), ref.gemm(a, b), TOL)
+
+
+@pytest.mark.parametrize("m,k,n", [(400, 1200, 400), (1200, 400, 1200)])
+def test_gemm_kernel_is_deterministic(cuda, m, k, n):
+    """Split slices are summed in a fixed order: no atomics."""
+    rng = np.random.default_rng(k)
+    a, b = _mat(rng, m, k, cuda), _mat(rng, k, n, cuda)
+    first = ops.gemm(a, b)
+    assert torch.equal(first, ops.gemm(a, b))
 
 
 @pytest.mark.parametrize("m,k", [(64, 64), (130, 70), (257, 511),
@@ -183,6 +220,10 @@ def test_abab_alg2_without_fusion_launches_gemm_and_syrk(cuda, monkeypatch):
 
 ATTN_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
             torch.bfloat16: dict(rtol=2 ** -6, atol=2 ** -6)}
+#: Scale of q and k, as in chip_smoke.py: logits of standard deviation
+#: ~2.9, so each row's softmax is peaked and outputs are O(1); at a scale
+#: of 0.3 rows are near uniform and a dropped key tile can pass ATTN_TOL.
+QK_SCALE = 1.7
 
 
 @pytest.mark.parametrize("b,h,hkv,s,d,dtype,kwargs", [
@@ -207,7 +248,7 @@ def test_flash_attention_kernel(cuda, b, h, hkv, s, d, dtype, kwargs):
         x = rng.standard_normal((b, s, n, d)) * scale
         return torch.from_numpy(x).to(dtype).to(cuda).transpose(1, 2)
 
-    q, k, v = heads(h, 0.3), heads(hkv, 0.3), heads(hkv, 1.0)
+    q, k, v = heads(h, QK_SCALE), heads(hkv, QK_SCALE), heads(hkv, 1.0)
     before = ops.launch_counts()["flash_attention"]
     out = ops.flash_attention(q, k, v, **kwargs)
     assert ops.launch_counts()["flash_attention"] == before + 1
@@ -216,6 +257,101 @@ def test_flash_attention_kernel(cuda, b, h, hkv, s, d, dtype, kwargs):
     want = ref.flash_attention(q, k, v, **kwargs)
     _close(out.float(), want.float(), ATTN_TOL[dtype])
 
+
+def _heads(rng, b, s, n, d, dtype, device, scale):
+    """A (B, S, n, D) buffer seen as (B, n, S, D), as the model's views."""
+    x = rng.standard_normal((b, s, n, d)) * scale
+    return torch.from_numpy(x).to(dtype).to(device).transpose(1, 2)
+
+
+def _attention_case(cuda, b, h, hkv, s, d, kwargs, seed):
+    rng = np.random.default_rng(seed)
+    dt = torch.bfloat16
+    q = _heads(rng, b, s, h, d, dt, cuda, QK_SCALE)
+    k = _heads(rng, b, s, hkv, d, dt, cuda, QK_SCALE)
+    v = _heads(rng, b, s, hkv, d, dt, cuda, 1.0)
+    from repro_torch.kernels import flash_attention as flash
+    before, copies = ops.launch_counts()["flash_attention"], flash.copies
+    out = ops.flash_attention(q, k, v, **kwargs)
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    assert flash.copies == copies   # the model's views are read in place
+    assert out.shape == (b, h, s, d) and out.dtype == dt
+    _close(out.float(), ref.flash_attention(q, k, v, **kwargs).float(),
+           ATTN_TOL[dt])
+    return q, k, v, out
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 96, 128, 256])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_bf16_every_head_dim(cuda, d, causal):
+    _attention_case(cuda, 2, 4, 2, 320, d, dict(causal=causal), d)
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("kwargs", [
+    dict(window=128), dict(window=64), dict(window=100), dict(window=1),
+    dict(causal=False, window=128), dict(causal=False, window=100),
+    dict(logit_softcap=30.0), dict(window=100, logit_softcap=50.0)],
+    ids=lambda kw: "-".join(f"{k}{v}" for k, v in kw.items()))
+def test_flash_attention_bf16_windows_and_softcap(cuda, d, kwargs):
+    """Windows at a tile boundary (64, 128) and off it (100, 1)."""
+    _attention_case(cuda, 1, 4, 4, 512, d, kwargs, d + kwargs.get("window", 0))
+
+
+@pytest.mark.parametrize("hkv", [8, 4, 2, 1])
+def test_flash_attention_bf16_gqa_groups(cuda, hkv):
+    _attention_case(cuda, 2, 8, hkv, 256, 128, dict(causal=True), hkv)
+
+
+@pytest.mark.parametrize("s", [1, 70, 200, 333, 1000])
+@pytest.mark.parametrize("d", [96, 128, 256])
+def test_flash_attention_bf16_ragged_seq(cuda, s, d):
+    """S that is no multiple of the 128-row query or the K/V tile."""
+    _attention_case(cuda, 1, 4, 2, s, d, dict(causal=True), s + d)
+    _attention_case(cuda, 1, 4, 2, s, d, dict(causal=False, window=50), s)
+
+
+def test_flash_attention_bf16_is_deterministic(cuda):
+    q, k, v, out = _attention_case(cuda, 2, 8, 2, 640, 128,
+                                   dict(causal=True), 0)
+    assert torch.equal(out, ops.flash_attention(q, k, v, causal=True))
+
+
+def test_flash_attention_bf16_check_rejects_a_dropped_key_tile(cuda):
+    """The kernel passes ATTN_TOL and the plain version with one fully
+    visible 32-key tile dropped does not: the inputs are sharp enough for
+    the check to see a tile-level fault."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_helpers", path)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    q, k, v, out = _attention_case(cuda, 1, 8, 2, 1024, 128,
+                                   dict(causal=True), 5)
+    planted = cs.attention_hiding_keys(torch, q, k, v, 512, 544)
+    with pytest.raises(AssertionError):
+        _close(out.float(), planted.float(), ATTN_TOL[torch.bfloat16])
+
+
+def test_flash_attention_bf16_copies_only_unaligned_views(cuda):
+    """A view whose rows are not 16-byte aligned is copied once, counted,
+    and gives the same result as the aligned data."""
+    from repro_torch.kernels import flash_attention as flash
+    rng = np.random.default_rng(7)
+    b, h, s, d = 1, 4, 200, 64
+    buf = torch.from_numpy(rng.standard_normal((b, s, h, d + 1))
+                           * QK_SCALE).to(torch.bfloat16).to(cuda)
+    q = buf[..., :d].transpose(1, 2)     # row stride H·(D+1): not 16-byte
+    k = _heads(rng, b, s, h, d, torch.bfloat16, cuda, QK_SCALE)
+    v = _heads(rng, b, s, h, d, torch.bfloat16, cuda, 1.0)
+    assert not flash.reads_in_place(q) and flash.reads_in_place(k)
+    copies = flash.copies
+    out = ops.flash_attention(q, k, v)
+    assert flash.copies == copies + 1
+    assert torch.equal(out, ops.flash_attention(q.contiguous(), k, v))
+    _close(out.float(), ref.flash_attention(q, k, v).float(),
+           ATTN_TOL[torch.bfloat16])
 
 
 @pytest.mark.parametrize("arch", ["yi_9b", "gemma2_9b", "phi3_mini"])

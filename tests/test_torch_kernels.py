@@ -269,3 +269,170 @@ def test_flash_attention_bad_head_dim_and_heads_raise_valueerror():
     with pytest.raises(ValueError, match=r"window=-1"):
         ops.flash_attention(z(1, 2, 8, 16), z(1, 2, 8, 16), z(1, 2, 8, 16),
                             window=-1)
+
+
+# --- Launch configuration of the GEMM (kernels/gemm.py: gemm_config) and
+# the accounting helpers of chip_smoke.py, both pure Python.
+
+from repro_torch.kernels import gemm as kgemm  # noqa: E402
+
+#: The sweep's 27 shapes (400, 800, 1200)³ as (m, k, n), and the shapes of
+#: the gemm tests on the card (tests/test_torch_gpu.py).
+SWEEP_SHAPES = [(m, k, n) for m in (400, 800, 1200) for k in (400, 800, 1200)
+                for n in (400, 800, 1200)]
+CARD_TEST_SHAPES = [
+    (64, 64, 64), (1, 128, 128), (130, 70, 200), (129, 257, 130),
+    (1200, 400, 1200), (1100, 333, 1037), (1152, 40, 1152), (1024, 40, 1152),
+    (640, 40, 1024), (640, 40, 960), (576, 600, 576), (512, 600, 512),
+    (1025, 40, 1024), (1000, 40, 1000), (400, 1200, 400), (400, 255, 400),
+    (400, 256, 400), (64, 4096, 64), (65, 1000, 33), (1, 700, 1),
+    (1, 3000, 900), (900, 3000, 1), (700, 1, 700), (16, 17, 15),
+    (300, 320, 290), (5, 0, 3), (400, 383, 400), (400, 384, 400),
+    (256, 383, 768), (256, 600, 1200), (384, 800, 1024), (640, 1200, 800),
+    (768, 1200, 1200)]
+
+
+def _candidates(k):
+    """Every (tile, split) launch gemm_config may make for contraction k:
+    1 to MAX_SPLIT slices, none shallower than MIN_SLICE."""
+    most = max(1, min(kgemm.MAX_SPLIT, k // kgemm.MIN_SLICE))
+    return [kgemm.with_split(config, k, split)
+            for config in range(len(kgemm.TILES))
+            for split in range(1, most + 1)]
+
+
+@pytest.mark.parametrize("m,k,n", SWEEP_SHAPES + CARD_TEST_SHAPES)
+def test_gemm_config_covers_output_and_contraction_exactly_once(m, k, n):
+    cfg = kgemm.gemm_config(m, n, k)
+    assert kgemm.TILES[cfg.config] == (cfg.bm, cfg.bn)
+    assert cfg.kchunk % kgemm.BK == 0 and cfg.split >= 1
+    cover = np.zeros((m, n), dtype=np.int64)
+    slices = set()
+    for row0, col0, k0, k1 in kgemm.gemm_blocks(m, n, k, cfg):
+        assert 0 <= row0 < max(m, 1) and 0 <= col0 < max(n, 1)
+        cover[row0:row0 + cfg.bm, col0:col0 + cfg.bn] += 1
+        slices.add((k0, k1))
+    assert (cover == cfg.split).all()   # each element once per slice
+    seen = np.zeros(k, dtype=np.int64)
+    for k0, k1 in slices:
+        assert k0 < k1 or k == 0       # no empty slice
+        seen[k0:k1] += 1
+    assert (seen == 1).all() and len(slices) == cfg.split
+    assert sum(1 for _ in kgemm.gemm_blocks(m, n, k, cfg)) == cfg.blocks(m, n)
+
+
+@pytest.mark.parametrize("m,k,n", SWEEP_SHAPES + CARD_TEST_SHAPES)
+def test_gemm_config_fills_the_card_with_the_largest_tile_it_can(m, k, n):
+    """The launch of least modeled time: the busiest SM's share of the
+    grid in whole blocks at its tile's rate, plus a split's workspace
+    pass; ties go to the larger tile, then to fewer slices. A split never
+    passes MAX_SPLIT slices nor cuts one shallower than MIN_SLICE."""
+    sms = kgemm.SMS
+    cfg = kgemm.gemm_config(m, n, k, sms)
+
+    def cost(c):
+        waves = -(-c.blocks(m, n) // sms)
+        return (waves * c.bm * c.bn * c.kchunk * 1e-6
+                * kgemm.US_PER_MMAC[c.config]
+                + (kgemm.US_SPLIT if c.split > 1 else 0.0))
+
+    best = min(cost(c) for c in _candidates(k))
+    assert cost(cfg) == best
+    assert not any(cost(c) == best and c.config < cfg.config
+                   for c in _candidates(k))
+    assert cfg.split <= kgemm.MAX_SPLIT
+    assert cfg.split == 1 or cfg.kchunk >= kgemm.MIN_SLICE
+
+
+def test_gemm_config_on_the_sweep_shapes():
+    """At 132 SMs the model picks, among the 12 launches timed at each of
+    the sweep's shapes, one within 8 % of the fastest (PERF.md, section
+    6): 1200x400x1200 on 128x128 tiles (100 blocks), 800³ and
+    400x1200x400 on 128x64 split in four, 1200x1200x400 on 128x128 split
+    in three, and 800x400x1200 on 64x64."""
+    names = {(m, k, n): kgemm.gemm_config(m, n, k).name
+             for m, k, n in SWEEP_SHAPES}
+    assert names[(1200, 400, 1200)] == "128x128"
+    assert names[(800, 800, 800)] == "128x64 split 4x208"
+    assert names[(400, 1200, 400)] == "128x64 split 4x304"
+    assert names[(1200, 1200, 400)] == "128x128 split 3x400"
+    assert names[(800, 400, 1200)] == "64x64"
+    assert names[(400, 400, 400)] == "128x64 split 4x112"
+    assert {name.split()[0] for name in names.values()} == {
+        "128x128", "128x64", "64x64"}
+
+
+def _chip_smoke():
+    import importlib.util
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_helpers", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("s,causal,window", [
+    (2048, True, 0), (2048, False, 0), (1000, True, 512), (1024, True, 512),
+    (333, False, 100), (384, True, 64), (70, False, 20), (1, True, 0),
+    (5, True, 9), (5, False, 9), (64, False, 64), (129, True, 1)])
+def test_chip_smoke_attention_pairs_match_the_mask(s, causal, window):
+    """attention_pairs counts exactly the pairs the plain version's mask
+    leaves visible."""
+    idx = torch.arange(s)
+    mask = torch.ones((s, s), dtype=torch.bool)
+    if causal:
+        mask &= idx[:, None] >= idx[None, :]
+    if window > 0:
+        mask &= idx[:, None] - idx[None, :] < window
+    assert _chip_smoke().attention_pairs(s, causal, window) == int(mask.sum())
+
+
+def test_chip_smoke_attention_pairs_and_bound():
+    cs = _chip_smoke()
+    assert cs.attention_pairs(2048, True, 0) == 2048 * 2049 // 2
+    # Yi-9B's prefill layer: operations bound at the bf16 peak.
+    flops = 4 * 128 * cs.attention_pairs(2048, True, 0) * 2 * 32
+    ms, by = cs.bound(flops, 2 * (2 * 2 * 32 * 2048 * 128
+                                  + 2 * 2 * 4 * 2048 * 128),
+                      cs.PEAK_BF16_FLOPS)
+    assert by == "operations" and ms == pytest.approx(flops / 989e12 * 1e3)
+    # A float32 GEMM at 1200x400x1200 is operations-bound at 67 TFLOP/s;
+    # a tiny one moving many bytes is bytes-bound.
+    ms, by = cs.bound(2 * 1200 * 400 * 1200,
+                      4 * (1200 * 400 * 2 + 1200 * 1200))
+    assert by == "operations" and ms == pytest.approx(0.0171940298507)
+    ms, by = cs.bound(10, 3.35e9)
+    assert by == "bytes" and ms == pytest.approx(1.0)
+
+
+def _causal_rounding_p_first(q, k, v):
+    """Causal attention rounding p = exp(s - row max) to bfloat16 before
+    P·V and dividing by the float32 row sum after, as the tensor-core
+    kernel rounds (the plain version rounds p after normalising)."""
+    group = q.shape[1] // k.shape[1]
+    kq = k.repeat_interleave(group, dim=1).float()
+    vq = v.repeat_interleave(group, dim=1).float()
+    logits = (q.float() @ kq.mT) * q.shape[-1] ** -0.5
+    i = torch.arange(q.shape[2])
+    logits = logits.masked_fill(i[:, None] < i[None, :], float("-inf"))
+    p = torch.exp(logits - logits.amax(-1, keepdim=True))
+    return ((p.to(torch.bfloat16).float() @ vq)
+            / p.sum(-1, keepdim=True)).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_chip_smoke_flash_check_rejects_a_dropped_key_tile(d):
+    """At phase 6's input scale the bf16 check passes the kernel's
+    rounding and rejects one fully visible 32-key tile dropped."""
+    cs = _chip_smoke()
+    rng = np.random.default_rng(d)
+    q, k, v = (cs.attention_heads(torch, rng, 1, 512, n, d, torch.bfloat16,
+                                  scale, device="cpu")
+               for n, scale in ((4, cs.QK_SCALE), (2, cs.QK_SCALE), (2, 1.0)))
+    want = ops.flash_attention(q, k, v, causal=True)
+    assert torch.equal(cs.attention_hiding_keys(torch, q, k, v, 0, 0), want)
+    assert cs.flash_close(_causal_rounding_p_first(q, k, v), want,
+                          "bfloat16")[0]
+    close, err = cs.flash_close(
+        want, cs.attention_hiding_keys(torch, q, k, v, 256, 288), "bfloat16")
+    assert not close and err > 0.25
