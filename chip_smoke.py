@@ -15,7 +15,11 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    (``library_ms``) and the card's bound for the same work, one call per
    event pair (``ms``) and ten back to back (``ms_b2b``); time the GEMM
    at the sweep's three shapes under the launch ``gemm_config`` picks,
-   with blocks, waves over the SMs, TFLOP/s and share of bound;
+   with blocks, waves over the SMs, TFLOP/s and share of bound; time SYMM
+   (both sides) and the chain at their main-path shapes under the launches
+   ``symm_config`` and ``chain_config`` pick, with blocks and waves,
+   beside the port's ``ops.gemm`` on the same (m, m, n) product and the
+   port's two ``ops.gemm`` calls the chain fuses;
 4. run the paper's measured anomaly sweep — ``aatb`` over
    (400, 800, 1200)³, ``abcd`` over (400, 1200)⁵ and ``abab``, whose
    alg2 is the fused GEMM+SYRK, over (400, 800, 1200)³ — on the ``cuda``
@@ -99,8 +103,8 @@ SWEEP_KERNELS = ("gemm", "syrk", "symm", "chain_gemm", "gemm_syrk")
 
 #: (rtol, atol). Element-wise |kernel - plain| <= atol + rtol·|plain|
 #: (float32 sums in another order; the chain's second contraction runs
-#: over values ~30x larger and its atomics add in a varying order, hence
-#: its atol). gemm_syrk is held as check_algorithms holds an algorithm,
+#: over values ~30x larger and its atomics add its l-chunks in a varying
+#: order, hence its atol). gemm_syrk is held as check_algorithms holds an algorithm,
 #: max|kernel - plain| <= atol + rtol·max|plain|: its diagonal is ~l·k
 #: (3.2e5 at 1200·400·800) and entries off it ~sqrt(l)·k (1.1e4), so one
 #: element-wise atol cannot fit both; float32 rounding of sums that large
@@ -276,6 +280,62 @@ def time_gemm_configs(torch, np) -> None:
               f"{flops / ms_b2b / 1e9:.2f}) bound_share={b_ms / ms:.1%} "
               f"({b_by}) library_ms={lib_ms:.4f} "
               f"ms/library_ms={ms / lib_ms:.2f}")
+
+
+#: Main-path shapes of SYMM (m, n) and of the chain (m, k, l, n).
+SYMM_SHAPE = (1200, 400)
+CHAIN_SHAPE = (1200, 800, 1200, 400)
+
+
+def time_symm_chain_configs(torch, np) -> None:
+    """Phase 3: SYMM and the chain at their main-path shapes under the
+    launches their rules pick, beside the port's GEMMs of the same work
+    (``ab_bench.py`` times the other launches)."""
+    from repro_torch.kernels import chain_gemm as chain_mod
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import symm as symm_mod
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rng = np.random.default_rng(SEED)
+
+    def mat(r, c):
+        return torch.from_numpy(rng.standard_normal((r, c))).float().cuda()
+
+    m, n = SYMM_SHAPE
+    s = torch.tril(mat(m, m)) + torch.triu(mat(m, m) * 1e3, 1)
+    full = torch.tril(s) + torch.tril(s, -1).mT
+    cfg = symm_mod.symm_config(m, n, sms)
+    flops = 2 * m * m * n
+    b_ms, _ = bound(flops, 4 * (m * (m + 1) // 2 + 2 * m * n))
+    for side, b in (("L", mat(m, n)), ("R", mat(n, m).mT)):
+        ms = time_ms(torch, lambda: ops.symm(s, b))
+        ms_b2b = time_ms(torch, lambda: ops.symm(s, b), inner=10)
+        g_ms = time_ms(torch, lambda: ops.gemm(full, b))
+        g_b2b = time_ms(torch, lambda: ops.gemm(full, b), inner=10)
+        blocks = cfg.blocks(m, n)
+        print(f"symm {m}x{n} side {side} [{cfg.name}]: blocks={blocks} "
+              f"waves={blocks / sms:.2f} ms={ms:.4f} ms_b2b={ms_b2b:.4f} "
+              f"TFLOP/s={flops / ms / 1e9:.2f} (b2b "
+              f"{flops / ms_b2b / 1e9:.2f}) bound_share={b_ms / ms:.1%}; "
+              f"ops.gemm {m}x{m}x{n} ms={g_ms:.4f} ms_b2b={g_b2b:.4f}; "
+              f"b2b symm/gemm={ms_b2b / g_b2b:.3f}")
+
+    m, k, l, n = CHAIN_SHAPE
+    a, b, c = mat(m, k), mat(k, l), mat(l, n)
+    cfg = chain_mod.chain_config(m, k, l, n, sms)
+    flops = 2 * m * k * l + 2 * m * l * n
+    b_ms, _ = bound(flops, 4 * (m * k + k * l + l * n + m * n))
+    run = lambda: ops.chain_gemm(a, b, c)
+    two = lambda: ops.gemm(ops.gemm(a, b), c)
+    ms, ms_b2b = time_ms(torch, run), time_ms(torch, run, inner=10)
+    g_ms, g_b2b = time_ms(torch, two), time_ms(torch, two, inner=10)
+    blocks = cfg.blocks(m, l)
+    print(f"chain_gemm {m}*{k}*{l}*{n} [{cfg.name}, atomic sum of "
+          f"{cfg.chunks(l)} l-chunks]: blocks={blocks} "
+          f"waves={blocks / sms:.2f} ms={ms:.4f} ms_b2b={ms_b2b:.4f} "
+          f"TFLOP/s={flops / ms / 1e9:.2f} (b2b {flops / ms_b2b / 1e9:.2f}) "
+          f"bound_share={b_ms / ms:.1%}; two ops.gemm ms={g_ms:.4f} "
+          f"ms_b2b={g_b2b:.4f}; b2b chain/two gemms={ms_b2b / g_b2b:.3f}")
 
 
 def check_kernels(torch, np) -> dict:
@@ -748,7 +808,7 @@ def serve_model(torch, np) -> dict:
 def print_ptxas_report(log: Path) -> None:
     """Registers, shared memory and spills per kernel (``-Xptxas=-v``);
     the flash kernels' instantiations are named by type and head_dim, the
-    GEMM's by tile."""
+    GEMM's, SYMM's and the chain's by tile."""
     name = ""
     for line in log.read_text().splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
@@ -756,11 +816,12 @@ def print_ptxas_report(log: Path) -> None:
             fn = entry.group(1)
             f32 = re.search(r"flash_kernelILi(\d+)E", fn)
             tc = re.search(r"flash_tc_kernelILi(\d+)E", fn)
-            gemm = re.search(r"gemm_kernelILi(\d+)ELi(\d+)E", fn)
+            tiled = re.search(r"(gemm|symm|chain)_kernelILi(\d+)ELi(\d+)E", fn)
             name = (f"flash_kernel<f32,{f32.group(1)}> " if f32 else
                     f"flash_tc_kernel<bf16,{tc.group(1)}> " if tc else
-                    f"gemm_kernel<{gemm.group(1)}x{gemm.group(2)}> "
-                    if gemm else "")
+                    f"{tiled.group(1)}_kernel<{tiled.group(2)}x"
+                    f"{tiled.group(3)}> " if tiled else
+                    "split_sum_kernel " if "split_sum_kernel" in fn else "")
         if line.startswith("=="):
             name = ""
             print(f"  ptxas {line.strip()}")
@@ -796,6 +857,7 @@ def main() -> int:
 
     results = check_kernels(torch, np)
     time_gemm_configs(torch, np)
+    time_symm_chain_configs(torch, np)
     with tempfile.TemporaryDirectory(prefix="chip-smoke-atlas-") as d:
         launches = run_sweeps(torch, Path(d))
     check_algorithms(torch)

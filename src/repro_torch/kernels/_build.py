@@ -48,11 +48,13 @@ SIGNATURES: Dict[str, List[type]] = {
                        _I, _P],
     # a, sa0, sa1, c, m, k, stream
     "repro_syrk_f32": [_P, _L, _L, _P, _I, _I, _P],
-    # s, ss0, ss1, b, sb0, sb1, c, m, n, stream
-    "repro_symm_f32": [_P, _L, _L, _P, _L, _L, _P, _I, _I, _P],
-    # a, sa0, sa1, b, sb0, sb1, c, sc0, sc1, out, m, k, l, n, stream
+    # s, ss0, ss1, b, sb0, sb1, c, workspace, m, n, config, split, kchunk,
+    # stream
+    "repro_symm_f32": [_P, _L, _L, _P, _L, _L, _P, _P, _I, _I, _I, _I, _I,
+                       _P],
+    # a, sa0, sa1, b, sb0, sb1, c, sc0, sc1, out, m, k, l, n, config, stream
     "repro_chain_gemm_f32": [_P, _L, _L, _P, _L, _L, _P, _L, _L, _P,
-                             _I, _I, _I, _I, _P],
+                             _I, _I, _I, _I, _I, _P],
     # a, sa0, sa1, b, sb0, sb1, out, m, k, l, stream
     "repro_gemm_syrk_f32": [_P, _L, _L, _P, _L, _L, _P, _I, _I, _I, _P],
     # dtype, head_dim, q, k, v, o (each strided), batch, heads, kv_heads,

@@ -40,35 +40,14 @@ gemm_kernel(Operand a, Operand b, float* c, int m, int n, int k, int kchunk) {
   store<BM, BN>(acc, c + static_cast<long long>(blockIdx.z) * m * n, n, row0, col0, m, n);
 }
 
-// c = sum over p of ws[p], in order p = 0, 1, ...
-__global__ void __launch_bounds__(256) split_sum_kernel(const float* ws, float* c, long long mn,
-                                                        int split) {
-  for (long long i = blockIdx.x * 256ll + threadIdx.x; i < mn; i += gridDim.x * 256ll) {
-    float s = ws[i];
-    for (int p = 1; p < split; ++p) s += ws[p * mn + i];
-    c[i] = s;
-  }
-}
-
 template <int BM, int BN, int MIN_BLOCKS>
 cudaError_t launch(const Operand& a, const Operand& b, float* c, float* ws, int m, int n, int k,
                    int split, int kchunk, cudaStream_t st) {
-  constexpr int smem = Tile<BM, BN>::smem_bytes;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        gemm_kernel<BM, BN, MIN_BLOCKS>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-  }
   const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM, split);
-  gemm_kernel<BM, BN, MIN_BLOCKS><<<grid, THREADS, smem, st>>>(a, b, split > 1 ? ws : c, m, n,
-                                                               k, kchunk);
-  cudaError_t err = cudaGetLastError();
+  const cudaError_t err = launch_tile<BM, BN>(gemm_kernel<BM, BN, MIN_BLOCKS>, grid, 0, st, a, b,
+                                              split > 1 ? ws : c, m, n, k, kchunk);
   if (err != cudaSuccess || split == 1) return err;
-  const long long mn = static_cast<long long>(m) * n;
-  const long long want = (mn + 255) / 256;
-  const int blocks = static_cast<int>(want < 132 * 16 ? want : 132 * 16);
-  split_sum_kernel<<<blocks, 256, 0, st>>>(ws, c, mn, split);
-  return cudaGetLastError();
+  return sum_slices(ws, c, static_cast<long long>(m) * n, split, st);
 }
 
 }  // namespace
@@ -82,10 +61,7 @@ extern "C" int repro_gemm_f32(const float* a, long long sa0, long long sa1,
                               const float* b, long long sb0, long long sb1,
                               float* c, float* ws, int m, int n, int k, int config, int split,
                               int kchunk, void* stream) {
-  if (split < 1 || kchunk < BK || kchunk % BK != 0 ||
-      static_cast<long long>(split - 1) * kchunk >= (k > 0 ? k : 1) ||
-      (split > 1 && ws == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (!valid_split(k, split, kchunk, ws)) return static_cast<int>(cudaErrorInvalidValue);
   const Operand A{a, sa0, sa1, m, copy_mode(a, sa0, sa1)};
   const Operand B{b, sb1, sb0, n, copy_mode(b, sb1, sb0)};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);

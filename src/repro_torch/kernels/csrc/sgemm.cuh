@@ -1,7 +1,7 @@
 // IEEE float32 matrix-product routine for Hopper's CUDA cores: 256-thread
 // blocks, a cp.async ring of shared-memory slabs, and a tile shape chosen
-// at launch. Used by gemm.cu; built to be reused by the other float32
-// matrix kernels (which still use tile.cuh).
+// at launch. Used by gemm.cu, symm.cu and chain_gemm.cu (syrk.cu and
+// gemm_syrk.cu still use tile.cuh).
 //
 // Block tile BM x BN (128x128, 128x64 or 64x64), 8 warps. The 256 threads
 // form a 16 x 16 grid, thread (ty, tx) owning rows h·64 + ty·4 + {0..3}
@@ -18,8 +18,10 @@
 // B) is contiguous, with 16-byte aligned rows, is copied 16 bytes at a
 // time; any other (A row-major, transposed views, leading dims such as
 // 333) 4 bytes at a time, neighbouring threads on neighbouring addresses.
-// Ragged edges are zero-filled by the copies' src-size, so nothing is
-// padded, and a transposed view is read in place.
+// A symmetric operand stored as its lower triangle has a copy mode of its
+// own (kSymLower), so a kernel reads the triangle without a branch in the
+// multiply. Ragged edges are zero-filled by the copies' src-size, so
+// nothing is padded, and a transposed view is read in place.
 //
 // Arithmetic is fmaf with a float32 accumulator: the backend's dtype label
 // is "float32", and TF32 tensor cores would be a different result.
@@ -42,6 +44,9 @@ enum CopyMode : int {
   kVec16 = 0,    // 16-byte copies along the output-side index
   kWFast = 1,    // 4-byte copies, output-side index fastest
   kKFast = 2,    // 4-byte copies, contraction index fastest
+  kSymLower = 3, // 4-byte copies of S(max(w, kk), min(w, kk)), w fastest:
+                 // a symmetric S stored as its lower triangle, sw and sk
+                 // its row and column strides (SlabCopier<BW, true>)
 };
 
 // Operand X(w, kk): w the output-side index (row of A, column of B), kk
@@ -94,7 +99,13 @@ __device__ __forceinline__ void cp_async_wait() {
 // s[kk][w - w0] = X(w, kt0 + kk), zero outside w < w_len and kt0 + kk < k1.
 // Copy q of a slab is element (w_first + q·w_step, kt0 + kk_first +
 // q·kk_step); its addresses are set up once, so a slab costs one add.
-template <int BW>
+// SlabCopier<BW, true> copies in mode kSymLower, whatever the operand's
+// mode, computing each address from (w, kk): the band of a symmetric
+// operand that straddles the diagonal, a few slabs of a product. (Fixed at
+// compile time: with a run-time test in the copier of every segment, symm
+// ran 7.9 % slower summed over the launches its rule picks at the sweep's
+// shapes; ab_bench.py --symm-variant, PERF.md section 6.)
+template <int BW, bool SYM = false>
 struct SlabCopier {
   static constexpr int VEC_COPIES = BK * BW / 4 / THREADS;   // 16-byte
   static constexpr int SCALAR_COPIES = BK * BW / THREADS;    // 4-byte
@@ -103,14 +114,19 @@ struct SlabCopier {
                         // where in bounds)
   long long q_step;     // elements from copy q to copy q + 1
   long long slab_step;  // elements from one slab to the next
+  long long sw, sk;     // strides (SYM only)
+  int w_base;           // first output-side index of the slab (SYM only)
   int w_first, w_step, kk_first, kk_step, dst_first, dst_step, w_len, mode;
 
   __device__ __forceinline__ SlabCopier(const Operand& x, int w0, int k0) {
     const int tid = threadIdx.x;
+    w_base = w0;
     base = x.p;
     mode = x.mode;
     w_len = x.w_len;
     slab_step = BK * x.sk;
+    sw = x.sw;
+    sk = x.sk;
     if (mode == kVec16) {        // chunks of 4 along w, 16-byte rows
       constexpr int CH = BW / 4;
       w_first = w0 + (tid % CH) * 4;
@@ -139,6 +155,20 @@ struct SlabCopier {
   // to the next slab.
   __device__ __forceinline__ void copy(float* s, int kt0, int k1) {
     const uint32_t dst = smem_u32(s + dst_first);
+    if (SYM) {   // neighbouring threads along w
+      const int tid = threadIdx.x;
+      const uint32_t s0 = smem_u32(s);
+#pragma unroll
+      for (int q = 0; q < SCALAR_COPIES; ++q) {
+        const int dw = tid % BW, dk = tid / BW + q * (THREADS / BW);
+        const int w = w_base + dw, kk = kt0 + dk;
+        const bool in = w < w_len && kk < k1;
+        const float* p = base + static_cast<long long>(max(w, kk)) * sw +
+                         static_cast<long long>(min(w, kk)) * sk;
+        cp_async4(s0 + (dk * (BW + PAD) + dw) * 4, in ? p : base, in ? 4 : 0);
+      }
+      return;
+    }
     if (mode == kVec16) {
       const int n = min(4, max(0, w_len - w_first));
 #pragma unroll
@@ -165,9 +195,36 @@ __device__ __forceinline__ int thread_tx() {
   return ((threadIdx.x >> 5) & 1) * 8 + (threadIdx.x & 7);
 }
 
-// acc += A[row0:row0+BM, k0:k1] · B[k0:k1, col0:col0+BN]. Entered and left
-// by all threads of the block together; smem holds Tile::smem_bytes.
+// acc += a · b for one slab in shared memory: a[kk][i] (rows BM + PAD
+// apart), b[kk][j] (BN + PAD apart), kk < BK.
 template <int BM, int BN>
+__device__ __forceinline__ void slab_fma(const float* a, const float* b, int ty, int tx,
+                                         float (&acc)[BM / 16][BN / 16]) {
+  using T = Tile<BM, BN>;
+#pragma unroll
+  for (int kk = 0; kk < BK; ++kk) {
+    float av[T::TM], bv[T::TN];
+#pragma unroll
+    for (int hh = 0; hh < T::TM / 4; ++hh) {
+      const float4 x = *reinterpret_cast<const float4*>(a + kk * (BM + PAD) + hh * 64 + ty * 4);
+      av[hh * 4] = x.x; av[hh * 4 + 1] = x.y; av[hh * 4 + 2] = x.z; av[hh * 4 + 3] = x.w;
+    }
+#pragma unroll
+    for (int hh = 0; hh < T::TN / 4; ++hh) {
+      const float4 x = *reinterpret_cast<const float4*>(b + kk * (BN + PAD) + hh * 64 + tx * 4);
+      bv[hh * 4] = x.x; bv[hh * 4 + 1] = x.y; bv[hh * 4 + 2] = x.z; bv[hh * 4 + 3] = x.w;
+    }
+#pragma unroll
+    for (int i = 0; i < T::TM; ++i)
+#pragma unroll
+      for (int j = 0; j < T::TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+  }
+}
+
+// acc += A[row0:row0+BM, k0:k1] · B[k0:k1, col0:col0+BN]. Entered and left
+// by all threads of the block together; smem holds Tile::smem_bytes. SYM_A:
+// A is copied in mode kSymLower.
+template <int BM, int BN, bool SYM_A = false>
 __device__ __forceinline__ void accumulate(const Operand& A, const Operand& B, int row0,
                                            int col0, int k0, int k1, float* smem,
                                            float (&acc)[BM / 16][BN / 16]) {
@@ -176,7 +233,7 @@ __device__ __forceinline__ void accumulate(const Operand& A, const Operand& B, i
   const int nslab = k1 > k0 ? (k1 - k0 + BK - 1) / BK : 0;
   float* sa = smem;
   float* sb = smem + STAGES * T::SA;
-  SlabCopier<BM> ca(A, row0, k0);
+  SlabCopier<BM, SYM_A> ca(A, row0, k0);
   SlabCopier<BN> cb(B, col0, k0);
 #pragma unroll
   for (int st = 0; st < STAGES - 1; ++st) {
@@ -195,26 +252,7 @@ __device__ __forceinline__ void accumulate(const Operand& A, const Operand& B, i
       cb.copy(sb + (pre % STAGES) * T::SB, k0 + pre * BK, k1);
     }
     cp_async_commit();
-    const float* a = sa + (t % STAGES) * T::SA;
-    const float* b = sb + (t % STAGES) * T::SB;
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float av[T::TM], bv[T::TN];
-#pragma unroll
-      for (int hh = 0; hh < T::TM / 4; ++hh) {
-        const float4 x = *reinterpret_cast<const float4*>(a + kk * (BM + PAD) + hh * 64 + ty * 4);
-        av[hh * 4] = x.x; av[hh * 4 + 1] = x.y; av[hh * 4 + 2] = x.z; av[hh * 4 + 3] = x.w;
-      }
-#pragma unroll
-      for (int hh = 0; hh < T::TN / 4; ++hh) {
-        const float4 x = *reinterpret_cast<const float4*>(b + kk * (BN + PAD) + hh * 64 + tx * 4);
-        bv[hh * 4] = x.x; bv[hh * 4 + 1] = x.y; bv[hh * 4 + 2] = x.z; bv[hh * 4 + 3] = x.w;
-      }
-#pragma unroll
-      for (int i = 0; i < T::TM; ++i)
-#pragma unroll
-        for (int j = 0; j < T::TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
+    slab_fma<BM, BN>(sa + (t % STAGES) * T::SA, sb + (t % STAGES) * T::SB, ty, tx, acc);
   }
   cp_async_wait<0>();
   __syncthreads();   // the ring may be reused by the caller
@@ -222,7 +260,10 @@ __device__ __forceinline__ void accumulate(const Operand& A, const Operand& B, i
 
 // Write a thread's tile into a row-major (ld) output, masked to m x n;
 // 16-byte stores where the row is aligned and the 4 columns are inside.
-template <int BM, int BN>
+// ADD: add it with float32 atomics instead (red.global.add, 16 bytes at
+// a time where the row is aligned), in an order that varies from run to
+// run.
+template <int BM, int BN, bool ADD = false>
 __device__ __forceinline__ void store(const float (&acc)[BM / 16][BN / 16], float* c,
                                       long long ld, int row0, int col0, int m, int n) {
   using T = Tile<BM, BN>;
@@ -236,7 +277,14 @@ __device__ __forceinline__ void store(const float (&acc)[BM / 16][BN / 16], floa
 #pragma unroll
     for (int hh = 0; hh < T::TN / 4; ++hh) {
       const int col = col0 + hh * 64 + tx * 4;
-      if (vec && col + 3 < n) {
+      if (ADD && vec && col + 3 < n) {
+        atomicAdd(reinterpret_cast<float4*>(crow + col),
+                  make_float4(acc[i][hh * 4], acc[i][hh * 4 + 1], acc[i][hh * 4 + 2], acc[i][hh * 4 + 3]));
+      } else if (ADD) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (col + j < n) atomicAdd(crow + col + j, acc[i][hh * 4 + j]);
+      } else if (vec && col + 3 < n) {
         *reinterpret_cast<float4*>(crow + col) =
             make_float4(acc[i][hh * 4], acc[i][hh * 4 + 1], acc[i][hh * 4 + 2], acc[i][hh * 4 + 3]);
       } else {
@@ -246,6 +294,53 @@ __device__ __forceinline__ void store(const float (&acc)[BM / 16][BN / 16], floa
       }
     }
   }
+}
+
+// c = sum over p of ws[p] (split slices of mn floats), in order p = 0, 1,
+// ...: the result does not depend on the order blocks finished in. (A
+// template, so that every source including this header may launch it.)
+template <int NT>
+__global__ void __launch_bounds__(NT) split_sum_kernel(const float* ws, float* c, long long mn,
+                                                       int split) {
+  for (long long i = blockIdx.x * static_cast<long long>(NT) + threadIdx.x; i < mn;
+       i += gridDim.x * static_cast<long long>(NT)) {
+    float s = ws[i];
+    for (int p = 1; p < split; ++p) s += ws[p * mn + i];
+    c[i] = s;
+  }
+}
+
+// c = the sum of split slices of ws, on st, over at most 16 blocks an SM.
+inline cudaError_t sum_slices(const float* ws, float* c, long long mn, int split,
+                              cudaStream_t st) {
+  const long long want = (mn + 255) / 256;
+  const int blocks = static_cast<int>(want < 132 * 16 ? want : 132 * 16);
+  split_sum_kernel<256><<<blocks, 256, 0, st>>>(ws, c, mn, split);
+  return cudaGetLastError();
+}
+
+// Launch a kernel of Tile<BM, BN>'s dynamic shared memory plus extra
+// bytes, raising the kernel's limit above 48 KB where it needs it.
+template <int BM, int BN, class... P, class... A>
+cudaError_t launch_tile(void (*kernel)(P...), dim3 grid, int extra, cudaStream_t st,
+                        A... args) {
+  const int smem = Tile<BM, BN>::smem_bytes + extra;
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<grid, THREADS, smem, st>>>(args...);
+  return cudaGetLastError();
+}
+
+// Whether a contraction of k cut into split slices of kchunk is a valid
+// launch: kchunk a positive multiple of BK, no slice empty, a workspace
+// where split > 1.
+inline bool valid_split(int k, int split, int kchunk, const float* ws) {
+  return split >= 1 && kchunk >= BK && kchunk % BK == 0 &&
+         static_cast<long long>(split - 1) * kchunk < (k > 0 ? k : 1) &&
+         (split == 1 || ws != nullptr);
 }
 
 }  // namespace sgemm

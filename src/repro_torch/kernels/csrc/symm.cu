@@ -6,53 +6,93 @@
 // diagonal and symmetrises the diagonal block, never reading S's strict
 // upper triangle.
 //
-// Bound on the H100 SXM: compute. SYMM does 2m²n flops on
+// Bound on the H100 SXM: operations. SYMM does 2m²n flops on
 // 4(m(m+1)/2 + 2mn) bytes; 1200x400 is 1.15 GFLOP, ~17 us at 67 TFLOP/s
 // FP32, against ~6.7 MB, ~2 us at 3.35 TB/s.
 //
-// Design: the GEMM tile of tile.cuh with the symmetric operand read
-// through SymLowerA: element (i, k) is S(i, k) when i >= k and S(k, i)
-// otherwise, so only the lower triangle is ever loaded and whatever the
-// upper triangle holds cannot leak into C. The slab-load mapping follows
-// whichever of the two reads dominates the slab (below the diagonal the
-// contraction index walks S's columns, above it S's rows), so the loads
-// stay coalesced on both sides. Side R (B·S) runs this kernel on
-// (S·Bᵀ)ᵀ through strides, with no copy.
-#include "tile.cuh"
+// Design: the GEMM of sgemm.cuh (256-thread blocks, 8x8 / 8x4 / 4x4
+// register tiles, a 3-slab cp.async ring) with the tile and a contraction
+// split chosen per call (kernels/symm.py: symm_config). The symmetric
+// operand's triangle is a matter of copy modes, not of a branch on each
+// load: block rows [row0, row0 + BM) cut the contraction at the diagonal
+// into three segments, accumulated one after the other by the routine
+// into one accumulator, each with its own operand —
+//   k < row0          reads S(i, k): S as stored (k-fastest 4-byte copies
+//                     for a row-major S);
+//   k >= row0 + BM    reads S(k, i): S transposed through its strides
+//                     (16-byte copies for a row-major, aligned S);
+//   the BM-wide band  straddles the diagonal and reads S(max(i,k),
+//                     min(i,k)) with 4-byte copies (kSymLower).
+// row0 and the split's slices are multiples of 16, so the segments fall
+// on slab boundaries. Only the lower triangle is ever read, so whatever
+// the upper triangle holds cannot leak into C. Split slices are summed in
+// slice order by a second pass, so two calls are bitwise equal. Side R
+// (B·S) runs this kernel on (S·Bᵀ)ᵀ through strides, with no copy.
+#include "sgemm.cuh"
 
-using namespace repro;
+using namespace repro::sgemm;
 
-// sym(S)(i, k) from the lower triangle of S.
-struct SymLowerA {
-  View s;
-  __device__ __forceinline__ float at(int i, int k) const {
-    return i >= k ? s.at(i, k) : s.at(k, i);
-  }
-  __device__ __forceinline__ bool k_fastest(int row0, int k0) const {
-    const bool below = k0 < row0 + BM / 2;   // most of the slab reads S(i, k)
-    const long long sk = below ? s.s1 : s.s0;
-    const long long si = below ? s.s0 : s.s1;
-    return sk <= si;
-  }
-};
+namespace {
 
-__global__ void __launch_bounds__(THREADS)
-symm_kernel(View s, View b, float* c, int m, int n) {
-  __shared__ Slabs sm;
+// Segment seg (0 below, 1 band, 2 above) of block rows [row0, row0 + BM)
+// is [lo, hi) of the contraction; S is read through s with strides ss0,
+// ss1, copied in below_mode / kSymLower / above_mode.
+template <int BM, int BN, int MIN_BLOCKS>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+symm_kernel(const float* s, long long ss0, long long ss1, int below_mode, int above_mode,
+            Operand b, float* c, int m, int n, int kchunk) {
+  extern __shared__ __align__(16) float smem[];
   const int row0 = blockIdx.y * BM;
   const int col0 = blockIdx.x * BN;
-  float acc[TM][TN] = {};
-  accumulate_tile(SymLowerA{s}, DenseB{b}, row0, col0, 0, m, sm, acc);
-  store_tile(acc, c, n, row0, col0, m, n);
+  const int k0 = blockIdx.z * kchunk;
+  const int k1 = min(m, k0 + kchunk);
+  float acc[BM / 16][BN / 16] = {};
+#pragma unroll 1
+  for (int seg = 0; seg < 3; ++seg) {
+    const int lo = max(k0, seg == 0 ? 0 : seg == 1 ? row0 : row0 + BM);
+    const int hi = min(k1, seg == 0 ? row0 : seg == 1 ? row0 + BM : m);
+    if (lo >= hi) continue;
+    const Operand a{s, seg == 2 ? ss1 : ss0, seg == 2 ? ss0 : ss1, m,
+                    seg == 0 ? below_mode : seg == 1 ? kSymLower : above_mode};
+    if (seg == 1)   // the band: its own call site, its copier fixed at kSymLower
+      accumulate<BM, BN, true>(a, b, row0, col0, lo, hi, smem, acc);
+    else
+      accumulate<BM, BN>(a, b, row0, col0, lo, hi, smem, acc);
+  }
+  store<BM, BN>(acc, c + static_cast<long long>(blockIdx.z) * m * n, n, row0, col0, m, n);
 }
 
+template <int BM, int BN, int MIN_BLOCKS>
+cudaError_t launch(const float* s, long long ss0, long long ss1, const Operand& b, float* c,
+                   float* ws, int m, int n, int split, int kchunk, cudaStream_t st) {
+  const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM, split);
+  const cudaError_t err = launch_tile<BM, BN>(
+      symm_kernel<BM, BN, MIN_BLOCKS>, grid, 0, st, s, ss0, ss1, copy_mode(s, ss0, ss1),
+      copy_mode(s, ss1, ss0), b, split > 1 ? ws : c, m, n, kchunk);
+  if (err != cudaSuccess || split == 1) return err;
+  return sum_slices(ws, c, static_cast<long long>(m) * n, split, st);
+}
+
+}  // namespace
+
 // c (m x n, row-major, contiguous) = sym(s) · b; s (m x m) lower-stored
-// and strided, b (m x n) strided.
+// and strided, b (m x n) strided. config, split and kchunk as for
+// repro_gemm_f32 (the tile order of kernels/gemm.py: TILES): the
+// contraction over m is cut into split slices of kchunk, which go to ws
+// (split·m·n floats) and are summed into c when split > 1.
 extern "C" int repro_symm_f32(const float* s, long long ss0, long long ss1,
                               const float* b, long long sb0, long long sb1,
-                              float* c, int m, int n, void* stream) {
-  const dim3 grid(cdiv(n, BN), cdiv(m, BM));
-  symm_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      View{s, ss0, ss1, m, m}, View{b, sb0, sb1, m, n}, c, m, n);
-  return static_cast<int>(cudaGetLastError());
+                              float* c, float* ws, int m, int n, int config, int split,
+                              int kchunk, void* stream) {
+  if (!valid_split(m, split, kchunk, ws)) return static_cast<int>(cudaErrorInvalidValue);
+  const Operand B{b, sb1, sb0, n, copy_mode(b, sb1, sb0)};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (config) {
+    case 0: err = launch<128, 128, 1>(s, ss0, ss1, B, c, ws, m, n, split, kchunk, st); break;
+    case 1: err = launch<128, 64, 2>(s, ss0, ss1, B, c, ws, m, n, split, kchunk, st); break;
+    case 2: err = launch<64, 64, 3>(s, ss0, ss1, B, c, ws, m, n, split, kchunk, st); break;
+    default: err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
 }

@@ -115,7 +115,8 @@ def gemm_blocks(m: int, n: int, k: int,
 
 
 @lru_cache(maxsize=None)
-def _sm_count(device: int) -> int:
+def sm_count(device: int) -> int:
+    """Streaming multiprocessors of CUDA device ``device``."""
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
@@ -123,7 +124,7 @@ def gemm_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """C = A·B on the card; operands already validated by ``ops.gemm``."""
     m, k = a.shape
     return launch(a, b, gemm_config(m, b.shape[1], k,
-                                    _sm_count(a.get_device())))
+                                    sm_count(a.get_device())))
 
 
 def launch(a: torch.Tensor, b: torch.Tensor, cfg: GemmConfig) -> torch.Tensor:

@@ -9,7 +9,8 @@ This file imports no JAX (the card's machine has none); the parity with
 the JAX reference is tested on the CPU in tests/test_torch_kernels.py and
 tests/test_torch_sweep.py. Tolerance: float32 compares at rtol=1e-4,
 atol=1e-3 (sums in another order), the fused chain at atol=1e-2 (its
-atomics add partial sums in a varying order), as in tests/test_kernels.py.
+second contraction runs over values ~sqrt(k) larger, and its atomics add
+partial sums in a varying order), as in tests/test_kernels.py.
 The fused GEMM+SYRK is held as chip_smoke.py holds it: max |kernel - plain|
 <= 1e-2 + 1e-5·max|plain|. Its diagonal is ~l·k (3.2e5 at 1200·400·800)
 while entries off it are ~sqrt(l)·k, so one element-wise atol cannot fit
@@ -135,6 +136,116 @@ def test_chain_gemm_kernel(cuda, m, k, l, n):
     a, b = _mat(rng, m, k, cuda), _mat(rng, k, l, cuda)
     c = _mat(rng, n, l, cuda).mT
     _close(ops.chain_gemm(a, b, c), ref.chain_gemm(a, b, c), CHAIN_TOL)
+
+
+#: (m, n) of the SYMM launches tested: main-path and sweep shapes, m not a
+#: multiple of 16 (a ragged band), a single row, and shapes at each tile's
+#: edge.
+SYMM_SHAPES = [(1200, 400), (400, 800), (800, 1200), (1100, 333), (1037, 129),
+               (200, 70), (77, 50), (129, 64), (17, 3), (1, 5), (256, 128)]
+
+
+def _lower_with_garbage(rng, m, cuda):
+    """(S with 1e3-scale garbage above the diagonal, its clean lower part)."""
+    low = torch.tril(_mat(rng, m, m, cuda))
+    return low + torch.triu(_mat(rng, m, m, cuda) * 1e3, 1), low
+
+
+@pytest.mark.parametrize("m,n", SYMM_SHAPES)
+@pytest.mark.parametrize("side", ["L", "R"])
+def test_symm_kernel_every_launch(cuda, m, n, side):
+    """Every tile and split symm_config can pick, forced through the
+    launcher, on S with garbage above its diagonal; side R as (S·Bᵀ)ᵀ
+    with Bᵀ a view."""
+    from repro_torch.kernels import gemm as kgemm
+    from repro_torch.kernels import symm as ksymm
+    rng = np.random.default_rng(m * 3 + n)
+    s, low = _lower_with_garbage(rng, m, cuda)
+    if side == "L":
+        b = _mat(rng, m, n, cuda)
+        want = ref.symm(low, b)
+    else:
+        y = _mat(rng, n, m, cuda)
+        b = y.mT
+        want = (y @ ref.tri2full(low)).mT
+    assert ksymm.symm_config(m, n) in kgemm.candidates(m)
+    for cfg in kgemm.candidates(m):
+        before = ops.launch_counts()["symm"]
+        _close(ksymm.launch(s, b, cfg), want, TOL)
+        assert ops.launch_counts()["symm"] == before + 1
+
+
+@pytest.mark.parametrize("ld", [333, 1037])
+@pytest.mark.parametrize("side", ["L", "R"])
+def test_symm_kernel_unaligned_leading_dims(cuda, ld, side):
+    """S and B cut from buffers whose rows are not 16-byte aligned: every
+    segment takes the 4-byte copies."""
+    from repro_torch.kernels import gemm as kgemm
+    from repro_torch.kernels import symm as ksymm
+    rng = np.random.default_rng(ld)
+    m, n = 300, 290
+    buf = _mat(rng, m, ld, cuda)
+    s = torch.tril(buf[:, :m]) + torch.triu(buf[:, :m] * 1e3, 1)
+    low = torch.tril(buf[:, :m])
+    if side == "L":
+        b = _mat(rng, m, ld, cuda)[:, :n]
+        want = ref.symm(low, b)
+    else:
+        b = _mat(rng, n, ld, cuda)[:, :m].mT
+        want = ref.tri2full(low) @ b
+    for cfg in kgemm.candidates(m):
+        _close(ksymm.launch(s, b, cfg), want, TOL)
+    _close(ops.symm(s, b), want, TOL)
+
+
+@pytest.mark.parametrize("m,n", [(1200, 400), (400, 1200), (1100, 333)])
+def test_symm_kernel_is_deterministic(cuda, m, n):
+    """No atomics: split slices are summed in slice order."""
+    from repro_torch.kernels import gemm as kgemm
+    from repro_torch.kernels import symm as ksymm
+    rng = np.random.default_rng(n)
+    s, _ = _lower_with_garbage(rng, m, cuda)
+    b = _mat(rng, m, n, cuda)
+    for cfg in kgemm.candidates(m):
+        assert torch.equal(ksymm.launch(s, b, cfg), ksymm.launch(s, b, cfg))
+
+
+#: (m, k, l, n) of the chain launches tested: the main path's shape, sweep
+#: shapes, m and l not multiples of 16, one l-chunk, degenerate edges.
+CHAIN_SHAPES = [(1200, 800, 1200, 400), (400, 1200, 400, 400),
+                (400, 400, 1200, 1200), (1100, 333, 1037, 555),
+                (130, 70, 150, 60), (65, 33, 200, 17), (129, 16, 129, 129),
+                (64, 64, 64, 64), (200, 40, 100, 3), (5, 3, 1, 2),
+                (1, 7, 300, 1)]
+
+
+@pytest.mark.parametrize("m,k,l,n", CHAIN_SHAPES)
+def test_chain_kernel_every_piece(cuda, m, k, l, n):
+    """Every piece chain_config can pick, forced through the launcher;
+    C a transposed view."""
+    from repro_torch.kernels import chain_gemm as kchain
+    rng = np.random.default_rng(m + k + l + n)
+    a, b = _mat(rng, m, k, cuda), _mat(rng, k, l, cuda)
+    c = _mat(rng, n, l, cuda).mT
+    want = ref.chain_gemm(a, b, c)
+    assert kchain.chain_config(m, k, l, n) in kchain.CONFIGS
+    for cfg in kchain.CONFIGS:
+        before = ops.launch_counts()["chain_gemm"]
+        _close(kchain.launch(a, b, c, cfg), want, CHAIN_TOL)
+        assert ops.launch_counts()["chain_gemm"] == before + 1
+
+
+@pytest.mark.parametrize("ld", [333, 1037])
+def test_chain_kernel_unaligned_leading_dims(cuda, ld):
+    from repro_torch.kernels import chain_gemm as kchain
+    rng = np.random.default_rng(ld)
+    m, k, l, n = 300, 200, 250, 190
+    a = _mat(rng, m, ld, cuda)[:, :k]
+    b = _mat(rng, l, ld, cuda)[:, :k].mT
+    c = _mat(rng, l, ld, cuda)[:, :n]
+    want = ref.chain_gemm(a, b, c)
+    for cfg in kchain.CONFIGS:
+        _close(kchain.launch(a, b, c, cfg), want, CHAIN_TOL)
 
 
 def test_every_algorithm_on_cuda_backend_matches_torch_backend(cuda):

@@ -436,3 +436,245 @@ def test_chip_smoke_flash_check_rejects_a_dropped_key_tile(d):
     close, err = cs.flash_close(
         want, cs.attention_hiding_keys(torch, q, k, v, 256, 288), "bfloat16")
     assert not close and err > 0.25
+
+
+# --- Schedule twins of SYMM and the chain (kernels/symm.py: symm_config,
+# symm_segments; kernels/chain_gemm.py: chain_config, chain_blocks): the
+# launchers' index maps, pure Python, and CPU replays that walk the
+# kernels' blocks and segments. The replays read S only as the segment's
+# copy mode does and keep each M1 piece local to its block; they are held
+# at TOL (SYMM) and CHAIN_TOL (the chain, whose second contraction runs
+# over values ~sqrt(k) larger) against the plain versions, the JAX
+# reference's oracles and its Pallas kernels in interpret mode.
+
+from repro.kernels import ref as jref  # noqa: E402
+from repro.kernels.chain_gemm import chain_gemm_pallas  # noqa: E402
+from repro.kernels.symm import symm_pallas  # noqa: E402
+from repro_torch.kernels import chain_gemm as kchain  # noqa: E402
+from repro_torch.kernels import ref as tref  # noqa: E402
+from repro_torch.kernels import symm as ksymm  # noqa: E402
+
+
+def _sweep_shapes():
+    """Every SYMM and chain shape the sweep of chip_smoke.py launches, as
+    ab_bench.py finds them by walking the sweep's algorithms on meta
+    tensors (chip_smoke's phase 4 counts 648 and 1160 launches of them)."""
+    import sys
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:   # ab_bench.py imports chip_smoke.py beside it
+        sys.path.insert(0, root)
+    import ab_bench
+    return ab_bench.sweep_shapes()
+
+
+_SWEEP = _sweep_shapes()
+#: (m, n) of every SYMM the sweep launches (either side), and ragged ones:
+#: m not a multiple of 16 makes the last band ragged.
+SYMM_SWEEP_SHAPES = sorted({(m, n) for m, n, _ in _SWEEP["symm"]})
+SYMM_RAGGED_SHAPES = [(1100, 333), (1037, 129), (200, 70), (77, 50),
+                      (129, 64), (17, 3), (1, 5)]
+#: (m, k, l, n) of every chain the sweep launches (fused gemm+gemm pairs
+#: of aatb, abcd and abab).
+CHAIN_SWEEP_SHAPES = list(_SWEEP["chain_gemm"])
+CHAIN_RAGGED_SHAPES = [(1100, 333, 1037, 555), (130, 70, 150, 60),
+                       (65, 33, 200, 17), (5, 3, 1, 2), (64, 64, 64, 64),
+                       (129, 16, 129, 129)]
+
+
+def _symm_launches(m, n):
+    """The launch symm_config picks and every candidate it chooses from."""
+    return [ksymm.symm_config(m, n)] + kgemm.candidates(m)
+
+
+@pytest.mark.parametrize("m,n", SYMM_SWEEP_SHAPES + SYMM_RAGGED_SHAPES)
+def test_symm_schedule_covers_output_and_contraction_exactly_once(m, n):
+    """Every launch covers each output element once per slice, and the
+    segments of each row tile's slices cover its contraction [0, m) once,
+    in order, each starting on a slab boundary."""
+    assert ksymm.symm_config(m, n) == kgemm.gemm_config(m, n, m)
+    for cfg in _symm_launches(m, n):
+        cover = np.zeros((m, n), dtype=np.int64)
+        k_cover = {}
+        for row0, col0, k0, k1 in kgemm.gemm_blocks(m, n, m, cfg):
+            cover[row0:row0 + cfg.bm, col0:col0 + cfg.bn] += 1
+            segs = ksymm.symm_segments(row0, cfg.bm, k0, k1)
+            assert segs[0][1] == k0 and segs[-1][2] == k1
+            assert all(e == s for (_, _, e), (_, s, _) in zip(segs, segs[1:]))
+            assert [kind for kind, _, _ in segs] == sorted(
+                (kind for kind, _, _ in segs),
+                key=("below", "band", "above").index)
+            for _, s, e in segs:
+                assert s < e and s % kgemm.BK == 0
+                if col0 == 0:
+                    k_cover.setdefault(row0, np.zeros(m, dtype=np.int64))[s:e] += 1
+        assert (cover == cfg.split).all()
+        assert sorted(k_cover) == list(range(0, m, cfg.bm))
+        assert all((kc == 1).all() for kc in k_cover.values())
+
+
+@pytest.mark.parametrize("m,n", SYMM_SWEEP_SHAPES + SYMM_RAGGED_SHAPES)
+def test_symm_band_is_the_only_segment_with_mixed_reads(m, n):
+    """Below the band every (i, k) is strictly below the diagonal (S read
+    as stored), above it strictly above (S read transposed); only the
+    band, the rows' own columns, reads both sides."""
+    for cfg in _symm_launches(m, n):
+        for row0, _, k0, k1 in kgemm.gemm_blocks(m, n, m, cfg):
+            rows = np.arange(row0, min(m, row0 + cfg.bm))[:, None]
+            for kind, s, e in ksymm.symm_segments(row0, cfg.bm, k0, k1):
+                ks = np.arange(s, e)[None, :]
+                if kind == "below":
+                    assert (rows > ks).all()
+                elif kind == "above":
+                    assert (rows < ks).all()
+                else:
+                    assert row0 <= s and e <= row0 + cfg.bm
+                    if e - s > 1 and rows.size > 1:
+                        assert (rows > ks).any() and (rows < ks).any()
+
+
+def _symm_replay(s, b, cfg):
+    """sym(S)·B as the kernel schedules it: each block of the launch
+    accumulates its segments, reading S(i, k) below the band, S(k, i)
+    above it and S(max, min) in it; slices are summed in slice order.
+    Returns the product and the mask of S's elements read."""
+    m, n = b.shape
+    read = torch.zeros((m, m), dtype=torch.bool)
+    slices = torch.zeros((cfg.split, m, n), dtype=torch.float32)
+    idx = torch.arange(m)
+    for row0, col0, k0, k1 in kgemm.gemm_blocks(m, n, m, cfg):
+        r1, c1 = min(m, row0 + cfg.bm), min(n, col0 + cfg.bn)
+        rows = idx[row0:r1, None]
+        for kind, s0, e0 in ksymm.symm_segments(row0, cfg.bm, k0, k1):
+            ks = idx[None, s0:e0]
+            if kind == "below":
+                i, k = rows, ks
+            elif kind == "above":
+                i, k = ks, rows
+            else:
+                i, k = torch.maximum(rows, ks), torch.minimum(rows, ks)
+            i, k = torch.broadcast_tensors(i, k)
+            read[i, k] = True
+            slices[k0 // cfg.kchunk, row0:r1, col0:c1] += (
+                s[i, k] @ b[s0:e0, col0:c1])
+    out = slices[0]
+    for p in range(1, cfg.split):
+        out = out + slices[p]
+    return out, read
+
+
+@pytest.mark.parametrize("m,n,b_view", [(256, 128, False), (200, 70, False),
+                                        (129, 33, True), (333, 50, False)])
+def test_symm_replay_reads_only_the_lower_triangle_and_matches(m, n, b_view):
+    """Every launch symm_config may make, replayed on inputs with garbage
+    of 1e3 above S's diagonal: only the lower triangle is read, all of it,
+    and the product matches the plain version, the reference's oracle
+    and (at block-divisible sizes) its Pallas kernel in interpret mode."""
+    rng = np.random.default_rng(m + n)
+    low = np.tril(_rand(rng, m, m))
+    s_np = low + np.triu(_rand(rng, m, m) * 1e3, 1)
+    b_np = _rand(rng, n, m).T if b_view else _rand(rng, m, n)
+    s_t = torch.from_numpy(s_np)
+    b_t = torch.from_numpy(np.ascontiguousarray(b_np.T)).mT if b_view \
+        else torch.from_numpy(b_np)
+    want = tref.symm(s_t, b_t).numpy()
+    np.testing.assert_allclose(
+        want, np.asarray(jref.symm(jnp.asarray(s_np), jnp.asarray(b_np))),
+        **TOL)
+    if m % 128 == 0 and n % 128 == 0:
+        np.testing.assert_allclose(want, np.asarray(symm_pallas(
+            jnp.asarray(s_np), jnp.asarray(b_np), interpret=True)), **TOL)
+    lower = torch.tril(torch.ones((m, m), dtype=torch.bool))
+    for cfg in _symm_launches(m, n):
+        got, read = _symm_replay(s_t, b_t, cfg)
+        assert torch.equal(read, lower), cfg
+        np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("m,k,l,n", CHAIN_SWEEP_SHAPES + CHAIN_RAGGED_SHAPES)
+def test_chain_schedule_builds_each_m1_element_once(m, k, l, n):
+    """Every piece launch covers M1 = A·B exactly once in pieces of at
+    most bm x bl on bl boundaries, so the fusion adds no flops; each
+    output element receives one partial sum per l-chunk."""
+    for cfg in kchain.CONFIGS:
+        cover = np.zeros((m, l), dtype=np.int64)
+        blocks = list(kchain.chain_blocks(m, l, cfg))
+        for row0, l0, l1 in blocks:
+            assert l0 % cfg.bl == 0 and 0 < l1 - l0 <= cfg.bl
+            assert row0 % cfg.bm == 0 and row0 < m
+            cover[row0:row0 + cfg.bm, l0:l1] += 1
+        assert (cover == 1).all()
+        assert len(blocks) == cfg.blocks(m, l)
+        assert len({l0 for _, l0, _ in blocks}) == cfg.chunks(l)
+
+
+@pytest.mark.parametrize("m,k,l,n", CHAIN_SWEEP_SHAPES + CHAIN_RAGGED_SHAPES)
+def test_chain_config_is_the_least_modeled_cost(m, k, l, n):
+    """The busiest SM's multiply-adds over both products at the tile's
+    GEMM rate; ties to the larger piece."""
+    sms = kgemm.SMS
+    cfg = kchain.chain_config(m, k, l, n, sms)
+
+    def cost(c):
+        per_block = c.bm * c.bl * (k + -(-n // c.bl) * c.bl)
+        busiest = -(-c.blocks(m, l) // sms) * per_block
+        return busiest * 1e-6 * kgemm.US_PER_MMAC[c.config]
+
+    best = min(cost(c) for c in kchain.CONFIGS)
+    assert cost(cfg) == pytest.approx(best, rel=1e-12)
+    assert not any(cost(c) < cost(cfg) or (cost(c) == cost(cfg)
+                                           and c.config < cfg.config)
+                   for c in kchain.CONFIGS)
+
+
+def _chain_replay(a, b, c, cfg):
+    """(A·B)·C as the kernel schedules it: each block builds its piece of
+    M1 from A's row tile and B's l-chunk (and nothing else), multiplies it
+    by C's l-chunk in output tiles of bl columns into its chunk's partial
+    sums, which are summed in chunk order."""
+    m, n, l = a.shape[0], c.shape[1], c.shape[0]
+    parts = torch.zeros((cfg.chunks(l), m, n), dtype=torch.float32)
+    for row0, l0, l1 in kchain.chain_blocks(m, l, cfg):
+        r1 = min(m, row0 + cfg.bm)
+        piece = a[row0:r1] @ b[:, l0:l1]
+        for col0 in range(0, n, cfg.bl):
+            c1 = min(n, col0 + cfg.bl)
+            parts[l0 // cfg.bl, row0:r1, col0:c1] = piece @ c[l0:l1, col0:c1]
+    out = parts[0]
+    for p in range(1, parts.shape[0]):
+        out = out + parts[p]
+    return out
+
+
+@pytest.mark.parametrize("m,k,l,n,c_view", [
+    (256, 128, 256, 128, False), (130, 70, 150, 60, True),
+    (65, 33, 200, 17, False), (5, 3, 1, 2, False), (128, 40, 333, 96, True)])
+def test_chain_replay_matches_plain_and_reference(m, k, l, n, c_view):
+    rng = np.random.default_rng(m * k + l * n)
+    a_np, b_np = _rand(rng, m, k), _rand(rng, k, l)
+    c_np = _rand(rng, n, l).T if c_view else _rand(rng, l, n)
+    a_t, b_t = torch.from_numpy(a_np), torch.from_numpy(b_np)
+    c_t = torch.from_numpy(np.ascontiguousarray(c_np.T)).mT if c_view \
+        else torch.from_numpy(c_np)
+    want = tref.chain_gemm(a_t, b_t, c_t).numpy()
+    jargs = [jnp.asarray(x) for x in (a_np, b_np, c_np)]
+    np.testing.assert_allclose(want, np.asarray(jref.chain_gemm(*jargs)),
+                               **CHAIN_TOL)
+    if all(d % 128 == 0 for d in (m, k, l, n)):
+        np.testing.assert_allclose(
+            want, np.asarray(chain_gemm_pallas(*jargs, interpret=True)),
+            **CHAIN_TOL)
+    for cfg in kchain.CONFIGS:
+        np.testing.assert_allclose(_chain_replay(a_t, b_t, c_t, cfg).numpy(),
+                                   want, **CHAIN_TOL)
+
+
+def test_symm_and_chain_configs_on_the_main_path_shapes():
+    """At 132 SMs: SYMM 1200x400 takes the GEMM's pick for 1200x1200x400
+    (128x128 tiles, the contraction split in three: 120 blocks); the
+    chain 1200·800·1200·400 takes 64x64 pieces (361 blocks, 19 l-chunks),
+    within 5 % of the fastest piece on the card (PERF.md, section 6)."""
+    assert ksymm.symm_config(1200, 400).name == "128x128 split 3x400"
+    cfg = kchain.chain_config(1200, 800, 1200, 400)
+    assert cfg.name == "64x64" and cfg.blocks(1200, 1200) == 361
+    assert {kchain.chain_config(*s).name for s in CHAIN_SWEEP_SHAPES} == {
+        "128x128", "128x64", "64x64"}
