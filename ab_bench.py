@@ -30,7 +30,19 @@ Each measurement is one JSON line holding the tree's ``label``:
   {400, 800, 1200}⁴) by both methods under the launch the tree picks,
   beside the port's two ``ops.gemm`` calls it fuses, and on a tree with
   ``chain_config`` every piece, by both methods;
+* ``syrk``: every (m, k) the sweep launches SYRK at by both methods under
+  the launch the tree picks, beside the port's ``ops.gemm(A, A.mT)`` (the
+  GEMM of the whole square on the same operands), and on a tree with
+  ``syrk_config`` every tile and split, back to back;
+* ``gemm_syrk``: every (m, k, l) the sweep launches the fused pair at by
+  both methods under the launch the tree picks, beside the port's
+  unfused ``ops.syrk(ops.gemm(A, B))``, and on a tree with
+  ``gemm_syrk_config`` every chunk width and cluster size, back to back;
 * ``flash``: the bf16 kernel at one Yi-9B prefill layer beside SDPA.
+
+``--sections`` names the sections to time (all by default)::
+
+    python3 ab_bench.py --src src --label change --sections syrk gemm_syrk
 
 ``--symm-variant`` times instead the design ``csrc/symm.cu`` replaced,
 rebuilt from the tree's sources with :data:`RUNTIME_MODE_PATCH`, beside
@@ -38,9 +50,11 @@ the tree's SYMM under every launch at the sweep's (m, n), back to back
 (``symm_variant`` lines), and prints the variant's ptxas report.
 
 ``--fit FILE`` reads such lines back (no card needed) and, for
-each label, prints how often the chosen launch of gemm, symm and the
-chain is within 10 % of the fastest one timed back to back, how many of
-the sweep's chain launches fall on shapes where the chain runs above
+each label, prints how often the chosen launch of gemm, symm, the chain,
+syrk and gemm_syrk is within 10 % of the fastest one timed back to back
+(and, for syrk and gemm_syrk, how far the pick lies from the fastest at
+each shape), how many of the sweep's chain launches fall on shapes
+where the chain runs above
 1.15× the two GEMMs it fuses, and the variant's time against the
 tree's::
 
@@ -68,6 +82,8 @@ SWEEP_DIMS = (400, 800, 1200)
 SPLITS = (1, 2, 3, 4, 6, 8)
 #: Calls whose host time is averaged.
 HOST_CALLS = 200
+#: Sections of a timing run, in the order they run.
+SECTIONS = ("case", "gemm", "symm", "chain", "syrk", "gemm_syrk", "flash")
 #: The chain's ``ms_b2b`` over its two GEMMs' above which a sweep shape
 #: counts as slow (the acceptance bound at the main-path shape).
 CHAIN_SLOW = 1.15
@@ -108,24 +124,27 @@ def sweep_shapes() -> dict:
     """Kernel -> {shape: Counter(family -> steps)} of the sweep of
     ``chip_smoke.py``, found by walking every algorithm of its grids
     through the ``cuda`` backend's kernel vocabulary on meta tensors
-    (nothing is computed): ``symm`` as (m, n, side), ``chain_gemm`` as
-    (m, k, l, n). The sweep launches each step 1 + ``chip_smoke.REPS``
-    times. Shapes iterate in sorted order."""
+    (nothing is computed): ``gemm`` as (m, k, n), ``symm`` as (m, n,
+    side), ``chain_gemm`` as (m, k, l, n), ``syrk`` as (m, k) and
+    ``gemm_syrk`` as (m, k, l). The sweep launches each step 1 +
+    ``chip_smoke.REPS`` times. Shapes iterate in sorted order."""
     import torch
     from repro_torch.core.algorithms import Leaf
     from repro_torch.core.backends.base import walk_steps
     from repro_torch.core.backends.torch_backend import CudaOps
     from repro_torch.core.expressions import get_spec
 
-    seen = {"symm": collections.defaultdict(collections.Counter),
-            "chain_gemm": collections.defaultdict(collections.Counter)}
+    seen = {kind: collections.defaultdict(collections.Counter)
+            for kind in ("gemm", "symm", "chain_gemm", "syrk", "gemm_syrk")}
     family = ""
 
     class Shapes(CudaOps):
         def gemm(self, a, b):
+            seen["gemm"][a.shape[0], a.shape[1], b.shape[1]][family] += 1
             return a @ b
 
         def syrk(self, a):
+            seen["syrk"][a.shape[0], a.shape[1]][family] += 1
             return a @ a.mT
 
         def symm(self, s, b):
@@ -145,6 +164,7 @@ def sweep_shapes() -> dict:
             return a @ b @ c
 
         def gemm_syrk(self, a, b):
+            seen["gemm_syrk"][a.shape[0], a.shape[1], b.shape[1]][family] += 1
             return (a @ b) @ (a @ b).mT
 
     ops = Shapes()
@@ -171,6 +191,8 @@ def main() -> int:
                     help="report on the lines of an earlier run instead")
     ap.add_argument("--symm-variant", action="store_true",
                     help="time the tree's SYMM beside RUNTIME_MODE_PATCH's")
+    ap.add_argument("--sections", nargs="+", choices=SECTIONS,
+                    default=list(SECTIONS), help="the sections to time")
     args = ap.parse_args()
     # The named tree's package, not the one beside chip_smoke.py.
     sys.path.insert(0, str(Path(args.src).resolve()))
@@ -186,7 +208,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("ab_bench: no CUDA device is available", file=sys.stderr)
         return 1
-    from repro_torch.kernels import gemm as gemm_mod
     from repro_torch.kernels import ops
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -197,11 +218,44 @@ def main() -> int:
         time_symm_variant(torch, np, label, shapes["symm"])
         return 0
 
-    for name, shape, run, plain, *_ in chip_smoke.kernel_cases(
-            torch, np.random.default_rng(chip_smoke.SEED)):
-        print(json.dumps({"case": name, "shape": shape, "label": label,
-                          "kernel": both(torch, run),
-                          "plain": both(torch, plain)}))
+    sections = set(args.sections)
+    if "case" in sections:
+        for name, shape, run, plain, *_ in chip_smoke.kernel_cases(
+                torch, np.random.default_rng(chip_smoke.SEED)):
+            print(json.dumps({"case": name, "shape": shape, "label": label,
+                              "kernel": both(torch, run),
+                              "plain": both(torch, plain)}))
+    if "gemm" in sections:
+        time_gemm(torch, np, label, sms)
+    if "symm" in sections:
+        time_symm(torch, np, label, shapes["symm"], sms)
+    if "chain" in sections:
+        time_chain(torch, np, label, shapes["chain_gemm"], sms)
+    if "syrk" in sections:
+        time_syrk(torch, np, label, shapes["syrk"], sms)
+    if "gemm_syrk" in sections:
+        time_gemm_syrk(torch, np, label, shapes["gemm_syrk"])
+    if "flash" in sections:
+        rng = np.random.default_rng(chip_smoke.SEED)
+        bsz, h, hkv, s, d = 2, 32, 4, 2048, 128
+        q, k, v = (chip_smoke.attention_heads(torch, rng, bsz, s, n, d,
+                                              torch.bfloat16, scale)
+                   for n, scale in ((h, chip_smoke.QK_SCALE),
+                                    (hkv, chip_smoke.QK_SCALE), (hkv, 1.0)))
+        print(json.dumps({
+            "flash": f"B{bsz} H{h}/{hkv} S{s} D{d} bf16 causal",
+            "label": label,
+            **both(torch, lambda: ops.flash_attention(q, k, v)),
+            "library": both(torch, lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True))}))
+    return 0
+
+
+def time_gemm(torch, np, label: str, sms: int) -> None:
+    """One line per (m, k, n) in SWEEP_DIMS³: ops.gemm by both methods,
+    its host time, and every tile and split the tree can launch."""
+    from repro_torch.kernels import gemm as gemm_mod
+    from repro_torch.kernels import ops
 
     rng = np.random.default_rng(chip_smoke.SEED)
     tuned = hasattr(gemm_mod, "gemm_config")
@@ -210,7 +264,7 @@ def main() -> int:
         b = torch.from_numpy(rng.standard_normal((k, n))).float().cuda()
         line = {"gemm": f"{m}x{k}x{n}", "label": label,
                 "config": (gemm_mod.gemm_config(m, n, k, sms).name if tuned
-                           else "64x64 (tile.cuh)"),
+                           else "64x64"),
                 **both(torch, lambda: ops.gemm(a, b)),
                 "host_us": host_us(torch, lambda: ops.gemm(a, b))}
         if tuned:
@@ -222,21 +276,6 @@ def main() -> int:
                     inner=10)
                 for cfg in sorted(configs, key=lambda c: (c.config, c.split))}
         print(json.dumps(line))
-
-    time_symm(torch, np, label, shapes["symm"], sms)
-    time_chain(torch, np, label, shapes["chain_gemm"], sms)
-
-    bsz, h, hkv, s, d = 2, 32, 4, 2048, 128
-    q, k, v = (chip_smoke.attention_heads(torch, rng, bsz, s, n, d,
-                                          torch.bfloat16, scale)
-               for n, scale in ((h, chip_smoke.QK_SCALE),
-                                (hkv, chip_smoke.QK_SCALE), (hkv, 1.0)))
-    print(json.dumps({
-        "flash": f"B{bsz} H{h}/{hkv} S{s} D{d} bf16 causal", "label": label,
-        **both(torch, lambda: ops.flash_attention(q, k, v)),
-        "library": both(torch, lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True))}))
-    return 0
 
 
 def time_symm(torch, np, label: str, shapes, sms: int) -> None:
@@ -258,7 +297,7 @@ def time_symm(torch, np, label: str, shapes, sms: int) -> None:
         full = torch.tril(s) + torch.tril(s, -1).mT
         line = {"symm": f"{m}x{n}", "side": side, "label": label,
                 "config": (symm_mod.symm_config(m, n, sms).name if tuned
-                           else "64x64 (tile.cuh)"),
+                           else "64x64"),
                 **both(torch, lambda: ops.symm(s, b)),
                 "gemm": both(torch, lambda: ops.gemm(full, b))}
         if tuned:
@@ -283,7 +322,7 @@ def time_chain(torch, np, label: str, shapes, sms: int) -> None:
                    for shape in ((m, k), (k, l), (l, n)))
         line = {"chain": f"{m}*{k}*{l}*{n}", "label": label,
                 "config": (chain_mod.chain_config(m, k, l, n, sms).name
-                           if tuned else "64x64 (tile.cuh)"),
+                           if tuned else "64x64"),
                 **both(torch, lambda: ops.chain_gemm(a, b, c)),
                 "two_gemms": both(torch, lambda: ops.gemm(ops.gemm(a, b), c))}
         if tuned:
@@ -292,6 +331,65 @@ def time_chain(torch, np, label: str, shapes, sms: int) -> None:
                     a, b, c, cfg))
                 for cfg in chain_mod.CONFIGS}
         print(json.dumps(line))
+
+
+def time_syrk(torch, np, label: str, shapes, sms: int) -> None:
+    """One line per (m, k): ops.syrk by both methods, ops.gemm(A, A.mT)
+    on the same operands, and every tile and split the tree can launch."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import syrk as syrk_mod
+
+    tuned = hasattr(syrk_mod, "syrk_config")
+    rng = np.random.default_rng(chip_smoke.SEED)
+    for m, k in shapes:
+        a = torch.from_numpy(rng.standard_normal((m, k))).float().cuda()
+        line = {"syrk": f"{m}x{k}", "label": label,
+                "config": (syrk_mod.syrk_config(m, k, sms).name if tuned
+                           else "64x64"),
+                **both(torch, lambda: ops.syrk(a)),
+                "gemm": both(torch, lambda: ops.gemm(a, a.mT))}
+        if tuned:
+            line["configs_b2b"] = {
+                cfg.name: chip_smoke.time_ms(
+                    torch, lambda cfg=cfg: syrk_mod.launch(a, cfg), inner=10)
+                for cfg in syrk_mod.syrk_candidates(k)}
+        print(json.dumps(line))
+
+
+def time_gemm_syrk(torch, np, label: str, shapes) -> None:
+    """One line per (m, k, l): ops.gemm_syrk by both methods, the port's
+    unfused ops.syrk(ops.gemm(A, B)), and every launch the tree can make."""
+    from repro_torch.kernels import gemm_syrk as fused_mod
+    from repro_torch.kernels import ops
+
+    tuned = hasattr(fused_mod, "gemm_syrk_config")
+    active = fused_mod.active_clusters(0) if tuned else None
+    rng = np.random.default_rng(chip_smoke.SEED)
+    for m, k, l in shapes:
+        a = torch.from_numpy(rng.standard_normal((m, k))).float().cuda()
+        b = torch.from_numpy(rng.standard_normal((k, l))).float().cuda()
+        line = {"gemm_syrk": f"{m}*{k}*{l}", "label": label,
+                "config": (fused_mod.gemm_syrk_config(m, k, l, active).name
+                           if tuned else "64x64"),
+                **both(torch, lambda: ops.gemm_syrk(a, b)),
+                "unfused": both(torch, lambda: ops.syrk(ops.gemm(a, b)))}
+        if tuned:
+            line["configs_b2b"] = {
+                cfg.name: chip_smoke.time_ms(
+                    torch, lambda cfg=cfg: fused_mod.launch(a, b, cfg),
+                    inner=10)
+                for cfg in fused_mod.candidates(m)}
+        print(json.dumps(line))
+
+
+def _pick_distance(lines, key: str) -> str:
+    """The chosen launch over the fastest timed, at each shape (worst
+    first), from ``configs_b2b``."""
+    ratios = sorted(((x["configs_b2b"][x["config"]]
+                      / min(x["configs_b2b"].values()), x[key]) for x in lines),
+                    reverse=True)
+    return "; pick/fastest " + ", ".join(f"{shape} {r:.3f}"
+                                          for r, shape in ratios)
 
 
 def _within(lines, timings, chosen) -> str:
@@ -312,10 +410,12 @@ def fit_report(path: Path) -> None:
              if t.startswith("{")]
     for label in sorted({line["label"] for line in lines}):
         mine = [line for line in lines if line["label"] == label]
-        gemms = [x for x in mine if "gemm" in x and "configs_b2b" in x
-                 and "symm" not in x]
+        gemms = [x for x in mine if isinstance(x.get("gemm"), str)
+                 and "configs_b2b" in x]
         symms = [x for x in mine if "symm" in x and "configs_b2b" in x]
         chains = [x for x in mine if "chain" in x and "configs" in x]
+        syrks = [x for x in mine if "syrk" in x and "configs_b2b" in x]
+        fused = [x for x in mine if "gemm_syrk" in x and "configs_b2b" in x]
         print(f"[{label}]")
         if gemms:
             print("gemm: " + _within(gemms, lambda x: x["configs_b2b"],
@@ -328,6 +428,14 @@ def fit_report(path: Path) -> None:
             print("chain: " + _within(chains, b2b, lambda x: x["config"]))
         if any("chain" in x for x in mine):
             chain_slow_report([x for x in mine if "chain" in x])
+        if syrks:
+            print("syrk: " + _within(syrks, lambda x: x["configs_b2b"],
+                                     lambda x: x["config"])
+                  + _pick_distance(syrks, "syrk"))
+        if fused:
+            print("gemm_syrk: " + _within(fused, lambda x: x["configs_b2b"],
+                                          lambda x: x["config"])
+                  + _pick_distance(fused, "gemm_syrk"))
         variants = [x for x in mine if "symm_variant" in x]
         if variants:
             symm_variant_report(variants)

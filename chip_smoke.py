@@ -19,12 +19,18 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    (both sides) and the chain at their main-path shapes under the launches
    ``symm_config`` and ``chain_config`` pick, with blocks and waves,
    beside the port's ``ops.gemm`` on the same (m, m, n) product and the
-   port's two ``ops.gemm`` calls the chain fuses;
+   port's two ``ops.gemm`` calls the chain fuses; time SYRK and the fused
+   GEMM+SYRK likewise under ``syrk_config`` and ``gemm_syrk_config``
+   (blocks, clusters, ``cudaOccupancyMaxActiveClusters``, waves), beside
+   the port's ``ops.gemm(A, A.mT)`` and its unfused
+   ``ops.syrk(ops.gemm(A, B))``, with the flops the fused kernel executes
+   against the paper's count;
 4. run the paper's measured anomaly sweep — ``aatb`` over
    (400, 800, 1200)³, ``abcd`` over (400, 1200)⁵ and ``abab``, whose
    alg2 is the fused GEMM+SYRK, over (400, 800, 1200)³ — on the ``cuda``
    backend into a temporary atlas, with every kernel's launch count set
-   to 0 just before and read just after; then resume it (``measured=0``);
+   to 0 just before and read just after (each must equal
+   :data:`SWEEP_LAUNCHES`); then resume it (``measured=0``);
 5. check every algorithm of all ten families against the plain ``torch``
    backend on the same operands, at one point each inside the paper's
    Experiment 1 box, and ``abab``'s alg2 once more with
@@ -43,7 +49,9 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    with ``api.decode_step``, prefill the 2176 tokens again, and hold the
    decode logits and tokens against the re-prefill's.
 
-The last two lines are the card's ``nvidia-smi`` name/power line and
+The compiler's report must show no spills in any SYRK or GEMM+SYRK
+instance. The last two lines are the card's ``nvidia-smi`` name/power
+line and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -97,9 +105,12 @@ KERNEL_SOURCES = {
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention_tc.cu",
                         "src/repro/kernels/flash_attention.py:89"),
 }
-#: The kernels the anomaly sweep (phases 4-5) runs; the served model
-#: (phase 7) runs flash_attention.
-SWEEP_KERNELS = ("gemm", "syrk", "symm", "chain_gemm", "gemm_syrk")
+#: Launches of each kernel in the sweep of phase 4: every kernel step of
+#: every algorithm at every point of SWEEPS (``ab_bench.sweep_shapes``
+#: walks them), each run 1 + REPS times. The served model (phase 7) runs
+#: flash_attention.
+SWEEP_LAUNCHES = {"gemm": 3656, "syrk": 648, "symm": 648, "chain_gemm": 1160,
+                  "gemm_syrk": 108}
 
 #: (rtol, atol). Element-wise |kernel - plain| <= atol + rtol·|plain|
 #: (float32 sums in another order; the chain's second contraction runs
@@ -238,17 +249,18 @@ def kernel_cases(torch, rng):
                       lambda A=A, B=B: ref.gemm_syrk(A, B), library,
                       2 * m * l * k + (m + 1) * m * l,
                       f * (m * k + k * l + m * m),
-                      gemm_syrk_executed_flops(m, k, l)))
+                      lambda m=m, k=k, l=l: gemm_syrk_executed_flops(
+                          m, k, l)))
     return cases
 
 
 def gemm_syrk_executed_flops(m: int, k: int, l: int) -> int:
-    """Flops the gemm_syrk kernel executes (csrc/gemm_syrk.cu): every
-    block of each 64-wide l-chunk builds the 64x64 M1 pieces of its row
-    tile and of every row tile above it, then multiplies each pair."""
-    mt, lt = -(-m // 64), -(-l // 64)
-    pairs = mt * (mt + 1) // 2
-    return pairs * lt * 2 * 64 * 64 * k + pairs * 2 * 64 * 64 * l
+    """Flops the gemm_syrk kernel executes under the launch its rule picks
+    on this card, from the CPU schedule twin (kernels/gemm_syrk.py)."""
+    from repro_torch.kernels import gemm_syrk as fused
+
+    return fused.executed_flops(m, k, l, fused.gemm_syrk_config(
+        m, k, l, fused.active_clusters(0)))
 
 
 #: (m, k, n) of the GEMM timings: the main-path row of PERF.md and the
@@ -338,13 +350,75 @@ def time_symm_chain_configs(torch, np) -> None:
           f"ms_b2b={g_b2b:.4f}; b2b chain/two gemms={ms_b2b / g_b2b:.3f}")
 
 
+#: Main-path shapes of SYRK (m, k) and of the fused GEMM+SYRK (m, k, l).
+SYRK_SHAPE = (1200, 800)
+GEMM_SYRK_SHAPE = (1200, 400, 800)
+
+
+def time_syrk_gemm_syrk_configs(torch, np) -> None:
+    """Phase 3: SYRK and the fused GEMM+SYRK at their main-path shapes
+    under the launches their rules pick, beside the port's GEMM of the
+    whole square and its unfused pair (``ab_bench.py`` times the other
+    launches)."""
+    from repro_torch.kernels import gemm_syrk as fused_mod
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import syrk as syrk_mod
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rng = np.random.default_rng(SEED)
+
+    def mat(r, c):
+        return torch.from_numpy(rng.standard_normal((r, c))).float().cuda()
+
+    m, k = SYRK_SHAPE
+    a = mat(m, k)
+    cfg = syrk_mod.syrk_config(m, k, sms)
+    flops = (m + 1) * m * k
+    b_ms, _ = bound(flops, 4 * (m * k + m * m))
+    run, square = lambda: ops.syrk(a), lambda: ops.gemm(a, a.mT)
+    ms, ms_b2b = time_ms(torch, run), time_ms(torch, run, inner=10)
+    g_ms, g_b2b = time_ms(torch, square), time_ms(torch, square, inner=10)
+    blocks = syrk_mod.tiles(m, cfg.bm) * cfg.split
+    print(f"syrk {m}x{k} [{cfg.name}]: blocks={blocks} "
+          f"waves={blocks / sms:.2f} ms={ms:.4f} ms_b2b={ms_b2b:.4f} "
+          f"TFLOP/s={flops / ms / 1e9:.2f} (b2b {flops / ms_b2b / 1e9:.2f}) "
+          f"bound_share={b_ms / ms:.1%} (b2b {b_ms / ms_b2b:.1%}); ops.gemm "
+          f"{m}x{k}x{m} ms={g_ms:.4f} ms_b2b={g_b2b:.4f}; b2b syrk/gemm="
+          f"{ms_b2b / g_b2b:.3f}")
+
+    m, k, l = GEMM_SYRK_SHAPE
+    a, b = mat(m, k), mat(k, l)
+    active = fused_mod.active_clusters(0)
+    cfg = fused_mod.gemm_syrk_config(m, k, l, active)
+    flops = 2 * m * k * l + (m + 1) * m * l
+    executed = fused_mod.executed_flops(m, k, l, cfg)
+    b_ms, _ = bound(flops, 4 * (m * k + k * l + m * m))
+    run, pair = lambda: ops.gemm_syrk(a, b), lambda: ops.syrk(ops.gemm(a, b))
+    ms, ms_b2b = time_ms(torch, run), time_ms(torch, run, inner=10)
+    p_ms, p_b2b = time_ms(torch, pair), time_ms(torch, pair, inner=10)
+    resident = fused_mod.max_active_clusters(m, cfg)
+    print(f"gemm_syrk resident clusters of 1..8 CTAs: {active} (the rule's "
+          f"table: {fused_mod.ACTIVE_CLUSTERS})")
+    print(f"gemm_syrk {m}*{k}*{l} [{cfg.name}: l-chunks of {cfg.bl}, "
+          f"clusters of {cfg.cluster} CTAs, {cfg.smem_bytes(m)} B shared "
+          f"memory each]: blocks={cfg.blocks(l)} clusters={cfg.chunks(l)} "
+          f"max_active_clusters={resident} "
+          f"waves={cfg.chunks(l) / resident:.2f} "
+          f"ms={ms:.4f} ms_b2b={ms_b2b:.4f} TFLOP/s={flops / ms / 1e9:.2f} "
+          f"(b2b {flops / ms_b2b / 1e9:.2f}) bound_share={b_ms / ms:.1%} "
+          f"(b2b {b_ms / ms_b2b:.1%}); ops.syrk(ops.gemm) ms={p_ms:.4f} "
+          f"ms_b2b={p_b2b:.4f}; b2b fused/unfused={ms_b2b / p_b2b:.3f}; "
+          f"executed_GFLOP={executed / 1e9:.3f} paper_GFLOP="
+          f"{flops / 1e9:.3f} executed/paper={executed / flops:.3f}")
+
+
 def check_kernels(torch, np) -> dict:
     """Phase 3: every kernel against its plain version, plus timings."""
     rng = np.random.default_rng(SEED)
     results = {}
     for name, label, run, plain, library, flops, nbytes, *extra in \
             kernel_cases(torch, rng):
-        executed = extra[0] if extra else None
+        executed = extra[0]() if extra else None
         out, expect = run(), plain()
         torch.cuda.synchronize()
         if out.shape != expect.shape or not bool(torch.isfinite(out).all()):
@@ -357,13 +431,14 @@ def check_kernels(torch, np) -> dict:
         rel = max_abs / scale
         if name == "gemm_syrk":
             ok = max_abs <= atol + rtol * scale
-            # The scaled tolerance would let small entries above the
-            # diagonal pass, and they must be exactly zero.
-            if bool((torch.triu(out, 1) != 0).any()):
-                raise AssertionError(f"gemm_syrk [{label}]: nonzero entries "
-                                     f"above the diagonal")
         else:
             ok = bool((diff <= atol + rtol * expect.abs()).all())
+        # A tolerance would let small entries above the diagonal pass, and
+        # the triangular kernels must leave them exactly zero.
+        if name in ("syrk", "gemm_syrk") and \
+                bool((torch.triu(out, 1) != 0).any()):
+            raise AssertionError(f"{name} [{label}]: nonzero entries above "
+                                 f"the diagonal")
         ms, plain_ms, lib_ms = (time_ms(torch, run), time_ms(torch, plain),
                                 time_ms(torch, library))
         ms_b2b = time_ms(torch, run, inner=10)
@@ -430,16 +505,11 @@ def run_sweeps(torch, atlas_dir: Path):
     launches = ops.launch_counts()
     print("sweep kernel launches: " + " ".join(
         f"{k}={v}" for k, v in launches.items()))
-    missing = [k for k in SWEEP_KERNELS if launches[k] <= 0]
-    if missing:
-        raise AssertionError(f"the sweep never launched: {missing}")
-    # Exactly abab's one fused algorithm (alg2) at every point, once per
-    # run: 27 points x (1 warm-up + REPS timed runs) = 108.
-    expected = grids["abab"][1].n_points * (1 + REPS)
-    if launches["gemm_syrk"] != expected:
-        raise AssertionError(
-            f"gemm_syrk launched {launches['gemm_syrk']} times in the sweep, "
-            f"not {expected} (abab alg2 x points x runs)")
+    wrong = {k: launches[k] for k, n in SWEEP_LAUNCHES.items()
+             if launches[k] != n}
+    if wrong:
+        raise AssertionError(f"the sweep launched {wrong}, not "
+                             f"{ {k: SWEEP_LAUNCHES[k] for k in wrong} }")
 
     for name, (spec, grid) in grids.items():
         again = sweep(spec, grid.points(), runner=runner,
@@ -805,11 +875,13 @@ def serve_model(torch, np) -> dict:
             "launches": launches}
 
 
-def print_ptxas_report(log: Path) -> None:
+def print_ptxas_report(log: Path) -> dict:
     """Registers, shared memory and spills per kernel (``-Xptxas=-v``);
     the flash kernels' instantiations are named by type and head_dim, the
-    GEMM's, SYMM's and the chain's by tile."""
-    name = ""
+    GEMM's, SYMM's, the chain's and SYRK's by tile, the fused GEMM+SYRK's
+    by chunk width. Returns the spill bytes (stores + loads) of each
+    named instance."""
+    name, spills = "", {}
     for line in log.read_text().splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
@@ -817,17 +889,29 @@ def print_ptxas_report(log: Path) -> None:
             f32 = re.search(r"flash_kernelILi(\d+)E", fn)
             tc = re.search(r"flash_tc_kernelILi(\d+)E", fn)
             tiled = re.search(r"(gemm|symm|chain)_kernelILi(\d+)ELi(\d+)E", fn)
+            square = re.search(r"\d+syrk_kernelILi(\d+)E", fn)
+            fused = re.search(r"gemm_syrk_kernelILi(\d+)E", fn)
             name = (f"flash_kernel<f32,{f32.group(1)}> " if f32 else
                     f"flash_tc_kernel<bf16,{tc.group(1)}> " if tc else
                     f"{tiled.group(1)}_kernel<{tiled.group(2)}x"
                     f"{tiled.group(3)}> " if tiled else
-                    "split_sum_kernel " if "split_sum_kernel" in fn else "")
+                    f"syrk_kernel<{square.group(1)}x{square.group(1)}> "
+                    if square else
+                    f"gemm_syrk_kernel<bl{fused.group(1)}> " if fused else
+                    "split_sum_kernel " if "split_sum_kernel" in fn else
+                    "tril_sum_kernel " if "tril_sum_kernel" in fn else "")
         if line.startswith("=="):
             name = ""
             print(f"  ptxas {line.strip()}")
         elif "registers" in line or "spill" in line:
             text = line.replace("ptxas info    :", "").strip()
             print(f"  ptxas {name}{text}")
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                              r"loads", line)
+            if spill and name:
+                spills[name.strip()] = spills.get(name.strip(), 0) + int(
+                    spill.group(1)) + int(spill.group(2))
+    return spills
 
 
 def main() -> int:
@@ -853,11 +937,15 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.library()
     print(f"build: {time.perf_counter() - t0:.1f}s ({_build.library_path().name})")
-    print_ptxas_report(_build.library_path().with_suffix(".log"))
+    spills = print_ptxas_report(_build.library_path().with_suffix(".log"))
+    spilled = {k: v for k, v in spills.items() if "syrk" in k and v}
+    if spilled or not any(k.startswith("gemm_syrk") for k in spills):
+        raise AssertionError(f"SYRK / GEMM+SYRK instances spill: {spilled}")
 
     results = check_kernels(torch, np)
     time_gemm_configs(torch, np)
     time_symm_chain_configs(torch, np)
+    time_syrk_gemm_syrk_configs(torch, np)
     with tempfile.TemporaryDirectory(prefix="chip-smoke-atlas-") as d:
         launches = run_sweeps(torch, Path(d))
     check_algorithms(torch)

@@ -30,6 +30,12 @@ from .base import (ExecutionBackend, KernelOps, register_backend,
                    registered_backends)
 
 
+def fusion_enabled() -> bool:
+    """Whether the ``cuda`` backend dispatches fused adjacent-step
+    patterns: on unless ``REPRO_NO_FUSION`` is set."""
+    return not os.environ.get("REPRO_NO_FUSION")
+
+
 class TorchOps(KernelOps):
     """Plain ATen kernel vocabulary, one kernel per step (no fused
     patterns, like the reference's ``jax`` backend)."""
@@ -64,7 +70,7 @@ class CudaOps(TorchOps):
     """
 
     def fused_kinds(self) -> frozenset:
-        if os.environ.get("REPRO_NO_FUSION"):
+        if not fusion_enabled():
             return frozenset()
         return frozenset({"gemm+gemm", "gemm+syrk"})
 

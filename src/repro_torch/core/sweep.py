@@ -32,10 +32,12 @@ import time as _time
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
 
+from ..kernels import _build
 from ..kernels import ops as kops
 from .algorithms import Algorithm, Leaf
 from .anomaly import Classification, Region, classify, cluster_regions, region_summary
 from .backends import get_backend, register_torch_backends
+from .backends.torch_backend import fusion_enabled
 from .expressions import (REGISTRY, SWEEP_GRIDS, ExpressionSpec, GridSpec, get_spec,
                           registered_names)
 from .fingerprint import HardwareFingerprint, cache_base_dir
@@ -158,6 +160,14 @@ class AnomalyAtlas:
     unflushed chunk and a restart resumes from the last chunk: points
     already on disk are skipped by :func:`sweep`.
 
+    Beyond the reference's header keys, the header names the program that
+    measured: ``kernels``, the hash of the CUDA kernel sources
+    (:func:`repro_torch.kernels._build.source_hash`; None for the
+    ``torch`` backend), and ``fusion``, whether fused dispatch was on. A
+    resume under other kernel sources or the other fusion setting, or of
+    an atlas whose header lacks either key, is refused: one atlas never
+    mixes two programs' timings.
+
     A torn final line (the kill landed mid-write) is tolerated on load;
     any undecodable line is skipped and counted in ``skipped_lines``. A
     shard file of the reference's fanned-out adaptive sweep is refused:
@@ -170,6 +180,9 @@ class AnomalyAtlas:
         self.fingerprint = fingerprint
         self.spec_name = spec_name
         self.threshold = float(threshold)
+        cuda = fingerprint.backend == "cuda"
+        self.program = {"kernels": _build.source_hash() if cuda else None,
+                        "fusion": cuda and fusion_enabled()}
         self.skipped_lines = 0
         self._records: Dict[Tuple[int, ...], Instance] = {}
         self._buffer: List[str] = []
@@ -187,6 +200,7 @@ class AnomalyAtlas:
             "spec": self.spec_name,
             "threshold": self.threshold,
             "fingerprint": self.fingerprint.to_dict(),
+            **self.program,
         }
 
     def _load(self) -> None:
@@ -225,6 +239,19 @@ class AnomalyAtlas:
                     f"atlas {self.path} is shard {head['shard']} of a "
                     f"fanned-out sweep — merge shards with "
                     f"tools/atlas_merge.py instead of resuming one")
+            if not self.program.keys() <= head.keys():
+                raise AtlasError(
+                    f"atlas {self.path} does not record the kernel sources "
+                    f"and the fusion setting it was measured with; start a "
+                    f"fresh atlas (another --atlas-dir, or delete it)")
+            recorded = {key: head[key] for key in self.program}
+            if recorded != self.program:
+                raise AtlasError(
+                    f"atlas {self.path} was measured with kernels="
+                    f"{recorded['kernels']!r} fusion={recorded['fusion']!r}, "
+                    f"but this process runs kernels="
+                    f"{self.program['kernels']!r} fusion="
+                    f"{self.program['fusion']!r}")
             self._header_on_disk = True
             raw = first
             for raw in f:

@@ -46,8 +46,8 @@ SIGNATURES: Dict[str, List[type]] = {
     # kchunk, stream
     "repro_gemm_f32": [_P, _L, _L, _P, _L, _L, _P, _P, _I, _I, _I, _I, _I,
                        _I, _P],
-    # a, sa0, sa1, c, m, k, stream
-    "repro_syrk_f32": [_P, _L, _L, _P, _I, _I, _P],
+    # a, sa0, sa1, c, workspace, m, k, config, split, kchunk, stream
+    "repro_syrk_f32": [_P, _L, _L, _P, _P, _I, _I, _I, _I, _I, _P],
     # s, ss0, ss1, b, sb0, sb1, c, workspace, m, n, config, split, kchunk,
     # stream
     "repro_symm_f32": [_P, _L, _L, _P, _L, _L, _P, _P, _I, _I, _I, _I, _I,
@@ -55,8 +55,12 @@ SIGNATURES: Dict[str, List[type]] = {
     # a, sa0, sa1, b, sb0, sb1, c, sc0, sc1, out, m, k, l, n, config, stream
     "repro_chain_gemm_f32": [_P, _L, _L, _P, _L, _L, _P, _L, _L, _P,
                              _I, _I, _I, _I, _I, _P],
-    # a, sa0, sa1, b, sb0, sb1, out, m, k, l, stream
-    "repro_gemm_syrk_f32": [_P, _L, _L, _P, _L, _L, _P, _I, _I, _I, _P],
+    # a, sa0, sa1, b, sb0, sb1, out, m, k, l, bl, cluster, stream
+    "repro_gemm_syrk_f32": [_P, _L, _L, _P, _L, _L, _P, _I, _I, _I, _I, _I,
+                            _P],
+    # m, bl, cluster, count (out)
+    "repro_gemm_syrk_max_clusters": [_I, _I, _I,
+                                     ctypes.POINTER(ctypes.c_int)],
     # dtype, head_dim, q, k, v, o (each strided), batch, heads, kv_heads,
     # seq, scale, softcap, causal, window, stream
     "repro_flash_attention": [_I, _I, *(_STRIDED * 4), _I, _I, _I, _I,

@@ -11,7 +11,7 @@
 //
 // Bound on the H100 SXM, float32: operations, 2·D·S(S+1)·B·H flops at the
 // 67 TFLOP/s FP32 peak. Float32 stays on the CUDA cores: TF32 tensor cores
-// would be a different result under the float32 label (as tile.cuh).
+// would be a different result under the float32 label (as in sgemm.cuh).
 //
 // Design. Blocks run in parallel in no order, so the kv walk becomes a
 // loop inside the block: one block of 256 threads owns one (b·h, 64-row

@@ -7,122 +7,261 @@
 // M1 row panels it contracts in VMEM (about m/128 times the GEMM's flops
 // in recompute), falling back to syrk(gemm(a, b)) above 32 MiB of VMEM.
 //
-// Bound on the H100 SXM: compute. The paper charges the pair 2mkl (gemm)
-// + (m+1)ml (syrk) flops on 4(mk + kl + m²) bytes; 1200·400·800 is
-// 0.768 + 1.153 = 1.921 GFLOP, ~29 us at 67 TFLOP/s FP32, against
+// Bound on the H100 SXM: operations. The paper charges the pair 2mkl
+// (gemm) + (m+1)ml (syrk) flops on 4(mk + kl + m²) bytes; 1200·400·800
+// is 0.768 + 1.153 = 1.921 GFLOP, ~29 us at 67 TFLOP/s FP32, against
 // 8.96 MB, ~2.7 us at 3.35 TB/s.
 //
-// Design: an L-split, as in chain_gemm.cu. A 64 x m panel of M1 does not
-// fit a block's 227 KB at the paper's sizes (64 x 1200 f32 is 307 KB) and
-// blocks share nothing, so block (l-chunk p, row tile i) works on one
-// 64-wide column chunk of M1: it builds its own piece M1[i, p] =
-// A[i, :]·B[:, p] once into shared memory, then for every j < i builds
-// M1[j, p] into a second buffer (j = i reuses the first), and adds
-// M1[i, p]·M1[j, p]ᵀ into OUT[i, j] with float32 atomics, above the
-// diagonal masked away when j = i. The output is zeroed first by
-// cudaMemsetAsync inside this entry point, and so inside the kernel's
-// time; its strict upper triangle is never touched again.
+// Design: OUT = sum over l-chunks p of M1[:, p]·M1[:, p]ᵀ, one thread-block
+// cluster of C <= 8 CTAs per chunk of BL columns (16, 32 or 64). A
+// block's 227 KB cannot hold an m x BL panel of M1 at every m, but the
+// cluster's shared memory can: CTA r builds the 64-row pieces M1[i, p] of
+// the row tiles i = r, r + C, ... once, with sgemm.cuh's accumulate, and
+// parks each k-major (piece[l][row], the layout of the ring's slabs) in
+// its own shared memory. After a cluster barrier each CTA multiplies its
+// share of the chunk's mt(mt+1)/2 tile pairs (i, j <= i): a contiguous
+// range of the pairs in row-major order, so no CTA has more than
+// ceil(pairs / C). It copies pieces i and j out of their owners' shared
+// memory (distributed shared memory, map_shared_rank) into local staging
+// pieces, 16 bytes a thread at a time, and runs slab_fma on them
+// directly: piece i is already the A slabs a[l][row] and piece j the B
+// slabs b[l][col], so nothing streams through the ring from device
+// memory. Piece i changes only with the row of the pairs; piece j of the
+// next pair is loaded into registers while the current pair multiplies,
+// and stored into the other of two staging buffers, so one barrier a
+// pair suffices and the remote reads' latency is hidden. Every element of M1 is computed exactly once and
+// never leaves the cluster; the excess over the paper's count is only
+// padding to whole 64-row tiles and BL-wide pieces, and the diagonal
+// tiles' upper halves. A last cluster barrier keeps every CTA resident
+// until its peers have read its pieces.
 //
-// The price is recompute: every block rebuilds the i pieces of rows
-// above its own, so the GEMM part runs mt(mt+1)/2 times per chunk instead
-// of mt times (mt = ceil(m/64)). At 1200·400·800 the kernel executes
-// about 8.1 GFLOP of M1 pieces and 1.2 GFLOP of products, 9.3 GFLOP in
-// all: 4.9x the paper's count, the same order as the TPU kernel's
-// recompute. Shared memory per block is fixed (43.5 KB), so there is no
-// size bound and no fallback. Rows run from the bottom of the grid up:
-// the blocks of the last row tiles rebuild the most pieces, and launching
-// them first evens out the tail. The atomics make the summation order
-// over l-chunks vary from run to run, at float32 rounding level.
-#include "tile.cuh"
+// The chunks' partial sums go into an output zeroed by cudaMemsetAsync
+// inside this entry point (and so inside the kernel's time), with
+// sgemm.cuh's 16-byte float32 atomics; a diagonal tile adds zeros above
+// its diagonal, so the strict upper triangle stays 0. The atomics make
+// the summation order over l-chunks vary from run to run, at float32
+// rounding level. (BL, C) is chosen per call (kernels/gemm_syrk.py:
+// gemm_syrk_config); the wrapper falls back to the gemm and syrk kernels
+// where even the narrowest launch cannot hold the panel.
+#include <cooperative_groups.h>
 
-using namespace repro;
+#include "sgemm.cuh"
 
-static_assert(BM == BN, "gemm_syrk tiles are square");
+namespace cg = cooperative_groups;
+using namespace repro::sgemm;
 
-// A 64x64 piece of M1 in shared memory, indexed by global (row, l).
-using Piece = float[BM][BN + PAD];
+namespace {
 
-// M1[i, p] as the A operand: A(r, l) = piece[r - row0][l - l0].
-struct PieceA {
-  const Piece* p;
-  int row0, l0;
-  __device__ __forceinline__ float at(int r, int l) const { return (*p)[r - row0][l - l0]; }
-  __device__ __forceinline__ bool k_fastest(int, int) const { return true; }
-};
+constexpr int BM = 64;               // rows of a piece; side of an output tile
+constexpr int PIECE_LD = BM + PAD;   // floats from one l-row of a piece to the next
+constexpr int MAX_CLUSTER = 8;       // the portable cluster size
+// Least dynamic shared memory of a CTA: more than half of an SM's 228 KB,
+// so that no two CTAs share an SM. Two CTAs of one cluster on one SM ran
+// no faster at the best launch, and made the time of a launch depend on
+// how the card packed its clusters; one CTA an SM, a cluster size C holds
+// a fixed number of resident clusters (cudaOccupancyMaxActiveClusters),
+// which the launch rule models (kernels/gemm_syrk.py, PERF.md section 6).
+constexpr size_t SPREAD_BYTES = 116 * 1024;
 
-// M1[j, p]ᵀ as the B operand: B(l, c) = piece[c - col0][l - l0]. Threads
-// walk l (the piece's rows are contiguous in l), which keeps the shared
-// memory reads free of bank conflicts.
-struct PieceBT {
-  const Piece* p;
-  int col0, l0;
-  __device__ __forceinline__ float at(int l, int c) const { return (*p)[c - col0][l - l0]; }
-  __device__ __forceinline__ bool n_fastest(int, int) const { return false; }
-};
-
-__device__ __forceinline__ void zero(float (&acc)[TM][TN]) {
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+template <int BL>
+__host__ __device__ constexpr int piece_floats() {
+  return BL * PIECE_LD;
 }
 
-// piece = A[row0:row0+64, :]·B[:, l0:l0+64], zero outside m x l.
-__device__ __forceinline__ void build_piece(const View& a, const View& b, int row0,
-                                            int l0, int k, Slabs& sm, Piece& piece,
-                                            float (&acc)[TM][TN]) {
-  zero(acc);
-  accumulate_tile(DenseA{a}, DenseB{b}, row0, l0, 0, k, sm, acc);
-  __syncthreads();   // every thread is done reading the piece's last use
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) piece[tile_row(i)][tile_col(j)] = acc[i][j];
-  __syncthreads();   // piece complete before any thread reads it
+// Dynamic shared memory of a CTA: the piece build's ring, the pieces it
+// owns (slots), and three staging pieces (one for row tile i, two for j);
+// at least SPREAD_BYTES.
+template <int BL>
+size_t smem_bytes(int slots) {
+  const size_t need = Tile<BM, BL>::smem_bytes +
+                      static_cast<size_t>(slots + 3) * piece_floats<BL>() * sizeof(float);
+  return need > SPREAD_BYTES ? need : SPREAD_BYTES;
 }
 
-__global__ void __launch_bounds__(THREADS)
-gemm_syrk_kernel(View a, View b, float* out, int m, int k, int l) {
-  __shared__ Slabs sm;
-  __shared__ __align__(16) Piece mi;
-  __shared__ __align__(16) Piece mj;
-  const int bi = gridDim.y - 1 - blockIdx.y;
-  const int row0 = bi * BM;
-  const int l0 = blockIdx.x * BN;
-  const int l1 = min(l0 + BN, l);
+// A thread's share of a piece's BL x BM values (not the padding): float4
+// u is at offset piece_offset(u) of the piece, for u < PieceRegs<BL>::N.
+template <int BL>
+struct PieceRegs {
+  static constexpr int N = BL * BM / 4 / THREADS;
+  float4 v[N];
+};
+__device__ __forceinline__ int piece_offset(int u) {
+  const int q = u * THREADS + threadIdx.x;
+  return (q / (BM / 4)) * PIECE_LD + (q % (BM / 4)) * 4;
+}
 
-  float acc[TM][TN];
-  build_piece(a, b, row0, l0, k, sm, mi, acc);
-  const PieceA lhs{&mi, row0, l0};
-  for (int bj = 0; bj <= bi; ++bj) {
-    const int col0 = bj * BM;
-    if (bj != bi) build_piece(a, b, col0, l0, k, sm, mj, acc);
-    const PieceBT rhs{bj == bi ? &mi : &mj, col0, l0};
-    zero(acc);
-    accumulate_tile(lhs, rhs, row0, col0, l0, l1, sm, acc);
+// Load piece i of the chunk (slot i / C of cluster rank i % C) into r.
+template <int BL>
+__device__ __forceinline__ void load_piece(cg::cluster_group& cluster, float* pieces, int i, int c,
+                                           PieceRegs<BL>& r) {
+  const float* src = cluster.map_shared_rank(pieces + (i / c) * piece_floats<BL>(), i % c);
 #pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int r = row0 + tile_row(i);
+  for (int u = 0; u < PieceRegs<BL>::N; ++u)
+    r.v[u] = *reinterpret_cast<const float4*>(src + piece_offset(u));
+}
+
+template <int BL>
+__device__ __forceinline__ void store_piece(const PieceRegs<BL>& r, float* dst) {
 #pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int c = col0 + tile_col(j);
-        if (r < m && c <= r) atomicAdd(out + static_cast<long long>(r) * m + c, acc[i][j]);
-      }
+  for (int u = 0; u < PieceRegs<BL>::N; ++u)
+    *reinterpret_cast<float4*>(dst + piece_offset(u)) = r.v[u];
+}
+
+// out += tril(M1[:, p]·M1[:, p]ᵀ) for l-chunk p = blockIdx.x / C, C the
+// cluster's size.
+template <int BL>
+__global__ void __launch_bounds__(THREADS, 2)
+gemm_syrk_kernel(Operand a, Operand b, float* out, int m, int k, int l) {
+  using T = Tile<BM, BL>;
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int c = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int l0 = static_cast<int>(blockIdx.x) / c * BL;
+  const int l1 = min(l, l0 + BL);
+  const int mt = (m + BM - 1) / BM;
+  const int slots = (mt + c - 1) / c;
+  float* const pieces = smem + STAGES * (T::SA + T::SB);
+  float* const sa = pieces + slots * piece_floats<BL>();   // piece i
+  float* const sb = sa + piece_floats<BL>();                // piece j, two buffers
+  const int ty = thread_ty(), tx = thread_tx();
+
+  // Build this CTA's pieces. A thread's four rows h·64 + ty·4 + {0..3} of
+  // piece column j are one 16-byte store.
+  for (int i = rank; i < mt; i += c) {
+    float acc[T::TM][T::TN] = {};
+    accumulate<BM, BL>(a, b, i * BM, l0, 0, k, smem, acc);
+    float* const piece = pieces + (i / c) * piece_floats<BL>();
+#pragma unroll
+    for (int j = 0; j < T::TN; ++j) {
+      const int col = tile_col<BL>(tx, j);
+#pragma unroll
+      for (int h = 0; h < T::TM / 4; ++h)
+        *reinterpret_cast<float4*>(piece + col * PIECE_LD + h * 64 + ty * 4) =
+            make_float4(acc[h * 4][j], acc[h * 4 + 1][j], acc[h * 4 + 2][j], acc[h * 4 + 3][j]);
     }
   }
+  cluster.sync();   // every piece of the chunk is complete and visible to the cluster
+
+  // This CTA's pairs t0 <= t < t1 in row-major order t = i(i+1)/2 + j.
+  const int pairs = mt * (mt + 1) / 2;
+  const int t0 = static_cast<int>(static_cast<long long>(rank) * pairs / c);
+  const int t1 = static_cast<int>(static_cast<long long>(rank + 1) * pairs / c);
+  const int nl = (l1 - l0 + BK - 1) / BK;
+  PieceRegs<BL> next;   // piece j of pair t, loaded during pair t - 1
+  int i, j;
+  if (t0 < t1) {
+    tri_decode(t0, i, j);
+    if (j != i) load_piece<BL>(cluster, pieces, j, c, next);
+  }
+  int held = -1;   // the row tile whose piece sa holds
+  for (int t = t0; t < t1; ++t) {
+    float* const buf = sb + (t & 1) * piece_floats<BL>();
+    // buf was last read by pair t - 2, which every thread finished before
+    // the barrier of pair t - 1.
+    if (j != i) store_piece<BL>(next, buf);
+    if (i != held) {
+      PieceRegs<BL> row;
+      load_piece<BL>(cluster, pieces, i, c, row);
+      store_piece<BL>(row, sa);
+      held = i;
+    }
+    __syncthreads();   // the staging pieces of pair t are complete
+    const int ti = i, tj = j;
+    if (t + 1 < t1) {   // in flight while pair t multiplies
+      tri_decode(t + 1, i, j);
+      if (j != i) load_piece<BL>(cluster, pieces, j, c, next);
+    }
+    const float* const pb = tj == ti ? sa : buf;
+    float acc[BM / 16][BM / 16] = {};
+    for (int s = 0; s < nl; ++s)
+      slab_fma<BM, BM>(sa + s * BK * PIECE_LD, pb + s * BK * PIECE_LD, ty, tx, acc);
+    if (ti == tj) mask_upper<BM, BM>(acc, ti * BM, tj * BM);
+    store<BM, BM, true>(acc, out, m, ti * BM, tj * BM, m, m);
+    if (t + 1 < t1 && i != ti) __syncthreads();   // done reading sa before it changes
+  }
+  cluster.sync();   // no CTA leaves while a peer may still read its pieces
 }
 
+// The launch of chunks·cluster CTAs in clusters of `cluster`.
+template <int BL>
+cudaLaunchConfig_t launch_config(int m, int l, int cluster, cudaStream_t st,
+                                 cudaLaunchAttribute* attr) {
+  const int mt = (m + BM - 1) / BM;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(((l + BL - 1) / BL) * cluster);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem_bytes<BL>((mt + cluster - 1) / cluster);
+  cfg.stream = st;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <int BL>
+cudaError_t launch(const Operand& a, const Operand& b, float* out, int m, int k, int l,
+                   int cluster, cudaStream_t st) {
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = launch_config<BL>(m, l, cluster, st, &attr);
+  cudaError_t err = cudaFuncSetAttribute(gemm_syrk_kernel<BL>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(cfg.dynamicSmemBytes));
+  if (err != cudaSuccess) return err;
+  err = cudaLaunchKernelEx(&cfg, gemm_syrk_kernel<BL>, a, b, out, m, k, l);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// A launch of one chunk, one cluster: what the occupancy query takes.
+template <int BL>
+cudaError_t max_clusters(int m, int cluster, int* count) {
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = launch_config<BL>(m, BL, cluster, nullptr, &attr);
+  const cudaError_t err = cudaFuncSetAttribute(gemm_syrk_kernel<BL>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               static_cast<int>(cfg.dynamicSmemBytes));
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveClusters(count, gemm_syrk_kernel<BL>, &cfg);
+}
+
+}  // namespace
+
 // out (m x m, row-major, contiguous) = tril((a (m x k) · b (k x l)) ·
-// (a · b)ᵀ), a and b strided.
+// (a · b)ᵀ), a and b strided, in l-chunks of bl (16, 32 or 64) columns,
+// one cluster of `cluster` (1 to 8) CTAs per chunk.
 extern "C" int repro_gemm_syrk_f32(const float* a, long long sa0, long long sa1,
                                    const float* b, long long sb0, long long sb1,
-                                   float* out, int m, int k, int l, void* stream) {
+                                   float* out, int m, int k, int l, int bl, int cluster,
+                                   void* stream) {
+  if (cluster < 1 || cluster > MAX_CLUSTER) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaMemsetAsync(out, 0, sizeof(float) * static_cast<size_t>(m) * m, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (l == 0) return static_cast<int>(cudaGetLastError());
-  const dim3 grid(cdiv(l, BN), cdiv(m, BM));
-  gemm_syrk_kernel<<<grid, THREADS, 0, st>>>(View{a, sa0, sa1, m, k}, View{b, sb0, sb1, k, l},
-                                             out, m, k, l);
-  return static_cast<int>(cudaGetLastError());
+  if (err != cudaSuccess || l == 0) return static_cast<int>(err);
+  const Operand A{a, sa0, sa1, m, copy_mode(a, sa0, sa1)};
+  const Operand B{b, sb1, sb0, l, copy_mode(b, sb1, sb0)};
+  switch (bl) {
+    case 16: err = launch<16>(A, B, out, m, k, l, cluster, st); break;
+    case 32: err = launch<32>(A, B, out, m, k, l, cluster, st); break;
+    case 64: err = launch<64>(A, B, out, m, k, l, cluster, st); break;
+    default: err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
+
+// *count = cudaOccupancyMaxActiveClusters of the launches
+// repro_gemm_syrk_f32 makes for (m, bl, cluster), whatever l.
+extern "C" int repro_gemm_syrk_max_clusters(int m, int bl, int cluster, int* count) {
+  if (cluster < 1 || cluster > MAX_CLUSTER) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err;
+  switch (bl) {
+    case 16: err = max_clusters<16>(m, cluster, count); break;
+    case 32: err = max_clusters<32>(m, cluster, count); break;
+    case 64: err = max_clusters<64>(m, cluster, count); break;
+    default: err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
 }

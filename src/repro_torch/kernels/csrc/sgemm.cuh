@@ -1,7 +1,7 @@
 // IEEE float32 matrix-product routine for Hopper's CUDA cores: 256-thread
 // blocks, a cp.async ring of shared-memory slabs, and a tile shape chosen
-// at launch. Used by gemm.cu, symm.cu and chain_gemm.cu (syrk.cu and
-// gemm_syrk.cu still use tile.cuh).
+// at launch. Used by gemm.cu, syrk.cu, symm.cu, chain_gemm.cu and
+// gemm_syrk.cu.
 //
 // Block tile BM x BN (128x128, 128x64 or 64x64), 8 warps. The 256 threads
 // form a 16 x 16 grid, thread (ty, tx) owning rows h·64 + ty·4 + {0..3}
@@ -9,7 +9,9 @@
 // or 4x4 held in registers. A warp covers a 4 x 8 patch of that grid
 // (warp tile 32x64 at 128x128), so each 16-byte shared-memory read of a
 // warp touches 4 distinct A addresses and 8 distinct B addresses, all in
-// one 128-byte row: one wavefront, conflict-free and broadcast.
+// one 128-byte row: one wavefront, conflict-free and broadcast. A narrow
+// tile (BN 16 or 32: gemm_syrk's M1 pieces) gives thread column tx the
+// BN/16 adjacent columns tx·BN/16 + j.
 //
 // The contraction walks 16-deep slabs through a ring of STAGES slabs of
 // A (k-major: a[k][i]) and B (b[k][j]) in shared memory, filled with
@@ -71,8 +73,17 @@ struct Tile {
   static constexpr int SA = BK * (BM + PAD);   // floats per A slab
   static constexpr int SB = BK * (BN + PAD);   // floats per B slab
   static constexpr int smem_bytes = STAGES * (SA + SB) * static_cast<int>(sizeof(float));
-  static_assert(BM % 64 == 0 && BN % 64 == 0, "thread tiles are built of 64-wide halves");
+  static_assert(BM % 64 == 0 && (BN % 64 == 0 || BN == 16 || BN == 32),
+                "thread tiles are built of 64-wide halves, or are 16 or 32 wide");
 };
+
+// Column, within a BN-wide tile, of accumulator column j of thread column
+// tx: four adjacent columns in each 64-wide half, or BN/16 adjacent
+// columns in a narrow tile.
+template <int BN>
+__device__ __forceinline__ int tile_col(int tx, int j) {
+  return BN >= 64 ? (j / 4) * 64 + tx * 4 + (j % 4) : tx * (BN / 16) + j;
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -122,7 +133,9 @@ struct SlabCopier {
     const int tid = threadIdx.x;
     w_base = w0;
     base = x.p;
-    mode = x.mode;
+    // A narrow slab row is too short for every thread to hold a 16-byte
+    // chunk: copy it 4 bytes at a time.
+    mode = BW < 64 && x.mode == kVec16 ? kWFast : x.mode;
     w_len = x.w_len;
     slab_step = BK * x.sk;
     sw = x.sw;
@@ -209,10 +222,17 @@ __device__ __forceinline__ void slab_fma(const float* a, const float* b, int ty,
       const float4 x = *reinterpret_cast<const float4*>(a + kk * (BM + PAD) + hh * 64 + ty * 4);
       av[hh * 4] = x.x; av[hh * 4 + 1] = x.y; av[hh * 4 + 2] = x.z; av[hh * 4 + 3] = x.w;
     }
+    if constexpr (T::TN >= 4) {
 #pragma unroll
-    for (int hh = 0; hh < T::TN / 4; ++hh) {
-      const float4 x = *reinterpret_cast<const float4*>(b + kk * (BN + PAD) + hh * 64 + tx * 4);
-      bv[hh * 4] = x.x; bv[hh * 4 + 1] = x.y; bv[hh * 4 + 2] = x.z; bv[hh * 4 + 3] = x.w;
+      for (int hh = 0; hh < T::TN / 4; ++hh) {
+        const float4 x = *reinterpret_cast<const float4*>(b + kk * (BN + PAD) + hh * 64 + tx * 4);
+        bv[hh * 4] = x.x; bv[hh * 4 + 1] = x.y; bv[hh * 4 + 2] = x.z; bv[hh * 4 + 3] = x.w;
+      }
+    } else if constexpr (T::TN == 2) {
+      const float2 x = *reinterpret_cast<const float2*>(b + kk * (BN + PAD) + tx * 2);
+      bv[0] = x.x; bv[1] = x.y;
+    } else {
+      bv[0] = b[kk * (BN + PAD) + tx];
     }
 #pragma unroll
     for (int i = 0; i < T::TM; ++i)
@@ -267,6 +287,7 @@ template <int BM, int BN, bool ADD = false>
 __device__ __forceinline__ void store(const float (&acc)[BM / 16][BN / 16], float* c,
                                       long long ld, int row0, int col0, int m, int n) {
   using T = Tile<BM, BN>;
+  static_assert(BN % 64 == 0, "store writes tiles built of 64-wide halves");
   const int ty = thread_ty(), tx = thread_tx();
   const bool vec = ((reinterpret_cast<uintptr_t>(c) | static_cast<uintptr_t>(ld * 4)) & 15u) == 0;
 #pragma unroll
@@ -296,6 +317,32 @@ __device__ __forceinline__ void store(const float (&acc)[BM / 16][BN / 16], floa
   }
 }
 
+// Zero a thread's accumulator entries that lie above the output's
+// diagonal (column > row): the tile at (row0, col0) of a lower-triangular
+// result.
+template <int BM, int BN>
+__device__ __forceinline__ void mask_upper(float (&acc)[BM / 16][BN / 16], int row0, int col0) {
+  using T = Tile<BM, BN>;
+  const int ty = thread_ty(), tx = thread_tx();
+#pragma unroll
+  for (int i = 0; i < T::TM; ++i) {
+    const int r = row0 + (i / 4) * 64 + ty * 4 + (i % 4);
+#pragma unroll
+    for (int j = 0; j < T::TN; ++j)
+      if (col0 + tile_col<BN>(tx, j) > r) acc[i][j] = 0.f;
+  }
+}
+
+// (i, j), j <= i, of lower-triangular tile t in row-major order, t =
+// i(i+1)/2 + j: no index table.
+__device__ __forceinline__ void tri_decode(int t, int& i, int& j) {
+  int r = static_cast<int>((sqrtf(8.f * t + 1.f) - 1.f) * 0.5f);
+  while (r * (r + 1) / 2 > t) --r;   // float rounding, either way
+  while ((r + 1) * (r + 2) / 2 <= t) ++r;
+  i = r;
+  j = t - r * (r + 1) / 2;
+}
+
 // c = sum over p of ws[p] (split slices of mn floats), in order p = 0, 1,
 // ...: the result does not depend on the order blocks finished in. (A
 // template, so that every source including this header may launch it.)
@@ -310,12 +357,39 @@ __global__ void __launch_bounds__(NT) split_sum_kernel(const float* ws, float* c
   }
 }
 
+// The same for a lower-triangular m x m c: rows over blocks, columns over
+// threads; an entry above the diagonal is written 0 without reading the
+// slices there.
+template <int NT>
+__global__ void __launch_bounds__(NT) tril_sum_kernel(const float* ws, float* c, int m,
+                                                      int split) {
+  const long long mn = static_cast<long long>(m) * m;
+  for (int r = blockIdx.x; r < m; r += gridDim.x) {
+    for (int col = threadIdx.x; col < m; col += NT) {
+      const long long i = static_cast<long long>(r) * m + col;
+      float s = 0.f;
+      if (col <= r) {
+        s = ws[i];
+        for (int p = 1; p < split; ++p) s += ws[p * mn + i];
+      }
+      c[i] = s;
+    }
+  }
+}
+
 // c = the sum of split slices of ws, on st, over at most 16 blocks an SM.
 inline cudaError_t sum_slices(const float* ws, float* c, long long mn, int split,
                               cudaStream_t st) {
   const long long want = (mn + 255) / 256;
   const int blocks = static_cast<int>(want < 132 * 16 ? want : 132 * 16);
   split_sum_kernel<256><<<blocks, 256, 0, st>>>(ws, c, mn, split);
+  return cudaGetLastError();
+}
+
+// c = tril(the sum of split slices of ws), c m x m, on st.
+inline cudaError_t sum_slices_tril(const float* ws, float* c, int m, int split,
+                                   cudaStream_t st) {
+  tril_sum_kernel<256><<<m < 132 * 16 ? m : 132 * 16, 256, 0, st>>>(ws, c, m, split);
   return cudaGetLastError();
 }
 

@@ -289,6 +289,107 @@ def test_gemm_syrk_kernel(cuda, m, k, l, a_view):
     _close_scaled(ops.gemm_syrk(a, b), ref.gemm_syrk(a, b))
 
 
+#: (m, k) of the SYRK launches tested: the main path's shape, sweep shapes,
+#: m not a multiple of either tile, k not a multiple of 16, one row.
+SYRK_SHAPES = [(1200, 800), (400, 1200), (1100, 333), (129, 257), (65, 17),
+               (300, 1000), (1, 5), (200, 0)]
+
+
+@pytest.mark.parametrize("m,k", SYRK_SHAPES)
+@pytest.mark.parametrize("transposed", [False, True])
+def test_syrk_kernel_every_launch(cuda, m, k, transposed):
+    """Every tile and split syrk_config can pick, forced through the
+    launcher; A row-major or a transposed view. The strict upper triangle
+    is exactly zero (written by the kernel or the summing pass)."""
+    from repro_torch.kernels import syrk as ksyrk
+    rng = np.random.default_rng(m + 3 * k)
+    a = _mat(rng, k, m, cuda).mT if transposed else _mat(rng, m, k, cuda)
+    want = ref.syrk(a)
+    assert ksyrk.syrk_config(m, k) in ksyrk.syrk_candidates(k)
+    for cfg in ksyrk.syrk_candidates(k):
+        # Garbage in the allocator's cache where the output will land.
+        torch.full((m, m), float("nan"), device=cuda)
+        before = ops.launch_counts()["syrk"]
+        out = ksyrk.launch(a, cfg)
+        _close(out, want, TOL)
+        assert bool((torch.triu(out, 1) == 0).all()), cfg
+        assert ops.launch_counts()["syrk"] == before + 1
+
+
+@pytest.mark.parametrize("m,k", [(1200, 800), (400, 400), (1100, 333)])
+def test_syrk_kernel_is_deterministic(cuda, m, k):
+    """No atomics: split slices are summed in slice order."""
+    from repro_torch.kernels import syrk as ksyrk
+    rng = np.random.default_rng(k)
+    a = _mat(rng, m, k, cuda)
+    for cfg in ksyrk.syrk_candidates(k):
+        assert torch.equal(ksyrk.launch(a, cfg), ksyrk.launch(a, cfg)), cfg
+
+
+#: (m, k, l) of the fused GEMM+SYRK launches tested: the main path's shape,
+#: sweep shapes, m, k and l off every tile, l below and off the chunk width.
+GEMM_SYRK_SHAPES = [(1200, 400, 800), (400, 400, 400), (1100, 333, 1037),
+                    (130, 70, 90), (37, 50, 100), (200, 17, 33), (65, 64, 15)]
+
+
+@pytest.mark.parametrize("m,k,l", GEMM_SYRK_SHAPES)
+def test_gemm_syrk_kernel_every_launch(cuda, m, k, l):
+    """Every (chunk width, cluster size) gemm_syrk_config can pick, forced
+    through the launcher, each on an output whose memory held NaNs; A a
+    transposed view."""
+    from repro_torch.kernels import gemm_syrk as kfused
+    rng = np.random.default_rng(m + k + l)
+    a, b = _mat(rng, k, m, cuda).mT, _mat(rng, k, l, cuda)
+    want = ref.gemm_syrk(a, b)
+    assert kfused.gemm_syrk_config(m, k, l) in kfused.candidates(m)
+    for cfg in kfused.candidates(m):
+        torch.full((m, m), float("nan"), device=cuda)
+        before = ops.launch_counts()["gemm_syrk"]
+        out = kfused.launch(a, b, cfg)
+        _close_scaled(out, want)
+        assert bool((torch.triu(out, 1) == 0).all()), cfg
+        assert ops.launch_counts()["gemm_syrk"] == before + 1
+
+
+def test_gemm_syrk_every_launch_is_schedulable(cuda):
+    """Each launch the rule may make at the paper's largest m has room for
+    at least one cluster on the card."""
+    from repro_torch.kernels import gemm_syrk as kfused
+    for cfg in kfused.candidates(1200):
+        assert kfused.max_active_clusters(1200, cfg) >= 1, cfg
+
+
+def test_gemm_syrk_kernel_at_the_largest_m_it_holds(cuda):
+    """At max_m() only the narrowest chunk over the largest cluster fits,
+    and the fused kernel runs there."""
+    from repro_torch.kernels import gemm_syrk as kfused
+    m, k, l = kfused.max_m(), 24, 40
+    assert [c.name for c in kfused.candidates(m)] == ["bl16 c8"]
+    rng = np.random.default_rng(1)
+    a, b = _mat(rng, m, k, cuda), _mat(rng, k, l, cuda)
+    ops.reset_launch_counts()
+    out = ops.gemm_syrk(a, b)
+    assert ops.launch_counts()["gemm_syrk"] == 1
+    _close_scaled(out, ref.gemm_syrk(a, b))
+
+
+def test_gemm_syrk_beyond_the_largest_m_runs_gemm_and_syrk(cuda):
+    """One row more than max_m(): no launch holds the panel, so the
+    wrapper runs the port's gemm and syrk kernels, as the reference falls
+    back above its VMEM bound."""
+    from repro_torch.kernels import gemm_syrk as kfused
+    m, k, l = kfused.max_m() + 1, 24, 40
+    assert kfused.gemm_syrk_config(m, k, l) is None
+    rng = np.random.default_rng(2)
+    a, b = _mat(rng, m, k, cuda), _mat(rng, k, l, cuda)
+    ops.reset_launch_counts()
+    out = ops.gemm_syrk(a, b)
+    counts = ops.launch_counts()
+    assert (counts["gemm"], counts["syrk"], counts["gemm_syrk"]) == (1, 1, 0)
+    _close_scaled(out, ref.gemm_syrk(a, b))
+    assert bool((torch.triu(out, 1) == 0).all())
+
+
 def test_every_family_on_cuda_backend_matches_torch_backend(cuda,
                                                              monkeypatch):
     from repro_torch.core.backends import CudaBackend, TorchBackend

@@ -678,3 +678,312 @@ def test_symm_and_chain_configs_on_the_main_path_shapes():
     assert cfg.name == "64x64" and cfg.blocks(1200, 1200) == 361
     assert {kchain.chain_config(*s).name for s in CHAIN_SWEEP_SHAPES} == {
         "128x128", "128x64", "64x64"}
+
+
+# --- Schedule twins of SYRK and the fused GEMM+SYRK (kernels/syrk.py:
+# syrk_config, syrk_blocks, tile_of; kernels/gemm_syrk.py:
+# gemm_syrk_config, gemm_syrk_blocks, executed_flops): the launchers'
+# index maps, pure Python, and CPU replays that walk the kernels' blocks,
+# clusters and pairs. The SYRK replay starts from an output of NaNs, as
+# torch.empty may hand the kernel, so it also shows that every element is
+# written. It is held at TOL against the plain version, the reference's
+# oracle and syrk_pallas in interpret mode; the GEMM+SYRK replay, whose
+# diagonal is ~l·k, at PERF.md section 2's scaled bound max|err| <= 1e-2 +
+# 1e-5·max|plain| (as tests/test_torch_gpu.py and chip_smoke.py hold the
+# kernel), against the plain version, the reference's gemm and syrk
+# oracles and gemm_syrk_pallas in interpret mode.
+
+from repro.kernels.chain_gemm import gemm_syrk_pallas  # noqa: E402
+from repro.kernels.syrk import syrk_pallas  # noqa: E402
+from repro_torch.kernels import gemm_syrk as kfused  # noqa: E402
+from repro_torch.kernels import syrk as ksyrk  # noqa: E402
+
+#: (m, k) of every SYRK and (m, k, l) of every fused GEMM+SYRK the sweep of
+#: chip_smoke.py launches (648 and 108 launches), and ragged ones.
+SYRK_SWEEP_SHAPES = list(_SWEEP["syrk"])
+SYRK_RAGGED_SHAPES = [(1100, 333), (129, 257), (65, 17), (300, 1000),
+                      (1, 5), (200, 0)]
+GEMM_SYRK_SWEEP_SHAPES = list(_SWEEP["gemm_syrk"])
+GEMM_SYRK_RAGGED_SHAPES = [(1100, 333, 1037), (130, 70, 90), (37, 50, 100),
+                           (200, 17, 33), (65, 64, 15), (1, 5, 130)]
+MAIN_GEMM_SYRK = (1200, 400, 800)
+
+
+def _syrk_launches(m, k):
+    """The launch syrk_config picks and every candidate it chooses from."""
+    return [ksyrk.syrk_config(m, k)] + ksyrk.syrk_candidates(k)
+
+
+def test_chip_smoke_sweep_launch_counts_are_the_sweeps_kernel_steps():
+    """chip_smoke.SWEEP_LAUNCHES: every kernel step of the sweep's
+    algorithms, each run 1 + REPS times."""
+    cs = _chip_smoke()
+    steps = {kind: sum(sum(c.values()) for c in shapes.values())
+             for kind, shapes in _SWEEP.items()}
+    assert cs.SWEEP_LAUNCHES == {kind: n * (1 + cs.REPS)
+                                 for kind, n in steps.items()}
+
+
+@pytest.mark.parametrize("mt", [1, 2, 3, 10, 19, 100, 377])
+def test_syrk_tile_decode_is_tril_indices(mt):
+    """The kernel's decode of its block index, float32 estimate included,
+    walks np.tril_indices: every lower tile once, in row-major order."""
+    ii, jj = np.tril_indices(mt)
+    assert [ksyrk.tile_of(t) for t in range(ksyrk.tiles(mt, 1))] == \
+        list(zip(ii.tolist(), jj.tolist()))
+
+
+@pytest.mark.parametrize("m,k", SYRK_SWEEP_SHAPES + SYRK_RAGGED_SHAPES)
+def test_syrk_schedule_covers_each_lower_tile_once_per_slice(m, k):
+    """Every launch runs each lower-triangular tile once per slice, no
+    tile above the diagonal, and each tile's slices cover [0, k) once."""
+    for cfg in _syrk_launches(m, k):
+        assert cfg.bm == cfg.bn and cfg.kchunk % kgemm.BK == 0
+        blocks = list(ksyrk.syrk_blocks(m, k, cfg))
+        assert len(blocks) == ksyrk.tiles(m, cfg.bm) * cfg.split
+        tiles, slices = {}, {}
+        for row0, col0, k0, k1 in blocks:
+            assert col0 <= row0 < max(m, 1)
+            assert row0 % cfg.bm == 0 and col0 % cfg.bm == 0
+            tiles[row0, col0] = tiles.get((row0, col0), 0) + 1
+            slices.setdefault((row0, col0), []).append((k0, k1))
+        mt = -(-m // cfg.bm)
+        assert sorted(tiles) == sorted((i * cfg.bm, j * cfg.bm)
+                                       for i in range(mt)
+                                       for j in range(i + 1))
+        assert set(tiles.values()) == {cfg.split}
+        for cuts in slices.values():
+            seen = np.zeros(k, dtype=np.int64)
+            for k0, k1 in cuts:
+                assert k0 < k1 or k == 0
+                seen[k0:k1] += 1
+            assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("m,k", SYRK_SWEEP_SHAPES + SYRK_RAGGED_SHAPES)
+def test_syrk_config_is_the_least_modeled_cost(m, k):
+    """The GEMM's model over the T·split blocks of the triangular grid:
+    the busiest SM's multiply-adds at the tile's rate plus a split's
+    pass; ties to the larger tile, then to fewer slices."""
+    sms = kgemm.SMS
+    cfg = ksyrk.syrk_config(m, k, sms)
+
+    def cost(c):
+        mt = -(-m // c.bm)
+        waves = -(-(mt * (mt + 1) // 2 * c.split) // sms)
+        return (waves * c.bm * c.bn * c.kchunk * 1e-6
+                * kgemm.US_PER_MMAC[c.config]
+                + (kgemm.US_SPLIT if c.split > 1 else 0.0))
+
+    best = min(cost(c) for c in ksyrk.syrk_candidates(k))
+    assert cost(cfg) == pytest.approx(best, rel=1e-12)
+    assert not any((cost(c), c.config, c.split) < (cost(cfg), cfg.config,
+                                                   cfg.split)
+                   for c in ksyrk.syrk_candidates(k))
+
+
+def _syrk_replay(a, cfg):
+    """tril(A·Aᵀ) as the kernel schedules it, into an output of NaNs: each
+    block multiplies A's row panel by the transpose of another over its
+    slice; one slice stores a diagonal tile with zeros above its diagonal
+    and an off-diagonal tile with the zero tile at its mirror, several go
+    to a workspace summed in slice order with zeros above the diagonal."""
+    m, k = a.shape
+    out = torch.full((m, m), float("nan"))
+    slices = torch.full((cfg.split, m, m), float("nan"))
+    for row0, col0, k0, k1 in ksyrk.syrk_blocks(m, k, cfg):
+        r1, c1 = min(m, row0 + cfg.bm), min(m, col0 + cfg.bm)
+        tile = a[row0:r1, k0:k1] @ a[col0:c1, k0:k1].mT
+        if cfg.split > 1:
+            slices[k0 // cfg.kchunk, row0:r1, col0:c1] = tile
+            continue
+        if row0 == col0:
+            tile = torch.tril(tile)
+        else:
+            out[col0:c1, row0:r1] = 0.0
+        out[row0:r1, col0:c1] = tile
+    if cfg.split > 1:
+        total = slices[0]
+        for p in range(1, cfg.split):
+            total = total + slices[p]
+        lower = torch.tril(torch.ones((m, m), dtype=torch.bool))
+        out = torch.where(lower, total, torch.zeros(()))
+    return out
+
+
+@pytest.mark.parametrize("m,k,a_view", [(256, 128, False), (200, 70, False),
+                                        (129, 33, True), (333, 50, False),
+                                        (256, 384, True)])
+def test_syrk_replay_matches_plain_and_reference(m, k, a_view):
+    """Every launch syrk_config may make, replayed: no element is left
+    unwritten, the upper triangle is exactly zero, and the product
+    matches the plain version, the reference's oracle and (at
+    block-divisible sizes) its Pallas kernel in interpret mode."""
+    rng = np.random.default_rng(m + k)
+    a_np = _rand(rng, k, m).T if a_view else _rand(rng, m, k)
+    a_t = torch.from_numpy(np.ascontiguousarray(a_np.T)).mT if a_view \
+        else torch.from_numpy(a_np)
+    want = tref.syrk(a_t).numpy()
+    np.testing.assert_allclose(want, np.asarray(jref.syrk(jnp.asarray(a_np))),
+                               **TOL)
+    if m % 128 == 0 and k % 128 == 0:
+        np.testing.assert_allclose(want, np.asarray(syrk_pallas(
+            jnp.asarray(a_np), interpret=True)), **TOL)
+    for cfg in _syrk_launches(m, k):
+        got = _syrk_replay(a_t, cfg).numpy()
+        assert not np.isnan(got).any(), cfg
+        assert (np.triu(got, 1) == 0).all(), cfg
+        np.testing.assert_allclose(got, want, **TOL)
+
+
+def test_syrk_config_on_the_main_path_shape():
+    """At 132 SMs, 1200x800 takes 128x128 tiles with the contraction split
+    in two: 55 tiles x 2 = 110 blocks, one wave (PERF.md, section 6)."""
+    cfg = ksyrk.syrk_config(1200, 800)
+    assert cfg.name == "128x128 split 2x400"
+    assert ksyrk.tiles(1200, cfg.bm) * cfg.split == 110
+
+
+@pytest.mark.parametrize("m,k,l", GEMM_SYRK_SWEEP_SHAPES
+                         + GEMM_SYRK_RAGGED_SHAPES)
+def test_gemm_syrk_schedule_builds_m1_once_and_covers_pairs_once(m, k, l):
+    """Every launch the rule may make: the CTAs of each cluster build each
+    64 x bl piece of their l-chunk exactly once (so each element of M1
+    once, never in another cluster), multiply each lower tile pair of the
+    chunk exactly once, and no CTA has more than ceil(pairs / C) + 1
+    pairs."""
+    mt = -(-m // kfused.BM)
+    pairs = mt * (mt + 1) // 2
+    assert kfused.gemm_syrk_config(m, k, l) in kfused.candidates(m)
+    for cfg in kfused.candidates(m):
+        built = np.zeros((mt, cfg.chunks(l)), dtype=np.int64)
+        multiplied = {}
+        ctas = list(kfused.gemm_syrk_blocks(m, k, l, cfg))
+        assert len(ctas) == cfg.blocks(l)
+        for chunk, rank, pieces, tile_pairs in ctas:
+            assert 0 <= rank < cfg.cluster and len(pieces) <= cfg.slots(m)
+            assert len(tile_pairs) <= -(-pairs // cfg.cluster) + 1
+            for i in pieces:
+                built[i, chunk] += 1
+            for i, j in tile_pairs:
+                assert 0 <= j <= i < mt
+                key = (chunk, i, j)
+                multiplied[key] = multiplied.get(key, 0) + 1
+        assert (built == 1).all()
+        assert len(multiplied) == pairs * cfg.chunks(l)
+        assert set(multiplied.values()) == {1}
+
+
+@pytest.mark.parametrize("m,k,l", GEMM_SYRK_SWEEP_SHAPES)
+def test_gemm_syrk_executes_near_the_papers_flops(m, k, l):
+    """The flops the chosen launch executes (pieces over k and pairs over
+    their chunk, each in 16-deep slabs, padding included) are at most
+    1.5x the paper's 2mkl + (m+1)ml at every sweep shape and 1.15x at the
+    main path's 1200·400·800; the earlier design, which rebuilt the
+    pieces of every row tile above its own, executed 4.86x there."""
+    cfg = kfused.gemm_syrk_config(m, k, l)
+    paper = 2 * m * k * l + (m + 1) * m * l
+    executed = 0
+    for chunk, _, pieces, tile_pairs in kfused.gemm_syrk_blocks(m, k, l, cfg):
+        width = min(l, (chunk + 1) * cfg.bl) - chunk * cfg.bl
+        executed += 2 * len(pieces) * 64 * cfg.bl * (-(-k // 16) * 16)
+        executed += 2 * len(tile_pairs) * 64 * 64 * (-(-width // 16) * 16)
+    assert kfused.executed_flops(m, k, l, cfg) == executed
+    assert executed <= (1.15 if (m, k, l) == MAIN_GEMM_SYRK else 1.5) * paper
+
+
+@pytest.mark.parametrize("m,k,l", GEMM_SYRK_SWEEP_SHAPES
+                         + GEMM_SYRK_RAGGED_SHAPES)
+def test_gemm_syrk_config_is_the_least_modeled_cost(m, k, l):
+    """Waves of clusters (ACTIVE_CLUSTERS resident) times the busiest
+    CTA's pieces and pairs at their fitted rates; ties to the wider
+    chunk, then to the smaller cluster."""
+    mt = -(-m // 64)
+
+    def cost(c):
+        ppc = -(-(mt * (mt + 1) // 2) // c.cluster)
+        per_cta = (-(-mt // c.cluster) * 64 * c.bl * (-(-k // 16) * 16)
+                   * 1e-6 * kfused.US_PER_MMAC_PIECE[
+                       kfused.WIDTHS.index(c.bl)]
+                   + ppc * 64 * 64 * c.bl * 1e-6 * kfused.US_PER_MMAC_PAIR
+                   + ppc * kfused.US_PER_PAIR)
+        waves = -(-c.chunks(l) // kfused.ACTIVE_CLUSTERS[c.cluster - 1])
+        return waves * per_cta
+
+    cfg = kfused.gemm_syrk_config(m, k, l)
+    fit = [c for c in kfused.CONFIGS if c.smem_bytes(m) <= 232448]
+    assert fit == kfused.candidates(m)
+    assert cost(cfg) == pytest.approx(min(cost(c) for c in fit), rel=1e-12)
+    assert not any((cost(c), -c.bl, c.cluster) < (cost(cfg), -cfg.bl,
+                                                  cfg.cluster) for c in fit)
+
+
+def test_gemm_syrk_config_on_the_main_path_and_at_the_size_bound():
+    """1200·400·800 takes chunks of 64 over clusters of 8: 13 clusters,
+    104 CTAs, one wave. max_m() is the largest m whose panel the
+    narrowest launch holds (16-wide chunks over 8 CTAs); one row more and
+    the wrapper falls back to gemm and syrk."""
+    cfg = kfused.gemm_syrk_config(*MAIN_GEMM_SYRK)
+    assert cfg.name == "bl64 c8" and cfg.blocks(800) == 104
+    top = kfused.max_m()
+    assert [c.name for c in kfused.candidates(top)] == ["bl16 c8"]
+    assert kfused.candidates(top + 1) == []
+    assert kfused.gemm_syrk_config(top + 1, 24, 40) is None
+
+
+def _gemm_syrk_replay(a, b, cfg):
+    """tril((A·B)(A·B)ᵀ) as the kernel schedules it: per l-chunk, every
+    CTA of the cluster builds its pieces from A's row tile and B's chunk
+    (and nothing else) into the cluster's store; after the cluster
+    barrier each CTA multiplies its pairs from that store only, masks the
+    diagonal tiles' upper halves and adds into a zeroed output."""
+    m, k = a.shape
+    l = b.shape[1]
+    out = torch.zeros((m, m))
+    by_chunk = {}
+    for cta in kfused.gemm_syrk_blocks(m, k, l, cfg):
+        by_chunk.setdefault(cta[0], []).append(cta)
+    for chunk, ctas in by_chunk.items():
+        l0, l1 = chunk * cfg.bl, min(l, (chunk + 1) * cfg.bl)
+        store = {}
+        for _, _, pieces, _ in ctas:
+            for i in pieces:
+                assert i not in store
+                store[i] = a[i * 64:(i + 1) * 64] @ b[:, l0:l1]
+        for _, _, _, tile_pairs in ctas:
+            for i, j in tile_pairs:
+                tile = store[i] @ store[j].mT
+                if i == j:
+                    tile = torch.tril(tile)
+                out[i * 64:(i + 1) * 64, j * 64:(j + 1) * 64] += tile
+    return out
+
+
+@pytest.mark.parametrize("m,k,l,a_view", [
+    (256, 128, 128, False), (130, 70, 90, False), (37, 50, 100, True),
+    (200, 17, 33, False), (128, 256, 384, True)])
+def test_gemm_syrk_replay_matches_plain_and_reference(m, k, l, a_view):
+    """Every launch the rule may make, replayed: M1 stays in its
+    cluster's store, the upper triangle stays exactly zero, and the
+    result matches the plain version, the reference's gemm and syrk
+    oracles and (at block-divisible sizes) gemm_syrk_pallas in interpret
+    mode."""
+    rng = np.random.default_rng(m * k + l)
+    a_np = _rand(rng, k, m).T if a_view else _rand(rng, m, k)
+    b_np = _rand(rng, k, l)
+    a_t = torch.from_numpy(np.ascontiguousarray(a_np.T)).mT if a_view \
+        else torch.from_numpy(a_np)
+    b_t = torch.from_numpy(b_np)
+    want = tref.gemm_syrk(a_t, b_t).numpy()
+    bound = 1e-2 + 1e-5 * np.abs(want).max()
+    jwant = np.asarray(jref.syrk(jref.gemm(jnp.asarray(a_np),
+                                           jnp.asarray(b_np))))
+    assert np.abs(jwant - want).max() <= bound
+    if m % 128 == 0 and k % 128 == 0 and l % 128 == 0:
+        jpallas = np.asarray(gemm_syrk_pallas(
+            jnp.asarray(a_np), jnp.asarray(b_np), interpret=True))
+        assert np.abs(jpallas - want).max() <= bound
+    for cfg in kfused.candidates(m):
+        got = _gemm_syrk_replay(a_t, b_t, cfg).numpy()
+        assert (np.triu(got, 1) == 0).all(), cfg
+        assert np.abs(got - want).max() <= bound, cfg
