@@ -47,7 +47,21 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    2 requests of 2048 tokens through ``api.prefill`` (the flash kernel
    in each of the 48 layers), decode 128 greedy tokens from that cache
    with ``api.decode_step``, prefill the 2176 tokens again, and hold the
-   decode logits and tokens against the re-prefill's.
+   decode logits and tokens against the re-prefill's;
+8. over phase 4's atlases, with a temporary ``REPRO_PROFILE_DIR``:
+   calibrate the ``default`` kernel grid and then each family's calls on
+   the ``cuda`` backend (gemm, syrk and symm must each launch
+   1 + REPS times per timed call, nothing else), save, reload and require
+   identical predictions, and print the host's work per call against the
+   Hopper launch model; ``sweep --mode predict`` each family twice from an
+   empty cache (the second must print ``measured=0``); ``sweep --mode
+   evaluate`` with all six discriminants on the calibrated table
+   (``measured`` must score top-1 100 % and zero regret, ``flops`` recall
+   0), ``perfmodel`` under ``AnalyticalHopperProfile`` against ``flops``,
+   and the measured / additive-model time of fused and unfused
+   algorithms; Experiment 3 on aatb's records; Experiment 1 on aatb in
+   the paper's box [20, 1200] (seed 0, 5 anomalies, at most 100 samples)
+   and Experiment 2's line scans (step 40) through up to 2 of them.
 
 The compiler's report must show no spills in any SYRK or GEMM+SYRK
 instance. The last two lines are the card's ``nvidia-smi`` name/power
@@ -875,6 +889,248 @@ def serve_model(torch, np) -> dict:
             "launches": launches}
 
 
+#: Phase 8: the discriminants the evaluation scores, Experiment 1's search
+#: (the paper's box, cut to 100 samples and 5 anomalies) and Experiment
+#: 2's line scans (step 40, through at most 2 of those anomalies).
+DISCRIMINANTS = ("flops", "perfmodel", "hybrid", "roofline", "measured",
+                 "rankk")
+EXPERIMENT1 = dict(box=(20, 1200), n_anomalies=5, max_samples=100, seed=0)
+EXPERIMENT2_STEP, EXPERIMENT2_SCANS = 40, 2
+#: Where phase 8 runs: the card (a rehearsal on the CPU sets "cpu").
+DEVICE = "cuda"
+
+
+def fused_pairs(alg) -> int:
+    """Adjacent step pairs the ``cuda`` backend runs as one fused kernel
+    (the walker's rule, ``walk_steps``)."""
+    from repro_torch.core.backends import CudaOps, fusable_pattern
+
+    fused, steps, i, n = CudaOps().fused_kinds(), alg.steps, 0, 0
+    while i < len(steps) - 1:
+        if fusable_pattern(steps[i], steps[i + 1], steps[i + 2:]) in fused:
+            n, i = n + 1, i + 2
+        else:
+            i += 1
+    return n
+
+
+def run_cli(main, argv) -> str:
+    """Run a CLI ``main`` in this process; its standard output, printed
+    and returned. A non-zero exit raises."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = main(argv)
+    text = out.getvalue()
+    print(text, end="")
+    if rc != 0:
+        raise AssertionError(f"{argv} exited {rc}")
+    return text
+
+
+def calibrate_predict_evaluate(atlas_dir: Path) -> dict:
+    """Phase 8: calibrate, predict, evaluate and the paper's three
+    experiments on the ``cuda`` backend, over phase 4's atlases."""
+    import collections
+    import statistics
+
+    from repro_torch.core import calibrate as cal
+    from repro_torch.core import sweep as sweep_mod
+    from repro_torch.core.backends import get_backend
+    from repro_torch.core.evaluate import evaluate_atlas, load_atlas_records
+    from repro_torch.core.experiments import (
+        experiment1_random_search, experiment2_regions,
+        experiment3_predict_from_benchmarks)
+    from repro_torch.core.expressions import get_spec
+    from repro_torch.core.flops import KernelCall, gemm, symm, syrk, tri2full
+    from repro_torch.core.perfmodel import (AnalyticalHopperProfile,
+                                            predict_algorithm_time)
+    from repro_torch.core.profile_store import (current_fingerprint,
+                                                load_default_profile,
+                                                load_profile)
+    from repro_torch.kernels import ops
+
+    grid_of = {name: ",".join(map(str, axis)) for name, axis in SWEEPS}
+    calibrated_dir, predict_dir = atlas_dir / "profiles", atlas_dir / "predict"
+    os.environ["REPRO_PROFILE_DIR"] = str(calibrated_dir)
+    launches = collections.Counter()
+
+    # 1. Calibrate the kernel space, then merge in each family's calls.
+    ops.reset_launch_counts()
+    timed = collections.Counter()
+    t0 = time.perf_counter()
+    res = cal.calibrate(backend="cuda", grid="default", reps=REPS, seed=SEED,
+                        device=DEVICE)
+    timed.update(c.kind for c in cal.grid_calls(cal.GRIDS["default"]))
+    print(f"calibrate --grid default: {res.n_calls} calls in "
+          f"{res.wall_s:.2f}s ({res.fingerprint.device})")
+    family_calls = {}
+    for name, _ in SWEEPS:
+        calls = cal.expression_calls(get_spec(name), grid_of[name])
+        family_calls[name] = calls
+        res = cal.calibrate(backend="cuda", expr=name, grid=grid_of[name],
+                            reps=REPS, seed=SEED, device=DEVICE)
+        timed.update(c.kind for c in calls)
+        print(f"calibrate --expr {name} --grid {grid_of[name]}: "
+              f"{len(calls)} unique calls in {res.wall_s:.2f}s; the "
+              f"profile holds {res.n_calls}")
+    wall = time.perf_counter() - t0
+    got = ops.launch_counts()
+    launches.update(got)
+    want = dict.fromkeys(got, 0) | {
+        k: timed[k] * (1 + REPS) for k in ("gemm", "syrk", "symm")}
+    print(f"calibrate: {sum(timed.values())} timed calls in {wall:.2f}s; "
+          f"launches {got}")
+    if got != want:
+        raise AssertionError(f"calibrate launched {got}, not {want}")
+    calibrated, fp = load_profile(res.path,
+                                  expected_fingerprint=res.fingerprint)
+    queries = [KernelCall(k, d) for k, d in res.profile.table] + [
+        gemm(300, 700, 900), syrk(1500, 20), symm(77, 1100), tri2full(600)]
+    if calibrated.table != res.profile.table or any(
+            calibrated.time(c) != res.profile.time(c) for c in queries):
+        raise AssertionError("the saved profile predicts other times")
+
+    # The host's work per call: calibrated time minus the launch model's,
+    # over the paper-scale calls the families make (dims 400-1200).
+    hopper = AnalyticalHopperProfile()
+    for kind in ("gemm", "syrk", "symm"):
+        calls = {c for cs in family_calls.values() for c in cs
+                 if c.kind == kind}
+        rest = sorted(calibrated.time(c) - hopper.launch_time(c)
+                      for c in calls)
+        q = statistics.quantiles(rest, n=4)
+        print(f"host overhead {kind}: median {statistics.median(rest):.4e} s "
+              f"(quartiles {q[0]:.4e}, {q[2]:.4e}) over {len(rest)} calls; "
+              f"the model charges {hopper.hw.kernel_overhead_s:.4e}")
+
+    # 2. Predict each family from per-kernel timings, twice, from an
+    # empty profile cache of its own.
+    for name, _ in SWEEPS:
+        os.environ["REPRO_PROFILE_DIR"] = str(predict_dir / name)
+        for attempt in (1, 2):
+            before = load_default_profile("cuda", "float32", DEVICE)
+            new = collections.Counter(
+                c.kind for c in dict.fromkeys(family_calls[name])
+                if before is None or c not in before)
+            ops.reset_launch_counts()
+            text = run_cli(sweep_mod.main, [
+                "--expr", name, "--grid", grid_of[name], "--mode",
+                "predict", "--reps", str(REPS), "--seed", str(SEED),
+                "--device", DEVICE, "--atlas-dir", str(atlas_dir),
+                "--quiet"])
+            got = ops.launch_counts()
+            launches.update(got)
+            want = dict.fromkeys(got, 0) | {
+                k: new[k] * (1 + REPS) for k in ("gemm", "syrk", "symm")}
+            m = re.search(r"measured=(\d+)", text)
+            if got != want or int(m.group(1)) != sum(new.values()) or \
+                    "vs atlas ground truth" not in text:
+                raise AssertionError(f"predict {name} run {attempt}: "
+                                     f"launches {got}, not {want}")
+            if attempt == 2 and int(m.group(1)) != 0:
+                raise AssertionError(f"predict {name} re-measured kernels")
+
+    # 3. Evaluate all six discriminants on each phase-4 atlas, with the
+    # calibrated table; perfmodel under the Hopper model against flops.
+    os.environ["REPRO_PROFILE_DIR"] = str(calibrated_dir)
+    fp = current_fingerprint("cuda", "float32", DEVICE)
+    replays, scores = {}, {}
+    for name, _ in SWEEPS:
+        spec = get_spec(name)
+        run_cli(sweep_mod.main, [
+            "--expr", name, "--grid", grid_of[name], "--mode", "evaluate",
+            "--discriminants", ",".join(DISCRIMINANTS), "--device", DEVICE,
+            "--atlas-dir", str(atlas_dir), "--quiet"])
+        replay = load_atlas_records(
+            sweep_mod.atlas_path(spec.name, fp, 0.10, atlas_dir))
+        replays[name] = replay
+        res = evaluate_atlas(replay, DISCRIMINANTS, profile=calibrated)
+        measured, flops = res.scores["measured"], res.scores["flops"]
+        if measured.top1_accuracy != 1.0 or measured.mean_regret != 0.0 \
+                or measured.p95_regret != 0.0:
+            raise AssertionError(f"{name}: measured scored {measured.row()}")
+        if res.n_anomalies and flops.recall != 0.0:
+            raise AssertionError(f"{name}: flops predicted an anomaly")
+        if any(s.error for s in res.scores.values()):
+            raise AssertionError(f"{name}: a discriminant failed: "
+                                 f"{res.summary()}")
+        modeled = evaluate_atlas(replay, ["flops", "perfmodel"],
+                                 profile=AnalyticalHopperProfile())
+        print(f"Hopper model score, {spec.name}: perfmodel under "
+              f"AnalyticalHopperProfile vs flops")
+        for s in modeled.scores.values():
+            print(f"  {s.row()}")
+        scores[name] = {n: {"top1": s.top1_accuracy,
+                            "mean_regret": s.mean_regret,
+                            "recall": s.recall, "precision": s.precision}
+                        for n, s in res.scores.items()}
+
+        # The fusion gap: measured / additive-model time, by whether the
+        # cuda backend fused a step pair of the algorithm.
+        ratios = collections.defaultdict(list)
+        for inst in replay.records:
+            for alg in spec.algorithms(inst.point):
+                model = predict_algorithm_time(alg.calls, calibrated, 4)
+                ratios["fused" if fused_pairs(alg) else "unfused"].append(
+                    inst.times[alg.name] / model)
+        for group, r in sorted(ratios.items()):
+            print(f"fusion gap {spec.name} {group}: measured/predicted "
+                  f"median {statistics.median(r):.3f} (min {min(r):.3f}, "
+                  f"max {max(r):.3f}) over {len(r)} algorithm timings")
+
+    # 4. Experiment 3 on aatb's phase-4 records.
+    spec = get_spec("aatb")
+    classified = {r.point: r for r in replays["aatb"].records}
+    ops.reset_launch_counts()
+    e3 = experiment3_predict_from_benchmarks(spec, "cuda", classified,
+                                             profile=calibrated,
+                                             device=DEVICE)
+    launches.update(ops.launch_counts())
+    print(f"experiment 3 {spec.name} (threshold 0.05): measured="
+          f"{e3.n_calls_measured} reused={e3.n_calls_reused}")
+    print(e3.confusion.as_table())
+
+    # 5-6. Experiments 1 and 2 on aatb, in the paper's box.
+    runner = get_backend("cuda", reps=REPS, seed=SEED, device=DEVICE)
+    ops.reset_launch_counts()
+    e1 = experiment1_random_search(spec, runner, **EXPERIMENT1)
+    e1_launches = ops.launch_counts()
+    launches.update(e1_launches)
+    print(f"experiment 1 {spec.name} in {EXPERIMENT1['box']}: samples="
+          f"{e1.samples} anomalies={len(e1.anomalies)} (abundance "
+          f"{e1.abundance:.1%}) in {e1.wall_s:.1f}s; launches {e1_launches}")
+    for inst in e1.anomalies:
+        print(f"  anomaly at {inst.point} ts={inst.cls.time_score:.1%} "
+              f"fs={inst.cls.flop_score:.1%}")
+    if e1.samples != EXPERIMENT1["max_samples"] and \
+            len(e1.anomalies) < EXPERIMENT1["n_anomalies"]:
+        raise AssertionError("experiment 1 stopped early")
+    ops.reset_launch_counts()
+    e2 = experiment2_regions(spec, runner,
+                             e1.anomalies[:EXPERIMENT2_SCANS],
+                             box=EXPERIMENT1["box"], step=EXPERIMENT2_STEP)
+    launches.update(ops.launch_counts())
+    print(f"experiment 2 {spec.name}: {len(e2.scans)} line scans, "
+          f"{len(e2.classified)} points probed; launches "
+          f"{ops.launch_counts()}")
+    for scan in e2.scans:
+        print(f"  scan dim {scan.dim} through {scan.origin}: region "
+              f"[{scan.lo}, {scan.hi}] thickness {scan.thickness} over "
+              f"{len(scan.points)} probes")
+    if len(e2.scans) != spec.ndims * min(EXPERIMENT2_SCANS,
+                                         len(e1.anomalies)):
+        raise AssertionError("experiment 2 scanned the wrong lines")
+    print(f"phase 8 kernel launches: {dict(launches)}")
+    idle = [k for k in ("gemm", "syrk", "symm", "chain_gemm")
+            if not launches[k]]
+    if idle:
+        raise AssertionError(f"phase 8 never launched {idle}")
+    return {"launches": dict(launches), "scores": scores}
+
+
 def print_ptxas_report(log: Path) -> dict:
     """Registers, shared memory and spills per kernel (``-Xptxas=-v``);
     the flash kernels' instantiations are named by type and head_dim, the
@@ -948,10 +1204,11 @@ def main() -> int:
     time_syrk_gemm_syrk_configs(torch, np)
     with tempfile.TemporaryDirectory(prefix="chip-smoke-atlas-") as d:
         launches = run_sweeps(torch, Path(d))
-    check_algorithms(torch)
-    results["flash_attention"] = check_flash(torch, np)
-    served = serve_model(torch, np)
-    launches["flash_attention"] = served["launches"]["flash_attention"]
+        check_algorithms(torch)
+        results["flash_attention"] = check_flash(torch, np)
+        served = serve_model(torch, np)
+        launches["flash_attention"] = served["launches"]["flash_attention"]
+        predicted = calibrate_predict_evaluate(Path(d))
 
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
@@ -962,7 +1219,8 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "ms_b2b": r["ms_b2b"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"], "shape": r["shape"]})
+            "library_ms": r["library_ms"], "shape": r["shape"],
+            "launches_phase8": predicted["launches"].get(name, 0)})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

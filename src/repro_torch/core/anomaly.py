@@ -75,6 +75,92 @@ def classify(
     )
 
 
+def pick_regret(times: Mapping[str, float], pick: str) -> float:
+    """Relative time lost by choosing ``pick``: (T_pick − T_min) / T_min.
+
+    The per-instance unit of the evaluation scoreboard
+    (:mod:`repro_torch.core.evaluate`): 0 when the pick is (tied-)fastest, 0.5
+    when it costs 50 % more wall time than the fastest algorithm. Returns
+    0 when the fastest time is 0 (degenerate clock resolution) — the same
+    zero-denominator convention as the severity scores above.
+    """
+    t_min = min(times.values())
+    if t_min <= 0:
+        return 0.0
+    return max(0.0, (float(times[pick]) - t_min) / t_min)
+
+
+@dataclasses.dataclass
+class RegionScan:
+    """Result of traversing one axis-aligned line (paper Experiment 2)."""
+
+    dim: int                     # which dimension was traversed
+    origin: Tuple[int, ...]      # the seed anomaly instance
+    points: List[Tuple[int, bool, float, float]]  # (coord, is_anom, ts, fs)
+    lo: int                      # region boundary (inclusive) low coord
+    hi: int                      # region boundary (inclusive) high coord
+
+    @property
+    def thickness(self) -> int:
+        # Paper: b − a − 1 with a,b the first non-anomalous boundary points;
+        # with inclusive anomalous endpoints lo/hi this is hi − lo + 1.
+        return self.hi - self.lo + 1
+
+
+def scan_line(
+    classify_at,
+    origin: Sequence[int],
+    dim: int,
+    lo_bound: int,
+    hi_bound: int,
+    step: int = 10,
+    hole_tolerance: int = 2,
+) -> RegionScan:
+    """Traverse an axis-aligned line through an anomaly (paper §3.4.2).
+
+    ``classify_at(point) -> Classification``. The traversal walks both
+    directions from ``origin`` in ``step`` strides; 1–2 consecutive
+    non-anomalies are holes; ≥3 mark the region boundary.
+    """
+    origin = tuple(int(x) for x in origin)
+    points: Dict[int, Classification] = {}
+
+    def probe(coord: int) -> Classification:
+        if coord not in points:
+            p = list(origin)
+            p[dim] = coord
+            points[coord] = classify_at(tuple(p))
+        return points[coord]
+
+    def walk(direction: int) -> int:
+        """Return the last anomalous coordinate in this direction."""
+        last_anom = origin[dim]
+        misses = 0
+        coord = origin[dim]
+        while True:
+            coord += direction * step
+            if coord < lo_bound or coord > hi_bound:
+                break
+            c = probe(coord)
+            if c.is_anomaly:
+                last_anom = coord
+                misses = 0
+            else:
+                misses += 1
+                if misses > hole_tolerance:
+                    break
+        return last_anom
+
+    probe(origin[dim])
+    hi = walk(+1)
+    lo = walk(-1)
+    pts = sorted(
+        (coord, c.is_anomaly, c.time_score, c.flop_score)
+        for coord, c in points.items()
+    )
+    return RegionScan(dim=dim, origin=origin, points=pts, lo=lo, hi=hi)
+
+
 @dataclasses.dataclass(frozen=True)
 class Region:
     """One contiguous anomalous region of the problem-size grid.
@@ -193,3 +279,46 @@ def region_summary(regions: Iterable[Region], n_points: int) -> str:
     if len(regions) > 10:
         lines.append(f"  ... {len(regions) - 10} more")
     return "\n".join(lines)
+
+
+@dataclasses.dataclass
+class ConfusionMatrix:
+    """Experiment 3 output: measured (actual) vs profile-predicted."""
+
+    tp: int = 0
+    fp: int = 0
+    fn: int = 0
+    tn: int = 0
+
+    def add(self, actual: bool, predicted: bool) -> None:
+        if actual and predicted:
+            self.tp += 1
+        elif actual and not predicted:
+            self.fn += 1
+        elif not actual and predicted:
+            self.fp += 1
+        else:
+            self.tn += 1
+
+    @property
+    def recall(self) -> float:   # paper: "92 % of anomalies predicted"
+        d = self.tp + self.fn
+        return self.tp / d if d else 0.0
+
+    @property
+    def precision(self) -> float:  # paper: "96 % of predicted were actual"
+        d = self.tp + self.fp
+        return self.tp / d if d else 0.0
+
+    @property
+    def total(self) -> int:
+        return self.tp + self.fp + self.fn + self.tn
+
+    def as_table(self) -> str:
+        return (
+            "            Predicted\n"
+            "             No      Yes\n"
+            f"Actual No   {self.tn:<8d}{self.fp:<8d}\n"
+            f"       Yes  {self.fn:<8d}{self.tp:<8d}\n"
+            f"recall={self.recall:.1%} precision={self.precision:.1%}"
+        )

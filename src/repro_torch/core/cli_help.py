@@ -1,9 +1,9 @@
 """Registry-generated ``--help`` epilogs for the port's CLIs.
 
 The port's counterpart of the reference package's ``core/cli_help.py``:
-the listings are generated from the analysis rule registry and the
-execution-backend registry when a parser is built, so the help text can
-never drift from what the registries accept.
+the listings are generated from the discriminant registry, the analysis
+rule registry and the execution-backend registry when a parser is built,
+so the help text can never drift from what the registries accept.
 """
 
 from __future__ import annotations
@@ -12,6 +12,23 @@ from __future__ import annotations
 def _first_doc_line(obj: object) -> str:
     doc = (getattr(obj, "__doc__", None) or "").strip()
     return doc.splitlines()[0].rstrip(".") if doc else ""
+
+
+def discriminants_epilog() -> str:
+    """One line per registered selection policy, capability-flagged."""
+    from .discriminants import get_discriminant, registered_discriminants
+
+    lines = ["registered discriminants (repro_torch.core.discriminants):"]
+    for name in registered_discriminants():
+        d = get_discriminant(name)
+        flags = []
+        if getattr(d, "requires_profile", False):
+            flags.append("profile")
+        if getattr(d, "requires_measurement", False):
+            flags.append("measures")
+        tag = f" [{', '.join(flags)}]" if flags else ""
+        lines.append(f"  {name:<10} {_first_doc_line(type(d))}{tag}")
+    return "\n".join(lines)
 
 
 def analysis_rules_epilog() -> str:

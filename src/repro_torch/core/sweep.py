@@ -10,6 +10,11 @@ fingerprint. The atlas has the reference's header and record schema, so
 the reference's replay tools (``repro.core.evaluate.load_atlas_records``,
 ``tools/atlas_merge.py``) read a port atlas unchanged.
 
+``--mode predict`` classifies from per-kernel times measured in isolation
+(:func:`benchmark_unique_calls`, reusing and extending the cached profile)
+through the additive model; ``--mode evaluate`` replays the atlas and
+scores the registered discriminants (:mod:`repro_torch.core.evaluate`).
+
 CLI::
 
     PYTHONPATH=src python -m repro_torch.core.sweep --expr aatb --grid smoke
@@ -17,6 +22,8 @@ CLI::
     PYTHONPATH=src python -m repro_torch.core.sweep --expr abcd --grid 400,1200 --seed 0
     PYTHONPATH=src python -m repro_torch.core.sweep --backend cuda --device cpu --grid smoke
     PYTHONPATH=src python -m repro_torch.core.sweep --expr abab --grid 400,800,1200 --no-fusion
+    PYTHONPATH=src python -m repro_torch.core.sweep --expr aatb --grid 400,800,1200 --mode predict
+    PYTHONPATH=src python -m repro_torch.core.sweep --expr aatb --grid 400,800,1200 --mode evaluate --discriminants flops,perfmodel,measured
     PYTHONPATH=src python -m repro_torch.core.sweep --list-exprs
 """
 
@@ -30,17 +37,21 @@ import re
 import sys
 import time as _time
 from pathlib import Path
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import (Callable, Dict, Iterable, List, Mapping, Optional,
+                    Sequence, Tuple)
 
 from ..kernels import _build
 from ..kernels import ops as kops
 from .algorithms import Algorithm, Leaf
-from .anomaly import Classification, Region, classify, cluster_regions, region_summary
+from .anomaly import (Classification, ConfusionMatrix, Region, classify,
+                      cluster_regions, region_summary)
 from .backends import get_backend, register_torch_backends
 from .backends.torch_backend import fusion_enabled
 from .expressions import (REGISTRY, SWEEP_GRIDS, ExpressionSpec, GridSpec, get_spec,
                           registered_names)
 from .fingerprint import HardwareFingerprint, cache_base_dir
+from .flops import KernelCall
+from .perfmodel import KernelProfile, TableProfile, predict_algorithm_time
 
 # --------------------------------------------------- instance measurement ---
 
@@ -426,6 +437,102 @@ def cluster_sweep(records, grid: GridSpec) -> List[Region]:
     return cluster_regions(scores, grid.axes)
 
 
+def cluster_predictions(
+    predicted: Mapping[Tuple[int, ...], Classification],
+    grid: GridSpec,
+) -> List[Region]:
+    """Cluster predicted (model-only) classifications over a grid."""
+    scores = {p: (c.time_score, c.flop_score)
+              for p, c in predicted.items() if c.is_anomaly}
+    return cluster_regions(scores, grid.axes)
+
+
+# --------------------------------------------- batched kernel measurement ---
+
+#: Bytes per element the models charge: both backends measure float32.
+DTYPE_BYTES = 4
+
+
+def collect_unique_calls(
+    spec: ExpressionSpec, points: Iterable[Sequence[int]],
+) -> List[KernelCall]:
+    """Distinct kernel calls across every algorithm of every point.
+
+    Across a grid, neighbouring instances' algorithms share most calls, so
+    the unique set is far smaller than the naive call stream — this dedup
+    is what makes predicted sweeps (and Experiment 3) cheap.
+    """
+    seen: Dict[KernelCall, None] = {}
+    for p in points:
+        for a in spec.algorithms(p):
+            for call in a.calls:
+                seen.setdefault(call)
+    return list(seen)
+
+
+def benchmark_unique_calls(
+    runner,
+    calls: Iterable[KernelCall],
+    profile: Optional[TableProfile] = None,
+    reps: Optional[int] = None,
+    progress: Optional[Callable[[int, int, KernelCall], None]] = None,
+) -> Tuple[TableProfile, int, int]:
+    """Benchmark the deduplicated call set, reusing ``profile`` entries.
+
+    Returns ``(profile, n_measured, n_reused)``. Calls the profile already
+    covers are never re-measured — so a persisted calibration makes repeat
+    sweeps nearly free, and every new measurement lands in the profile for
+    the *next* consumer (the calibration-cache feedback loop). Each call
+    is timed in isolation by ``runner.benchmark_call`` (one synthetic
+    one-step algorithm: a warm-up and ``reps`` timed runs).
+    """
+    calls = list(dict.fromkeys(calls))
+    if profile is None:
+        profile = TableProfile(peak_flops=1.0)
+    n_measured = n_reused = 0
+    n_calls = len(calls)
+    for i, call in enumerate(calls):
+        if call in profile:
+            n_reused += 1
+            continue
+        seconds = runner.benchmark_call(call, reps=reps)
+        profile.record(call, seconds)
+        n_measured += 1
+        if seconds > 0 and call.flops:
+            # cached profiles included: a newly observed best throughput
+            # raises peak_flops so efficiency stays a true fraction
+            profile.observe_peak(call.flops / seconds)
+        if progress is not None:
+            progress(i + 1, n_calls, call)
+    return profile, n_measured, n_reused
+
+
+def predict_classifications(
+    spec: ExpressionSpec,
+    points: Iterable[Sequence[int]],
+    profile: KernelProfile,
+    threshold: float = 0.10,
+    dtype_bytes: int = DTYPE_BYTES,
+) -> Dict[Tuple[int, ...], Classification]:
+    """Classify every point from the additive per-kernel model (no timing).
+
+    This is the paper's Experiment-3 prediction generalized to arbitrary
+    point sets: with a calibrated profile it maps anomaly regions at grid
+    scale in milliseconds. The model sums ``alg.calls``, one term per
+    step, also where the ``cuda`` backend runs two steps as one fused
+    kernel.
+    """
+    out: Dict[Tuple[int, ...], Classification] = {}
+    for p in points:
+        p = tuple(int(x) for x in p)
+        algos = spec.algorithms(p)
+        times = {a.name: predict_algorithm_time(a.calls, profile, dtype_bytes)
+                 for a in algos}
+        flops = {a.name: a.flops for a in algos}
+        out[p] = classify(times, flops, threshold=threshold)
+    return out
+
+
 # -------------------------------------------------------------------- CLI ---
 
 
@@ -443,17 +550,25 @@ def parse_grid(spec: ExpressionSpec, text: str) -> GridSpec:
 
 
 def _registry_epilog() -> str:
-    """The family, backend and analysis-rule registries, generated when
-    the parser is built so the help text never omits an entry."""
-    from .cli_help import analysis_rules_epilog, backends_epilog
+    """The family, discriminant, backend and analysis-rule registries,
+    generated when the parser is built so the help text never omits an
+    entry."""
+    from .cli_help import (analysis_rules_epilog, backends_epilog,
+                           discriminants_epilog)
 
     lines = ["registered expression families (repro_torch.core.expressions):"]
     for cli_name in registered_names():
         s = REGISTRY[cli_name]
         lines.append(f"  {cli_name:<7} {s.name:<7} ndims={s.ndims}  "
                      f"{s.description}")
-    return "\n".join(lines) + "\n\n" + backends_epilog() + "\n\n" \
-        + analysis_rules_epilog()
+    return "\n".join(lines) + "\n\n" + discriminants_epilog() + "\n\n" \
+        + backends_epilog() + "\n\n" + analysis_rules_epilog()
+
+
+def _note(msg: str, quiet: bool) -> None:
+    if not quiet:
+        print(msg, file=sys.stderr)
+        sys.stderr.flush()
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -473,6 +588,19 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--grid", default="small",
                     help=f"named grid {sorted(SWEEP_GRIDS)} or "
                          "comma-separated axis values, e.g. 400,800,1200")
+    ap.add_argument("--mode", choices=("measure", "predict", "evaluate"),
+                    default="measure",
+                    help="measure: time every algorithm per instance; "
+                         "predict: classify from per-kernel benchmarks "
+                         "timed in isolation (additive model; feeds the "
+                         "profile cache); evaluate: replay the persisted "
+                         "atlas and score discriminants (top-1 accuracy, "
+                         "time regret, anomaly recall/precision) without "
+                         "timing anything")
+    ap.add_argument("--discriminants", default=None, metavar="A,B,C",
+                    help="comma-separated repro_torch.core.discriminants "
+                         "registry keys to score in --mode evaluate "
+                         "(default: every registered discriminant)")
     ap.add_argument("--backend", choices=("cuda", "torch"), default="cuda",
                     help="cuda: the hand-written kernels; torch: plain ATen")
     ap.add_argument("--device", default="cuda",
@@ -497,6 +625,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         for cli_name in registered_names():
             print(cli_name)
         return 0
+    if args.discriminants and args.mode != "evaluate":
+        # Scoring is a replay-only concern; silently accepting the flag
+        # on a measured sweep would imply the sweep was somehow filtered.
+        ap.error("--discriminants only applies to --mode evaluate")
     # Process-wide on purpose, as in the reference: the walker reads it at
     # every dispatch.
     if args.no_fusion:
@@ -507,6 +639,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         grid = parse_grid(spec, args.grid)
     except ValueError as e:
         ap.error(str(e))
+    if args.mode == "evaluate":
+        return _main_evaluate(args, spec, grid)
     register_torch_backends()
     runner = get_backend(args.backend, device=args.device, reps=args.reps,
                          seed=args.seed)
@@ -514,11 +648,12 @@ def main(argv: Optional[List[str]] = None) -> int:
     atlas = AnomalyAtlas(atlas_path(spec.name, fp, args.threshold,
                                     args.atlas_dir),
                          fp, spec.name, args.threshold)
-    if not args.quiet:
-        print(f"sweep {spec.name} grid={grid.name} ({grid.n_points} "
-              f"instances over {spec.ndims} dims), backend={args.backend} "
-              f"on {fp.device}; atlas {atlas.path} ({len(atlas)} already "
-              f"recorded)", file=sys.stderr)
+    _note(f"sweep {spec.name} grid={grid.name} ({grid.n_points} "
+          f"instances over {spec.ndims} dims), backend={args.backend} "
+          f"on {fp.device}; atlas {atlas.path} ({len(atlas)} already "
+          f"recorded)", args.quiet)
+    if args.mode == "predict":
+        return _main_predict(args, spec, grid, runner, atlas)
 
     kops.reset_launch_counts()
     res = sweep(spec, grid.points(), runner=runner,
@@ -532,6 +667,149 @@ def main(argv: Optional[List[str]] = None) -> int:
         f"{k}={v}" for k, v in kops.launch_counts().items()))
     print(region_summary(cluster_sweep(res.records, grid), res.n_points))
     print(f"atlas written to {res.atlas_path}")
+    return 0
+
+
+def _main_predict(args, spec, grid, runner, atlas) -> int:
+    """--mode predict: per-kernel benchmarks → model-only sweep."""
+    from .profile_store import load_default_profile, save_profile
+
+    points = grid.points()
+    cached = load_default_profile(backend=args.backend, dtype=runner.dtype,
+                                  device=args.device)
+    calls = collect_unique_calls(spec, points)
+    kops.reset_launch_counts()
+    t0 = _time.perf_counter()
+    profile, n_meas, n_reused = benchmark_unique_calls(
+        runner, calls, profile=cached, reps=args.reps)
+    bench_s = _time.perf_counter() - t0
+    save_profile(profile, atlas.fingerprint,
+                 meta={"source": f"sweep:{spec.name}"})
+    predicted = predict_classifications(
+        spec, points, profile, threshold=args.threshold,
+        dtype_bytes=DTYPE_BYTES)
+    n_anom = sum(1 for c in predicted.values() if c.is_anomaly)
+    print(f"predict {spec.name}/{grid.name}: points={len(points)} "
+          f"unique_kernels={len(calls)} measured={n_meas} "
+          f"reused={n_reused} in {bench_s:.1f}s; "
+          f"predicted anomalies={n_anom} ({n_anom / len(points):.1%})")
+    print("kernel launches: " + " ".join(
+        f"{k}={v}" for k, v in kops.launch_counts().items()))
+    print(region_summary(cluster_predictions(predicted, grid), len(points)))
+    if len(atlas):
+        # Confusion vs whatever ground truth the atlas already holds.
+        cm = ConfusionMatrix()
+        for p, c in predicted.items():
+            actual = atlas.get(p)
+            if actual is not None:
+                cm.add(actual.cls.is_anomaly, c.is_anomaly)
+        if cm.total:
+            print(f"vs atlas ground truth ({cm.total} instances): "
+                  f"recall={cm.recall:.1%} precision={cm.precision:.1%}")
+    return 0
+
+
+def _main_evaluate(args, spec, grid) -> int:
+    """--mode evaluate: replay the atlas, score discriminants, no timing.
+
+    The atlas is loaded through the *lenient* replay loader
+    (:func:`repro_torch.core.evaluate.load_atlas_records`): evaluation
+    never appends, so fingerprints are not matched against this process.
+    If the fingerprint-exact file is absent but exactly one atlas for this
+    (spec, threshold) exists — e.g. ground truth swept on another machine
+    — that one is used, with a note. Profile-consuming policies read the
+    profile cached for this backend and device, if any.
+    """
+    from .backends import get_backend_class
+    from .discriminants import registered_discriminants
+    from .evaluate import evaluate_discriminants, load_atlas_records
+    from .profile_store import current_fingerprint, load_default_profile
+
+    if args.discriminants:
+        names = [n.strip() for n in args.discriminants.split(",")
+                 if n.strip()]
+        unknown = [n for n in names if n.lower()
+                   not in registered_discriminants()]
+        if unknown:
+            print(f"unknown discriminant(s) {unknown}; registered: "
+                  f"{registered_discriminants()}", file=sys.stderr)
+            return 2
+    else:
+        names = registered_discriminants()
+
+    register_torch_backends()
+    dtype = get_backend_class(args.backend).default_dtype
+    fp = current_fingerprint(backend=args.backend, dtype=dtype,
+                             device=args.device)
+    path = atlas_path(spec.name, fp, args.threshold, args.atlas_dir)
+    if not path.is_file():
+        t = f"{args.threshold:g}".replace(".", "p")
+        candidates = [
+            c for c in sorted(path.parent.glob(
+                f"atlas-{_slug(spec.name)}-t{t}-*.jsonl"))
+            # Un-merged shard files (the reference's fanned-out sweeps)
+            # are partial by construction; replay a merged atlas instead.
+            if not re.search(r"-shard\d+$", c.stem)
+        ]
+        if len(candidates) == 1:
+            _note(f"no atlas for this fingerprint; evaluating the only "
+                  f"match {candidates[0].name}", args.quiet)
+            path = candidates[0]
+        else:
+            hint = (f"{len(candidates)} atlases match this spec/threshold"
+                    if candidates else "none exist")
+            print(f"no atlas at {path} ({hint}); sweep ground truth first: "
+                  f"python -m repro_torch.core.sweep --expr {args.expr} "
+                  f"--grid {args.grid} --backend {args.backend} --device "
+                  f"{args.device}", file=sys.stderr)
+            return 2
+
+    replay = load_atlas_records(path)
+    want = set(grid.points())
+    records = [r for r in replay.records if r.point in want]
+    if not records:
+        # Grid mismatch (or a random-search atlas): score what exists
+        # rather than erroring — the atlas is the ground truth we have.
+        _note(f"no atlas records on grid {grid.name}; evaluating all "
+              f"{len(replay.records)} recorded instances", args.quiet)
+        records = replay.records
+    if not records:
+        print(f"atlas {path} holds no instances", file=sys.stderr)
+        return 2
+
+    profile = load_default_profile(backend=args.backend, dtype=dtype,
+                                   device=args.device)
+    try:
+        res = evaluate_discriminants(
+            spec, records, [n.lower() for n in names], profile=profile,
+            threshold=args.threshold, dtype_bytes=DTYPE_BYTES)
+    except ValueError as e:
+        # Record-level defect (atlas swept under a different enumeration):
+        # every row would be wrong, so the evaluation itself fails.
+        print(f"evaluation failed: {e}", file=sys.stderr)
+        return 1
+    rows = []
+    for score in res.scores.values():
+        row = score.row()
+        if score.error is not None and score.error.startswith("KeyError"):
+            # The documented partial-calibration failure mode; other
+            # errors get no hint — switching discriminants won't fix them.
+            row += " (hint: `hybrid` tolerates partial calibrations)"
+        rows.append(row)
+    if all(s.error is not None for s in res.scores.values()):
+        print("every requested discriminant failed to evaluate:",
+              file=sys.stderr)
+        for row in rows:
+            print("  " + row, file=sys.stderr)
+        return 1
+    legacy = " legacy-fingerprint" if replay.legacy else ""
+    print(f"evaluate {spec.name}/{grid.name} [{args.backend}]: "
+          f"instances={res.n_instances} anomalies={res.n_anomalies} "
+          f"profile={'cached' if profile is not None else 'analytical'}"
+          f"{legacy}")
+    for row in rows:
+        print("  " + row)
+    print(f"atlas read from {path}")
     return 0
 
 
