@@ -38,7 +38,12 @@ Each measurement is one JSON line holding the tree's ``label``:
   both methods under the launch the tree picks, beside the port's
   unfused ``ops.syrk(ops.gemm(A, B))``, and on a tree with
   ``gemm_syrk_config`` every chunk width and cluster size, back to back;
-* ``flash``: the bf16 kernel at one Yi-9B prefill layer beside SDPA.
+* ``flash``: the bf16 kernel at one Yi-9B prefill layer beside SDPA;
+* ``algorithms``: every algorithm of ``aatb`` at every point of
+  {400, 800, 1200}³ on the ``cuda`` backend (``chip_smoke.time_algorithms``):
+  its eager time, its ``time_algorithm`` time (one replayed CUDA graph on
+  a tree that times graphs) and the sum of its steps' ``ms_b2b``, with the
+  host share as the ratio of each algorithm time to that sum.
 
 ``--sections`` names the sections to time (all by default)::
 
@@ -83,7 +88,8 @@ SPLITS = (1, 2, 3, 4, 6, 8)
 #: Calls whose host time is averaged.
 HOST_CALLS = 200
 #: Sections of a timing run, in the order they run.
-SECTIONS = ("case", "gemm", "symm", "chain", "syrk", "gemm_syrk", "flash")
+SECTIONS = ("case", "gemm", "symm", "chain", "syrk", "gemm_syrk", "flash",
+            "algorithms")
 #: The chain's ``ms_b2b`` over its two GEMMs' above which a sweep shape
 #: counts as slow (the acceptance bound at the main-path shape).
 CHAIN_SLOW = 1.15
@@ -126,8 +132,8 @@ def sweep_shapes() -> dict:
     through the ``cuda`` backend's kernel vocabulary on meta tensors
     (nothing is computed): ``gemm`` as (m, k, n), ``symm`` as (m, n,
     side), ``chain_gemm`` as (m, k, l, n), ``syrk`` as (m, k) and
-    ``gemm_syrk`` as (m, k, l). The sweep launches each step 1 +
-    ``chip_smoke.REPS`` times. Shapes iterate in sorted order."""
+    ``gemm_syrk`` as (m, k, l). The sweep launches each step
+    ``chip_smoke.EXECUTIONS`` times. Shapes iterate in sorted order."""
     import torch
     from repro_torch.core.algorithms import Leaf
     from repro_torch.core.backends.base import walk_steps
@@ -248,6 +254,12 @@ def main() -> int:
             **both(torch, lambda: ops.flash_attention(q, k, v)),
             "library": both(torch, lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=True, enable_gqa=True))}))
+    if "algorithms" in sections:
+        for point in itertools.product(SWEEP_DIMS, repeat=3):
+            for row in chip_smoke.time_algorithms(torch, "aatb", point,
+                                                  label=f"[{label}] "):
+                print(json.dumps({"algorithms": "aatb", "label": label,
+                                  **row}))
     return 0
 
 
@@ -416,7 +428,14 @@ def fit_report(path: Path) -> None:
         chains = [x for x in mine if "chain" in x and "configs" in x]
         syrks = [x for x in mine if "syrk" in x and "configs_b2b" in x]
         fused = [x for x in mine if "gemm_syrk" in x and "configs_b2b" in x]
+        algos = [x for x in mine if "algorithms" in x]
         print(f"[{label}]")
+        if algos:
+            import statistics
+            print(f"algorithms: {len(algos)}, median eager/b2b "
+                  f"{statistics.median(x['eager_over_b2b'] for x in algos):.3f}"
+                  f", {algos[0]['timing']}/b2b "
+                  f"{statistics.median(x['timed_over_b2b'] for x in algos):.3f}")
         if gemms:
             print("gemm: " + _within(gemms, lambda x: x["configs_b2b"],
                                      lambda x: x["config"]))

@@ -28,8 +28,10 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
 4. run the paper's measured anomaly sweep — ``aatb`` over
    (400, 800, 1200)³, ``abcd`` over (400, 1200)⁵ and ``abab``, whose
    alg2 is the fused GEMM+SYRK, over (400, 800, 1200)³ — on the ``cuda``
-   backend into a temporary atlas, with every kernel's launch count set
-   to 0 just before and read just after (each must equal
+   backend into a temporary atlas, each algorithm timed as one replayed
+   CUDA graph, with the fast path on (operand arena, pipelined
+   preparation; it prints the ``fastpath:`` counter line), every kernel's
+   launch count set to 0 just before and read just after (each must equal
    :data:`SWEEP_LAUNCHES`); then resume it (``measured=0``);
 5. check every algorithm of all ten families against the plain ``torch``
    backend on the same operands, at one point each inside the paper's
@@ -51,9 +53,10 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
 8. over phase 4's atlases, with a temporary ``REPRO_PROFILE_DIR``:
    calibrate the ``default`` kernel grid and then each family's calls on
    the ``cuda`` backend (gemm, syrk and symm must each launch
-   1 + REPS times per timed call, nothing else), save, reload and require
-   identical predictions, and print the host's work per call against the
-   Hopper launch model; ``sweep --mode predict`` each family twice from an
+   :data:`EXECUTIONS` times per timed call, nothing else), save, reload
+   and require identical predictions, and print what a graph-timed call
+   costs beyond the Hopper launch model (``H100_SXM.kernel_overhead_s``);
+   ``sweep --mode predict`` each family twice from an
    empty cache (the second must print ``measured=0``); ``sweep --mode
    evaluate`` with all six discriminants on the calibrated table
    (``measured`` must score top-1 100 % and zero regret, ``flops`` recall
@@ -61,7 +64,16 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    and the measured / additive-model time of fused and unfused
    algorithms; Experiment 3 on aatb's records; Experiment 1 on aatb in
    the paper's box [20, 1200] (seed 0, 5 anomalies, at most 100 samples)
-   and Experiment 2's line scans (step 40) through up to 2 of them.
+   and Experiment 2's line scans (step 40) through up to 2 of them;
+9. the rest of the sweep engine: every algorithm of ``aatb`` at
+   (1200, 800, 400) timed eagerly (the walk between synchronisations),
+   as a replayed CUDA graph, and as the sum of its steps' back-to-back
+   times (the host share of each); the sweep of ``aatb`` over
+   (400, 800, 1200)³ again with ``--no-fastpath`` (the same points and
+   the same launches as phase 4's); ``--compare-backends torch,cuda``
+   over that grid; ``--mode adaptive`` on ``aatb`` in the paper's box at
+   a step of 40, unsharded and as ``--shard 0/2`` + ``--shard 1/2``,
+   merged by ``tools/atlas_merge.py`` and read back.
 
 The compiler's report must show no spills in any SYRK or GEMM+SYRK
 instance. The last two lines are the card's ``nvidia-smi`` name/power
@@ -119,12 +131,23 @@ KERNEL_SOURCES = {
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention_tc.cu",
                         "src/repro/kernels/flash_attention.py:89"),
 }
-#: Launches of each kernel in the sweep of phase 4: every kernel step of
-#: every algorithm at every point of SWEEPS (``ab_bench.sweep_shapes``
-#: walks them), each run 1 + REPS times. The served model (phase 7) runs
-#: flash_attention.
-SWEEP_LAUNCHES = {"gemm": 3656, "syrk": 648, "symm": 648, "chain_gemm": 1160,
-                  "gemm_syrk": 108}
+#: Executions of each kernel step per timed algorithm or call, on a graph
+#: memo miss (``TorchBackend._timed_callable`` and
+#: ``ExecutionBackend.time_algorithm``): one eager warm-up walk, then the
+#: capture (which executes nothing; its counts are taken back), one
+#: warm-up replay and REPS timed replays, each replay credited with the
+#: launches its capture recorded. A sweep's algorithms never hit the
+#: memo: its key holds the dims, and one point's algorithms differ in
+#: structure.
+EXECUTIONS = 2 + REPS
+#: Kernel steps of the sweep of phase 4: every kernel step of every
+#: algorithm at every point of SWEEPS (``ab_bench.sweep_shapes`` walks
+#: them; phase 4 checks its counts against these), fused pairs as one.
+SWEEP_STEPS = {"gemm": 914, "syrk": 162, "symm": 162, "chain_gemm": 290,
+               "gemm_syrk": 27}
+#: Launches of each kernel in the sweep of phase 4. The served model
+#: (phase 7) runs flash_attention.
+SWEEP_LAUNCHES = {k: n * EXECUTIONS for k, n in SWEEP_STEPS.items()}
 
 #: (rtol, atol). Element-wise |kernel - plain| <= atol + rtol·|plain|
 #: (float32 sums in another order; the chain's second contraction runs
@@ -479,39 +502,59 @@ def check_kernels(torch, np) -> dict:
 
 
 def run_sweeps(torch, atlas_dir: Path):
-    """Phase 4: the measured anomaly sweep on the ``cuda`` backend."""
+    """Phase 4: the measured anomaly sweep on the ``cuda`` backend,
+    graph-timed, with the fast path on. Returns the launches in all and
+    by family."""
     from repro_torch.core.backends import get_backend, register_torch_backends
     from repro_torch.core.expressions import GridSpec, get_spec
     from repro_torch.core.sweep import AnomalyAtlas, atlas_path, cluster_sweep, sweep
     from repro_torch.core.anomaly import region_summary
     from repro_torch.kernels import ops
 
+    import ab_bench
+
     register_torch_backends()
     runner = get_backend("cuda", reps=REPS, seed=SEED)
     fp = runner.fingerprint()
-    print(f"sweep fingerprint: {fp.to_dict()}")
+    print(f"sweep fingerprint: {fp.to_dict()}; timing {runner.timing}")
+    if runner.timing != "graph":
+        raise AssertionError("the cuda backend does not time CUDA graphs")
+    steps = ab_bench.sweep_shapes()
+    walked = {k: sum(sum(c.values()) for c in steps[k].values())
+              for k in SWEEP_STEPS}
+    if walked != SWEEP_STEPS:
+        raise AssertionError(f"the sweep walks {walked} kernel steps, not "
+                             f"{SWEEP_STEPS}")
 
     def atlas_for(spec):
         return AnomalyAtlas(atlas_path(spec.name, fp, 0.10, atlas_dir), fp,
                             spec.name, 0.10)
 
-    grids = {}
+    grids, by_family = {}, {}
     ops.reset_launch_counts()
     for name, axis in SWEEPS:
         spec = get_spec(name)
         grid = GridSpec.uniform(axis, spec.ndims, name=f"{axis}")
         grids[name] = (spec, grid)
+        before = ops.launch_counts()
         res = sweep(spec, grid.points(), runner=runner, atlas=atlas_for(spec))
+        after = ops.launch_counts()
+        by_family[name] = {k: after[k] - before[k] for k in after}
         n_algos = len(spec.algorithms(grid.points()[0]))
         print(f"sweep {spec.name} over {axis}^{spec.ndims}: points="
               f"{res.n_points} x {n_algos} algorithms measured="
               f"{res.n_measured} skipped={res.n_skipped} anomalies="
               f"{len(res.anomalies)} ({res.anomaly_rate:.1%}) in "
               f"{res.wall_s:.1f}s")
+        print(f"fastpath: {res.fastpath.summary()}")
         print(region_summary(cluster_sweep(res.records, grid), res.n_points))
         if res.n_points != grid.n_points or res.n_measured != grid.n_points:
             raise AssertionError(f"{name}: sweep measured {res.n_measured} of "
                                  f"{grid.n_points} points")
+        if res.fastpath.memo_hits or res.fastpath.memo_misses != \
+                res.n_measured * n_algos:
+            raise AssertionError(f"{name}: graph memo {res.fastpath.summary()}"
+                                 f", not one capture per algorithm")
         for r in res.records:
             if not all(t > 0 and t == t for t in r.times.values()) or \
                     len(r.times) != n_algos:
@@ -532,7 +575,7 @@ def run_sweeps(torch, atlas_dir: Path):
               f"skipped={again.n_skipped}")
         if again.n_measured != 0:
             raise AssertionError(f"{name}: resumed sweep re-measured points")
-    return launches
+    return launches, by_family
 
 
 def _agree(torch, label: str, got, want) -> None:
@@ -914,9 +957,9 @@ def fused_pairs(alg) -> int:
     return n
 
 
-def run_cli(main, argv) -> str:
-    """Run a CLI ``main`` in this process; its standard output, printed
-    and returned. A non-zero exit raises."""
+def run_cli(main, argv, ok=(0,)):
+    """Run a CLI ``main`` in this process: its standard output, printed,
+    and its exit code. An exit code outside ``ok`` raises."""
     import contextlib
     import io
 
@@ -925,9 +968,9 @@ def run_cli(main, argv) -> str:
         rc = main(argv)
     text = out.getvalue()
     print(text, end="")
-    if rc != 0:
+    if rc not in ok:
         raise AssertionError(f"{argv} exited {rc}")
-    return text
+    return text, rc
 
 
 def calibrate_predict_evaluate(atlas_dir: Path) -> dict:
@@ -980,7 +1023,7 @@ def calibrate_predict_evaluate(atlas_dir: Path) -> dict:
     got = ops.launch_counts()
     launches.update(got)
     want = dict.fromkeys(got, 0) | {
-        k: timed[k] * (1 + REPS) for k in ("gemm", "syrk", "symm")}
+        k: timed[k] * EXECUTIONS for k in ("gemm", "syrk", "symm")}
     print(f"calibrate: {sum(timed.values())} timed calls in {wall:.2f}s; "
           f"launches {got}")
     if got != want:
@@ -993,8 +1036,10 @@ def calibrate_predict_evaluate(atlas_dir: Path) -> dict:
             calibrated.time(c) != res.profile.time(c) for c in queries):
         raise AssertionError("the saved profile predicts other times")
 
-    # The host's work per call: calibrated time minus the launch model's,
-    # over the paper-scale calls the families make (dims 400-1200).
+    # What a graph-timed call costs beyond the launch model (one replay's
+    # launch and the synchronise, plus the model's error): calibrated time
+    # minus the model's launch time, over the paper-scale calls the
+    # families make (dims 400-1200). It sets H100_SXM.kernel_overhead_s.
     hopper = AnalyticalHopperProfile()
     for kind in ("gemm", "syrk", "symm"):
         calls = {c for cs in family_calls.values() for c in cs
@@ -1016,7 +1061,7 @@ def calibrate_predict_evaluate(atlas_dir: Path) -> dict:
                 c.kind for c in dict.fromkeys(family_calls[name])
                 if before is None or c not in before)
             ops.reset_launch_counts()
-            text = run_cli(sweep_mod.main, [
+            text, _ = run_cli(sweep_mod.main, [
                 "--expr", name, "--grid", grid_of[name], "--mode",
                 "predict", "--reps", str(REPS), "--seed", str(SEED),
                 "--device", DEVICE, "--atlas-dir", str(atlas_dir),
@@ -1024,7 +1069,7 @@ def calibrate_predict_evaluate(atlas_dir: Path) -> dict:
             got = ops.launch_counts()
             launches.update(got)
             want = dict.fromkeys(got, 0) | {
-                k: new[k] * (1 + REPS) for k in ("gemm", "syrk", "symm")}
+                k: new[k] * EXECUTIONS for k in ("gemm", "syrk", "symm")}
             m = re.search(r"measured=(\d+)", text)
             if got != want or int(m.group(1)) != sum(new.values()) or \
                     "vs atlas ground truth" not in text:
@@ -1131,6 +1176,237 @@ def calibrate_predict_evaluate(atlas_dir: Path) -> dict:
     return {"launches": dict(launches), "scores": scores}
 
 
+#: Phase 9: the point whose algorithms are timed three ways, and the
+#: repetitions of each timing.
+TIMING_POINT = ("aatb", (1200, 800, 400))
+TIMING_REPS = 20
+#: The walker's step operations a walk is recorded by.
+STEP_OPS = ("gemm", "syrk", "symm", "symm_r", "tri2full", "chain_gemm",
+            "gemm_syrk")
+#: Phase 9's adaptive sweep: aatb in the paper's Experiment 1 box
+#: [20, 1200] at a step of 40 (30³ = 27,000 grid points), a seed lattice
+#: of every 8th index (5³ = 125 points) and a budget of 2,000 points (7.4 %
+#: of the dense grid; 400 took 9.4 s on the card, PERF.md section 6).
+ADAPTIVE_AXIS = tuple(range(40, 1201, 40))
+ADAPTIVE_STRIDE = 8
+ADAPTIVE_BUDGET = 2000
+
+
+def step_calls(runner, alg, operands):
+    """(name, op, arguments) of every step op one walk of ``alg`` makes on
+    the runner's kernel vocabulary, a fused pair as one."""
+    from repro_torch.core.backends import walk_steps
+
+    inner = runner.ops()
+    calls = []
+
+    class Recorder:
+        def __getattr__(self, name):
+            fn = getattr(inner, name)
+            if name not in STEP_OPS:
+                return fn
+
+            def record(*args):
+                calls.append((name, fn, args))
+                return fn(*args)
+
+            return record
+
+    walk_steps(alg.steps, operands.__getitem__, Recorder())
+    return calls
+
+
+def eager_seconds(torch, runner, alg, operands, reps: int) -> float:
+    """Median seconds of the eager walk under ``time_algorithm``'s own
+    protocol (a warm-up; then synchronise, clock, walk, synchronise,
+    clock): how every algorithm was timed before graph replay."""
+    import statistics
+
+    def sync():
+        if DEVICE == "cuda":
+            torch.cuda.synchronize()
+
+    runner.execute(alg, operands)
+    ts = []
+    for _ in range(reps):
+        sync()
+        t0 = time.perf_counter()
+        runner.execute(alg, operands)
+        sync()
+        ts.append(time.perf_counter() - t0)
+    return statistics.median(ts)
+
+
+def time_algorithms(torch, family: str, point, reps: int = TIMING_REPS,
+                    label: str = "") -> list:
+    """Every algorithm of ``family`` at ``point`` on the ``cuda`` backend:
+    its eager time, its ``time_algorithm`` time (a replayed CUDA graph on
+    a tree with graph timing) and the sum of its steps' back-to-back
+    times (``ms_b2b``), with the ratio of each algorithm time to that sum
+    (the host's share shows above 1). Where the tree times graphs, the
+    replay's result is held against the eager walk's: bitwise, or for an
+    algorithm with a fused kernel that adds with atomics, within the
+    algorithm tolerance of phase 5."""
+    from repro_torch.core.backends import get_backend, register_torch_backends
+    from repro_torch.core.expressions import get_spec
+
+    register_torch_backends()
+    runner = get_backend("cuda", reps=reps, seed=SEED, device=DEVICE)
+    timing = getattr(runner, "timing", "eager")
+    algos = get_spec(family).algorithms(point)
+    operands = {}
+    for alg in algos:
+        for base, buf in runner.make_operands(alg).items():
+            operands.setdefault(base, buf)
+    rows = []
+    for alg in algos:
+        eager_ms = eager_seconds(torch, runner, alg, operands, reps) * 1e3
+        timed_ms = runner.time_algorithm(alg, operands) * 1e3
+        calls = step_calls(runner, alg, operands)
+        if timing == "graph":
+            replayed = runner._timed_callable(alg, operands)().clone()
+            walked = runner.execute(alg, operands)
+            if any(n in ("chain_gemm", "gemm_syrk") for n, _, _ in calls):
+                _agree(torch, f"{family}{point} {alg.name} replay vs eager",
+                       replayed, walked)
+            elif not torch.equal(replayed, walked):
+                raise AssertionError(f"{family}{point} {alg.name}: the "
+                                     f"replayed graph differs from the "
+                                     f"eager walk")
+        steps = [(name, time_ms(torch, lambda f=fn, a=args: f(*a), inner=10))
+                 for name, fn, args in calls]
+        b2b = sum(ms for _, ms in steps)
+        row = {"algorithm": alg.name, "point": list(point), "timing": timing,
+               "eager_ms": eager_ms, "timed_ms": timed_ms,
+               "b2b_sum_ms": b2b, "eager_over_b2b": eager_ms / b2b,
+               "timed_over_b2b": timed_ms / b2b,
+               "steps": [[n, ms] for n, ms in steps]}
+        print(f"{label}{family}{point} {alg.name}: eager_ms={eager_ms:.4f} "
+              f"{timing}_ms={timed_ms:.4f} b2b_sum_ms={b2b:.4f} (" +
+              ", ".join(f"{n} {ms:.4f}" for n, ms in steps) +
+              f"); eager/b2b={eager_ms / b2b:.3f} "
+              f"{timing}/b2b={timed_ms / b2b:.3f}")
+        rows.append(row)
+    return rows
+
+
+def _atlas_merge():
+    """``tools/atlas_merge.py`` (standard library only), loaded by path."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "atlas_merge", ROOT / "tools" / "atlas_merge.py")
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules["atlas_merge"] = mod   # its dataclasses look the module up
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def sweep_engine(torch, atlas_dir: Path, phase4: dict) -> None:
+    """Phase 9: graph vs eager timing, the sweep without the fast path,
+    --compare-backends and the adaptive sweep, sharded and merged."""
+    from repro_torch.core import sweep as sweep_mod
+    from repro_torch.kernels import ops
+
+    time_algorithms(torch, *TIMING_POINT)
+
+    grid = ",".join(map(str, dict(SWEEPS)["aatb"]))
+    common = ["--expr", "aatb", "--reps", str(REPS), "--seed", str(SEED),
+              "--device", DEVICE, "--quiet"]
+
+    def atlas_of(text: str) -> Path:
+        return Path(re.findall(r"atlas written to (\S+)", text)[-1])
+
+    # The sweep without the fast path: the same points, the same launches.
+    ops.reset_launch_counts()
+    text, _ = run_cli(sweep_mod.main, common + [
+        "--grid", grid, "--no-fastpath",
+        "--atlas-dir", str(atlas_dir / "no-fastpath")])
+    os.environ.pop(sweep_mod.FASTPATH_ENV, None)
+    got = ops.launch_counts()
+    slow = {r.point for r in _read_atlas(atlas_of(text))}
+    fast = {r.point for r in _read_atlas(next(
+        atlas_dir.glob("atlas-aatb-*.jsonl")))}
+    print(f"no-fastpath aatb: {len(slow)} points, launches {got}")
+    if "fastpath:" in text or slow != fast or got != phase4["aatb"]:
+        raise AssertionError(f"--no-fastpath recorded {len(slow)} points and "
+                             f"launched {got}; the fast path "
+                             f"{len(fast)} and {phase4['aatb']}")
+
+    # Both backends over the grid.
+    ops.reset_launch_counts()
+    text, _ = run_cli(sweep_mod.main, common + [
+        "--grid", grid, "--compare-backends", "torch,cuda",
+        "--atlas-dir", str(atlas_dir / "compare")])
+    got = ops.launch_counts()
+    m = re.search(r"fastest-differs=(\d+)", text)
+    print(f"compare-backends launches {got}")
+    if m is None or got != phase4["aatb"]:
+        raise AssertionError(f"--compare-backends launched {got}, not "
+                             f"{phase4['aatb']}")
+
+    # The adaptive sweep in the paper's box, unsharded, then two shards.
+    adaptive = common + [
+        "--grid", ",".join(map(str, ADAPTIVE_AXIS)), "--mode", "adaptive",
+        "--budget", str(ADAPTIVE_BUDGET), "--seed-stride",
+        str(ADAPTIVE_STRIDE)]
+    t0 = time.perf_counter()
+    whole, _ = run_cli(sweep_mod.main, adaptive + [
+        "--atlas-dir", str(atlas_dir / "adaptive")])
+    whole_s = time.perf_counter() - t0
+    shard_dir = atlas_dir / "adaptive-shards"
+    t0 = time.perf_counter()
+    for attempt in range(20):
+        rcs = [run_cli(sweep_mod.main, adaptive + [
+            "--shard", f"{k}/2", "--atlas-dir", str(shard_dir)],
+            ok=(0, 3))[1] for k in (0, 1)]
+        if rcs == [0, 0]:
+            break
+    else:
+        raise AssertionError("the two shards did not finish in 20 rounds")
+    shards_s = time.perf_counter() - t0
+    paths = sorted(shard_dir.glob("atlas-aatb-*-shard*.jsonl"))
+    merge = _atlas_merge()
+    merged_path = shard_dir / "merged.jsonl"
+    report = merge.merge_shards(paths, merged_path)
+    print(report.summary())
+    head = json.loads(merged_path.read_text().splitlines()[0])
+    merged = _read_atlas(merged_path)
+    parts = [{r.point for r in _read_atlas(p, shard=(k, 2))}
+             for k, p in enumerate(paths)]
+    spent = int(re.search(r"spent=(\d+)", whole).group(1))
+    whole_records = _read_atlas(atlas_of(whole))
+    if DEVICE == "cuda":
+        print(f"device memory: peak reserved "
+              f"{torch.cuda.max_memory_reserved() / 2 ** 30:.2f} GiB, now "
+              f"{torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB")
+    print(f"adaptive aatb in [20, 1200] step 40: unsharded spent {spent} in "
+          f"{whole_s:.1f}s, {sum(r.cls.is_anomaly for r in whole_records)} "
+          f"anomalies; sharded {len(parts[0])} + {len(parts[1])} points in "
+          f"{shards_s:.1f}s over {attempt + 1} lockstep rounds, merged "
+          f"{len(merged)} ({sum(r.cls.is_anomaly for r in merged)} anomalies), "
+          f"header timing={head.get('timing')!r} shard={head.get('shard')}")
+    if len(paths) != 2 or parts[0] & parts[1] or \
+            {r.point for r in merged} != parts[0] | parts[1] or \
+            report.n_duplicates or not 0 < len(merged) <= ADAPTIVE_BUDGET \
+            or head.get("timing") != ("graph" if DEVICE == "cuda" else
+                                      "eager") or "shard" in head:
+        raise AssertionError("the merged shards are not the union of two "
+                             "disjoint graph-timed shard atlases")
+
+
+def _read_atlas(path: Path, shard=None) -> list:
+    """The records of the ``cuda`` backend's atlas at ``path``, opened as
+    a resume would open it (its header must match this process)."""
+    from repro_torch.core.fingerprint import HardwareFingerprint
+    from repro_torch.core.sweep import AnomalyAtlas
+
+    head = json.loads(path.read_text().splitlines()[0])
+    fp = HardwareFingerprint.from_dict(head["fingerprint"])
+    return AnomalyAtlas(path, fp, head["spec"], head["threshold"],
+                        shard=shard).records()
+
+
 def print_ptxas_report(log: Path) -> dict:
     """Registers, shared memory and spills per kernel (``-Xptxas=-v``);
     the flash kernels' instantiations are named by type and head_dim, the
@@ -1170,6 +1446,15 @@ def print_ptxas_report(log: Path) -> dict:
     return spills
 
 
+def release(torch) -> None:
+    """Hand the memory of the last phase's backends and graphs back to the
+    card (a released graph's pool is freed only by ``empty_cache``)."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1203,12 +1488,16 @@ def main() -> int:
     time_symm_chain_configs(torch, np)
     time_syrk_gemm_syrk_configs(torch, np)
     with tempfile.TemporaryDirectory(prefix="chip-smoke-atlas-") as d:
-        launches = run_sweeps(torch, Path(d))
+        launches, by_family = run_sweeps(torch, Path(d))
+        release(torch)
         check_algorithms(torch)
         results["flash_attention"] = check_flash(torch, np)
         served = serve_model(torch, np)
         launches["flash_attention"] = served["launches"]["flash_attention"]
+        release(torch)
         predicted = calibrate_predict_evaluate(Path(d))
+        release(torch)
+        sweep_engine(torch, Path(d), by_family)
 
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():

@@ -4,9 +4,12 @@
 from .base import (
     ExecutionBackend,
     KernelOps,
+    backend_default_dtype,
+    backend_shard_mode,
     fusable_pattern,
     get_backend,
     get_backend_class,
+    make_backend,
     num_inputs,
     operands_from_numpy,
     register_backend,
@@ -20,13 +23,17 @@ from .torch_backend import (
     CudaOps,
     TorchBackend,
     TorchOps,
+    fusion_enabled,
     register_torch_backends,
+    timing_mode,
 )
 
 __all__ = [
     "CudaBackend", "CudaOps", "ExecutionBackend", "KernelOps",
-    "TorchBackend", "TorchOps", "fusable_pattern", "get_backend",
-    "get_backend_class", "num_inputs", "operands_from_numpy",
-    "register_backend", "register_torch_backends", "registered_backends",
-    "synthetic_algorithm", "synthetic_fused_algorithm", "walk_steps",
+    "TorchBackend", "TorchOps", "backend_default_dtype",
+    "backend_shard_mode", "fusable_pattern", "fusion_enabled",
+    "get_backend", "get_backend_class", "make_backend", "num_inputs",
+    "operands_from_numpy", "register_backend", "register_torch_backends",
+    "registered_backends", "synthetic_algorithm",
+    "synthetic_fused_algorithm", "timing_mode", "walk_steps",
 ]

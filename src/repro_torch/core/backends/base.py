@@ -16,14 +16,16 @@ interface:
 * :class:`ExecutionBackend` — ``make_operands`` / ``execute`` /
   ``build`` / ``time_algorithm`` / ``benchmark_call``, implemented
   generically on the walker; backends override operand placement
-  (``_asarray``) and device synchronisation (``_sync``).
-* :func:`register_backend` / :func:`get_backend` /
+  (``_asarray``), per-repetition setup (``_pre_rep``), device
+  synchronisation (``_sync``) and what is timed (``_timed_callable``).
+* :func:`register_backend` / :func:`get_backend` / :func:`make_backend` /
   :func:`registered_backends` — the registry the sweep resolves backends
   through. The key doubles as the fingerprint ``backend`` string.
 """
 
 from __future__ import annotations
 
+import inspect
 import time
 from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
@@ -276,15 +278,23 @@ class ExecutionBackend:
     """Base class + protocol for one way of executing algorithms.
 
     Subclasses set ``name`` (the registry key — also the fingerprint
-    ``backend`` string), ``default_dtype`` and ``dtypes``, then override
-    ``ops()`` and, where operands live on a device, ``_asarray`` and
-    ``_sync``.
+    ``backend`` string), ``default_dtype``, ``dtypes`` and ``shard_mode``
+    (``"process"`` for backends the sweep engine fans out over worker
+    processes, ``"device"`` for backends it fans out one process per
+    card), then override the hooks they need:
+
+    * ``ops()``             — the :class:`KernelOps` (required);
+    * ``_asarray(a)``       — dtype/device placement of operands;
+    * ``_pre_rep()``        — per-repetition setup before the clock starts;
+    * ``_sync(out)``        — block until ``out`` is computed;
+    * ``_timed_callable()`` — what ``time_algorithm`` times.
     """
 
     name: str = "abstract"
     default_dtype: str = "float32"
     #: Allowed dtype labels; ``None`` means any.
     dtypes: Optional[Tuple[str, ...]] = None
+    shard_mode: str = "process"
 
     def __init__(self, reps: int = 3, dtype: Optional[str] = None,
                  rng: Optional[np.random.Generator] = None,
@@ -311,10 +321,24 @@ class ExecutionBackend:
         """Place one freshly synthesized operand (dtype/device)."""
         return a
 
-    def _sync(self) -> None:
-        """Block until all work queued on the backend's device is done."""
+    def _pre_rep(self) -> None:
+        """Per-repetition setup before the clock starts."""
+
+    def _sync(self, out):
+        """Block until ``out`` is computed on the backend's device."""
+        return out
+
+    def _timed_callable(self, alg: Algorithm, operands: Dict[int, object]
+                        ) -> Callable[[], object]:
+        """The zero-argument callable ``time_algorithm`` times per
+        repetition: here the eager walk."""
+        return lambda: self.execute(alg, operands)
 
     # -- the protocol ------------------------------------------------------
+    def fingerprint_tags(self) -> Tuple[str, str]:
+        """(backend, dtype) labels profiles and atlases are keyed by."""
+        return (self.name, self.dtype)
+
     def make_operands(self, alg: Algorithm) -> Dict[int, object]:
         """Fresh random inputs for every distinct leaf *base* of ``alg``."""
         out: Dict[int, object] = {}
@@ -324,14 +348,12 @@ class ExecutionBackend:
                     out[ref.base] = self.make_leaf_operand(ref)
         return out
 
-    def make_leaf_operand(self, ref: Leaf) -> object:
-        """One leaf's operand buffer (untransposed, symmetrized, placed).
-
-        Draws float64 normals from ``default_rng((seed, base, r, c))``
-        (or the backend's ``rng`` without a seed), symmetrizes symmetric
-        leaves, then hands the array to ``_asarray`` — bit for bit what
-        the reference package's backends draw.
-        """
+    def synthesize_leaf(self, ref: Leaf) -> np.ndarray:
+        """One leaf's operand on the host, before placement: float64
+        normals from ``default_rng((seed, base, r, c))`` (or the backend's
+        ``rng`` without a seed), symmetrized for symmetric leaves — bit
+        for bit what the reference package's backends draw. It touches no
+        device, so a helper thread may call it while the card is timed."""
         r, c = (ref.cols, ref.rows) if ref.transposed else (
             ref.rows, ref.cols)
         rng = self.rng if self.seed is None else np.random.default_rng(
@@ -339,7 +361,12 @@ class ExecutionBackend:
         a = rng.standard_normal((r, c))
         if ref.symmetric:
             a = (a + np.swapaxes(a, -1, -2)) / 2.0
-        return self._asarray(a)
+        return a
+
+    def make_leaf_operand(self, ref: Leaf) -> object:
+        """One leaf's operand buffer (untransposed, symmetrized, placed):
+        :meth:`synthesize_leaf` handed to ``_asarray``."""
+        return self._asarray(self.synthesize_leaf(ref))
 
     def execute(self, alg: Algorithm, operands: Dict[int, object]):
         """Evaluate ``alg`` on base-indexed operands via the one walker."""
@@ -361,26 +388,29 @@ class ExecutionBackend:
                        reps: Optional[int] = None) -> float:
         """Median-of-reps wall seconds, warm-up excluded.
 
-        The device is synchronised before the clock is read at both ends
-        of every repetition, so the time is that of the work itself and
-        not of its enqueueing (the reference's ``block_until_ready``).
+        ``_timed_callable`` gives what is timed; one call of it warms up,
+        then each repetition runs ``_pre_rep`` before the clock starts and
+        ``_sync`` before it stops, so the time is that of the work itself
+        and not of its enqueueing (the reference's ``block_until_ready``).
         """
         if operands is None:
             operands = self.make_operands(alg)
         reps = self.reps if reps is None else reps
-        self.execute(alg, operands)  # warm-up: kernel build / page-in
+        fn = self._timed_callable(alg, operands)
+        self._sync(fn())  # warm-up
         ts: List[float] = []
         for _ in range(reps):
-            self._sync()
+            self._pre_rep()
             t0 = time.perf_counter()
-            self.execute(alg, operands)
-            self._sync()
+            self._sync(fn())
             ts.append(time.perf_counter() - t0)
         return float(np.median(ts))
 
     def benchmark_call(self, call: KernelCall,
                        reps: Optional[int] = None) -> float:
-        """Time one kernel call in isolation (synthetic one-step algorithm)."""
+        """Time one kernel call in isolation (synthetic one-step algorithm)
+        — ``time_algorithm`` on :func:`synthetic_algorithm`, so the same
+        protocol by construction."""
         return self.time_algorithm(synthetic_algorithm(call), reps=reps)
 
 
@@ -418,5 +448,35 @@ def get_backend(name: str, **options) -> ExecutionBackend:
     return get_backend_class(name)(**options)
 
 
+def make_backend(name: str, **options) -> ExecutionBackend:
+    """CLI-lenient :func:`get_backend`: drops options the backend lacks.
+
+    Generic front ends pass one option superset (``reps``,
+    ``flush_cache``, ``dtype``, ``device``, ``seed``) and each backend
+    takes what its constructor declares: ``--no-flush`` reaches no device
+    backend, as in the reference. Module-level, so a
+    ``functools.partial`` of it pickles into worker processes.
+    """
+    cls = get_backend_class(name)
+    try:
+        params = inspect.signature(cls).parameters
+    except (TypeError, ValueError):  # pragma: no cover - exotic factory
+        return cls(**options)
+    if not any(p.kind is inspect.Parameter.VAR_KEYWORD
+               for p in params.values()):
+        options = {k: v for k, v in options.items() if k in params}
+    return cls(**options)
+
+
 def registered_backends() -> List[str]:
     return sorted(_REGISTRY)
+
+
+def backend_default_dtype(name: str) -> str:
+    """Default fingerprint dtype of a registered backend."""
+    return getattr(get_backend_class(name), "default_dtype", "float32")
+
+
+def backend_shard_mode(name: str) -> str:
+    """How the sweep engine fans this backend out: process | device."""
+    return getattr(get_backend_class(name), "shard_mode", "process")

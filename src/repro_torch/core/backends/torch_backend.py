@@ -13,21 +13,50 @@ product would be a different result under that label. The default device
 is ``cuda``; without a card, constructing a backend without
 ``device="cpu"`` raises rather than quietly measuring the CPU.
 Registration is the explicit call :func:`register_torch_backends`.
+
+On a card, ``time_algorithm`` times one captured CUDA graph of the
+algorithm's walk, replayed: the counterpart of the reference's memo of
+one jitted program per algorithm (``JaxBackend._jitted``). The host's
+per-step work (the wrappers, the launch rules, allocation) stays out of
+the measured quantity, as the reference keeps its Python out of a jitted
+program. On the CPU the eager walk is timed.
 """
 
 from __future__ import annotations
 
+import collections
+import dataclasses
 import os
-from typing import Optional
+from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ...kernels import ops as kops
 from ...kernels import ref
+from ..algorithms import Algorithm, Leaf
+from ..arena import algorithm_structural_key
 from ..fingerprint import HardwareFingerprint, device_label
 from .base import (ExecutionBackend, KernelOps, register_backend,
                    registered_backends)
+
+#: Bound on the graphs one backend keeps, in count: the reference's
+#: executable memo cap (``EXEC_MEMO_MAX``).
+GRAPH_MEMO_MAX = 512
+#: ... and in bytes of their private memory pools. A graph of one of the
+#: paper's algorithms at dims <= 1200 holds one pool of the allocator's
+#: 20 MB segments (tens of MB), so a family's sweep keeps a few hundred
+#: graphs; 8 GiB is a tenth of the card's 80 GB and leaves the rest to
+#: the operands, the kernels' outputs and a served model (Yi-9B: 17.7 GB)
+#: in the same process.
+GRAPH_MEMO_BYTES = 8 << 30
+
+
+def timing_mode(device: str) -> str:
+    """What ``time_algorithm`` times on a device (a fingerprint's device
+    label): ``"graph"``, one captured CUDA graph replayed, on a card;
+    ``"eager"``, the walk itself, on the CPU."""
+    return "eager" if device == "cpu" else "graph"
 
 
 def fusion_enabled() -> bool:
@@ -97,12 +126,25 @@ class CudaOps(TorchOps):
         return kops.gemm_syrk(a, b)
 
 
+@dataclasses.dataclass
+class CapturedWalk:
+    """One algorithm's walk captured on a card: the graph, its output
+    (in the graph's private pool, rewritten by each replay), the kernel
+    launches one replay makes, and the bytes its pool reserved."""
+
+    graph: "torch.cuda.CUDAGraph"
+    out: torch.Tensor
+    launches: Mapping[str, int]
+    nbytes: int
+
+
 class TorchBackend(ExecutionBackend):
     """Execute and time algorithms with plain ATen on one device."""
 
     name = "torch"
     default_dtype = "float32"
     dtypes = ("float32",)
+    shard_mode = "device"
 
     def __init__(self, device="cuda", reps: int = 3,
                  dtype: Optional[str] = None,
@@ -119,6 +161,15 @@ class TorchBackend(ExecutionBackend):
                              f"{self.device}")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        self.timing = timing_mode(device_label(self.device))
+        # Graph memo: (structure, dims, inputs, generation) -> captured
+        # walk, least recently used first.
+        self._graphs: "collections.OrderedDict[Tuple, CapturedWalk]" = (
+            collections.OrderedDict())
+        self._graph_bytes = 0
+        self._capture_stream: Optional[torch.cuda.Stream] = None
+        self.memo_hits = 0
+        self.memo_misses = 0
 
     def ops(self) -> KernelOps:
         return TorchOps()
@@ -127,14 +178,119 @@ class TorchBackend(ExecutionBackend):
         # Round to float32 on the host, exactly as numpy/JAX do, then move.
         return torch.from_numpy(a).to(torch.float32).to(self.device)
 
-    def _sync(self) -> None:
+    def _pre_rep(self) -> None:
+        # The clock starts on an idle card.
+        self._sync(None)
+
+    def _sync(self, out):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        return out
 
     def fingerprint(self) -> HardwareFingerprint:
         """What this backend's measurements are valid for."""
         return HardwareFingerprint(self.name, device_label(self.device),
                                    self.dtype)
+
+    # -- graph timing ------------------------------------------------------
+    def _memo_generation(self) -> Tuple:
+        """What a captured walk bakes in beyond its structure and inputs:
+        the fused patterns dispatched, so flipping ``REPRO_NO_FUSION``
+        mid-process never replays a stale graph (the reference folds the
+        same switch into its memo key)."""
+        return tuple(sorted(self.ops().fused_kinds()))
+
+    def _timed_callable(self, alg: Algorithm, operands: Dict[int, object]
+                        ) -> Callable[[], object]:
+        """On a card, a replay of the algorithm's captured walk; on the
+        CPU, the eager walk.
+
+        A graph bakes in its inputs' addresses and every shape, so the
+        memo key is the algorithm's structure, its calls' dims, each input's
+        pointer, shape and strides, and :meth:`_memo_generation`. On a miss
+        the walk runs once eagerly (building the kernels and setting their
+        attributes), then is captured; ``time_algorithm`` then warms up
+        with one replay and times ``reps`` more. A capture that fails
+        raises: there is no eager fallback.
+        """
+        if self.timing == "eager":
+            return super()._timed_callable(alg, operands)
+        entry = self._graph(alg, operands)
+        graph, credit, out = entry.graph, entry.launches, entry.out
+
+        def replay():
+            graph.replay()
+            kops.add_launches(credit)
+            return out
+
+        return replay
+
+    def _graph(self, alg: Algorithm,
+               operands: Dict[int, object]) -> CapturedWalk:
+        bases = sorted({ref.base for step in alg.steps
+                        for ref in (step.lhs, step.rhs)
+                        if isinstance(ref, Leaf) and ref.base in operands})
+        key = (algorithm_structural_key(alg),
+               tuple(call.dims for call in alg.calls),
+               tuple((b, operands[b].data_ptr(), tuple(operands[b].shape),
+                      operands[b].stride()) for b in bases),
+               self._memo_generation())
+        entry = self._graphs.get(key)
+        if entry is not None:
+            self.memo_hits += 1
+            self._graphs.move_to_end(key)
+            return entry
+        self.memo_misses += 1
+        entry = self._capture(alg, operands)
+        self._graphs[key] = entry
+        self._graph_bytes += entry.nbytes
+        if len(self._graphs) > GRAPH_MEMO_MAX or \
+                self._graph_bytes > GRAPH_MEMO_BYTES:
+            # Evict the least recently used quarter at once, then hand
+            # their pools back: a released graph's pool is freed only by
+            # empty_cache (or when an allocation fails, which inside a
+            # later capture would invalidate it).
+            while len(self._graphs) > 1 and (
+                    len(self._graphs) > GRAPH_MEMO_MAX * 3 // 4
+                    or self._graph_bytes > GRAPH_MEMO_BYTES * 3 // 4):
+                self._graph_bytes -= self._graphs.popitem(
+                    last=False)[1].nbytes
+            torch.cuda.empty_cache()
+        return entry
+
+    def _capture(self, alg: Algorithm,
+                 operands: Dict[int, object]) -> CapturedWalk:
+        """Run the walk once eagerly, then capture it into a graph of its
+        own (with a private memory pool), on a side stream ordered after
+        the work already queued on the current one."""
+        if self._capture_stream is None:
+            self._capture_stream = torch.cuda.Stream(self.device)
+        stream = self._capture_stream
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.device(self.device), torch.cuda.stream(stream):
+            self.execute(alg, operands)
+            before = kops.launch_counts()
+            reserved = torch.cuda.memory_reserved(self.device)
+            graph = torch.cuda.CUDAGraph()
+            graph.capture_begin(capture_error_mode="global")
+            try:
+                out = self.execute(alg, operands)
+            except BaseException:
+                try:
+                    graph.capture_end()
+                except RuntimeError:
+                    pass  # the capture is already invalid; report the cause
+                raise
+            graph.capture_end()
+            nbytes = max(0, torch.cuda.memory_reserved(self.device)
+                         - reserved)
+        torch.cuda.current_stream(self.device).wait_stream(stream)
+        after = kops.launch_counts()
+        launches = {k: after[k] - before[k] for k in after
+                    if after[k] != before[k]}
+        # The capture executed nothing: take its counts back.
+        kops.add_launches({k: -n for k, n in launches.items()})
+        return CapturedWalk(graph, out, launches, nbytes)
 
 
 class CudaBackend(TorchBackend):

@@ -86,12 +86,14 @@ HOST_CPU = HardwareSpec(
 # products run on the CUDA cores), 3.35 TB/s HBM3, NVLink 4 at 900 GB/s
 # over 18 links; 228 KB of shared memory per SM (the kernels' on-chip
 # scratch); 128 is the edge of the kernels' largest block tile. The
-# per-call overhead is the host's work around one kernel call as
-# ``ExecutionBackend.benchmark_call`` times it (wrapper, launch,
-# synchronise, clock reads): the median of (calibrated gemm time - the
-# launch model's time) over the 27 gemm calls of the paper-scale grids
-# (dims 400, 800, 1200) that ``chip_smoke.py`` calibrates, 48.1 us on an
-# NVIDIA H100 80GB HBM3 at a 700 W power limit (PERF.md, section 6).
+# per-call overhead is what one kernel call costs beyond the launch model
+# as ``ExecutionBackend.benchmark_call`` times it on a card (one replay of
+# the call's captured CUDA graph, the synchronise, the clock reads): the
+# median of (calibrated gemm time - the launch model's time) over the 27
+# gemm calls of the paper-scale grids (dims 400, 800, 1200) that
+# ``chip_smoke.py`` phase 8 calibrates, 12.2 us on an NVIDIA H100 80GB
+# HBM3 at a 700 W power limit (PERF.md, section 6; 48.1 us while each
+# call was timed as the eager walk).
 H100_SXM = HardwareSpec(
     name="h100_sxm",
     peak_flops=67e12,
@@ -99,7 +101,7 @@ H100_SXM = HardwareSpec(
     link_bw=50e9,
     vmem_bytes=228 * 1024,
     mxu_dim=128,
-    kernel_overhead_s=4.8e-5,
+    kernel_overhead_s=1.22e-5,
 )
 
 

@@ -16,7 +16,7 @@ and stays a plain tensor op on either device, as in the reference.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Mapping, Optional
 
 import torch
 
@@ -43,6 +43,19 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for mod in KERNELS.values():
         mod.launches = 0
+
+
+def add_launches(counts: Mapping[str, int]) -> None:
+    """Add ``counts`` to the kernels' launch counters.
+
+    The wrappers count a launch where they make it. A replayed CUDA graph
+    runs no Python, and a capture executes nothing, so the graph timing of
+    :mod:`repro_torch.core.backends.torch_backend` takes back what its
+    capture counted and credits each replay with it: the counters stay
+    the number of kernel executions on the card.
+    """
+    for name, n in counts.items():
+        KERNELS[name].launches += n
 
 
 def _on_card(kernel: str, t: torch.Tensor) -> bool:

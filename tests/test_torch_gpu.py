@@ -430,6 +430,164 @@ def test_abab_alg2_without_fusion_launches_gemm_and_syrk(cuda, monkeypatch):
                                    "flash_attention": 0}
 
 
+#: Families and points of the graph-timing tests: every kernel of the
+#: sweep runs in one of their algorithms (abab's alg2 is gemm_syrk).
+GRAPH_POINTS = [("aatb", (300, 200, 100)), ("abcd", (100, 300, 200, 150, 50)),
+                ("abab", (300, 100, 200))]
+
+
+def _step_launches(backend, alg, operands):
+    """Kernel launches of one eager walk of ``alg``."""
+    ops.reset_launch_counts()
+    backend.execute(alg, operands)
+    torch.cuda.synchronize()
+    return {k: v for k, v in ops.launch_counts().items() if v}
+
+
+@pytest.mark.parametrize("name,point", GRAPH_POINTS)
+@pytest.mark.parametrize("backend_name", ["cuda", "torch"])
+def test_graph_replay_matches_the_eager_walk(cuda, monkeypatch, backend_name,
+                                             name, point):
+    """A replayed graph gives the eager walk's result: bitwise, except
+    where a kernel adds its l-chunks with atomics (chain_gemm, gemm_syrk;
+    ROADMAP C1), which are held as PERF.md section 2 holds them."""
+    from repro_torch.core.backends import get_backend, register_torch_backends
+    from repro_torch.core.expressions import get_spec
+    monkeypatch.delenv("REPRO_NO_FUSION", raising=False)
+    register_torch_backends()
+    backend = get_backend(backend_name, seed=0, reps=1)
+    assert backend.timing == "graph"
+    for alg in get_spec(name).algorithms(point):
+        operands = backend.make_operands(alg)
+        launched = _step_launches(backend, alg, operands)
+        replayed = backend._timed_callable(alg, operands)().clone()
+        walked = backend.execute(alg, operands)
+        torch.cuda.synchronize()
+        if launched.keys() & {"chain_gemm", "gemm_syrk"}:
+            _close_scaled(replayed, walked)
+        else:
+            assert torch.equal(replayed, walked), alg.name
+
+
+@pytest.mark.parametrize("name,point", GRAPH_POINTS)
+@pytest.mark.parametrize("reps", [1, 3])
+def test_graph_replays_are_credited_their_launches_exactly(cuda, monkeypatch,
+                                                           name, point, reps):
+    """time_algorithm on a memo miss: one eager walk, a capture (counted
+    nothing), a warm-up replay and ``reps`` timed replays, so each step
+    launches 2 + reps times; on a hit, the replays alone: 1 + reps."""
+    from repro_torch.core.backends import CudaBackend
+    from repro_torch.core.expressions import get_spec
+    monkeypatch.delenv("REPRO_NO_FUSION", raising=False)
+    backend = CudaBackend(seed=0, reps=reps)
+    for alg in get_spec(name).algorithms(point):
+        operands = backend.make_operands(alg)
+        steps = _step_launches(backend, alg, operands)
+        for executions in (2 + reps, 1 + reps):      # miss, then hit
+            ops.reset_launch_counts()
+            assert backend.time_algorithm(alg, operands) > 0
+            got = {k: v for k, v in ops.launch_counts().items() if v}
+            assert got == {k: n * executions for k, n in steps.items()}, \
+                alg.name
+
+
+def test_graph_memo_hits_only_for_the_same_inputs(cuda, monkeypatch):
+    from repro_torch.core.backends import CudaBackend
+    from repro_torch.core.expressions import get_spec
+    monkeypatch.delenv("REPRO_NO_FUSION", raising=False)
+    backend = CudaBackend(seed=0, reps=1)
+    alg = get_spec("aatb").algorithms((300, 200, 100))[0]
+    operands = backend.make_operands(alg)
+    backend.time_algorithm(alg, operands)
+    backend.time_algorithm(alg, operands)
+    assert (backend.memo_hits, backend.memo_misses) == (1, 1)
+    moved = {b: t.clone() for b, t in operands.items()}   # other pointers
+    backend.time_algorithm(alg, moved)
+    assert (backend.memo_hits, backend.memo_misses) == (1, 2)
+    # Same structure and inputs, other dims: another graph.
+    twin = next(a for a in get_spec("aatb").algorithms((200, 200, 100))
+                if a.name == alg.name)
+    backend.time_algorithm(twin, backend.make_operands(twin))
+    assert backend.memo_misses == 3
+    # The fusion switch is part of the key.
+    monkeypatch.setenv("REPRO_NO_FUSION", "1")
+    backend.time_algorithm(alg, operands)
+    assert (backend.memo_hits, backend.memo_misses) == (1, 4)
+
+
+def test_a_failed_capture_raises(cuda, monkeypatch):
+    """No eager fallback: a kernel refused inside the capture surfaces."""
+    from repro_torch.core.backends import CudaBackend, CudaOps
+    from repro_torch.core.expressions import get_spec
+
+    class Refused(CudaOps):
+        calls = 0
+
+        def gemm(self, a, b):
+            Refused.calls += 1
+            if Refused.calls > 1:   # the eager walk passes, the capture not
+                raise RuntimeError("gemm: CUDA error 1 at launch")
+            return super().gemm(a, b)
+
+    backend = CudaBackend(seed=0, reps=1)
+    monkeypatch.setattr(backend, "ops", Refused)
+    alg = next(a for a in get_spec("aatb").algorithms((300, 200, 100))
+               if a.name.startswith("alg3"))
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        backend.time_algorithm(alg, backend.make_operands(alg))
+    # The stream left capture mode: the card still runs work.
+    torch.cuda.synchronize()
+    assert float(torch.ones(4, device="cuda").sum()) == 4.0
+
+
+def watched_fastpath_sweep(backend) -> None:
+    """Sweep aatb over a 2³ grid through the pipelined fast path with
+    ``backend`` watched: the helper thread synthesizes every operand on
+    the host, and the timing thread places each on the device, outside
+    every timed repetition (``_pre_rep`` to the ``_sync`` that stops the
+    clock). The CPU tests run it on the CPU (tests/test_torch_fastpath.py)."""
+    import threading
+
+    from repro_torch.core.expressions import GridSpec, get_spec
+    from repro_torch.core.sweep import sweep
+
+    main = threading.get_ident()
+    placed, synthesized, timing = [], [], {"rep": False}
+    pre_rep, sync = backend._pre_rep, backend._sync
+    asarray, synthesize = backend._asarray, backend.synthesize_leaf
+
+    def watched_pre_rep():
+        pre_rep()
+        timing["rep"] = True
+
+    def watched_sync(out):
+        out = sync(out)
+        timing["rep"] = False
+        return out
+
+    def watched_asarray(a):
+        placed.append((threading.get_ident(), timing["rep"]))
+        return asarray(a)
+
+    def watched_synthesize(ref):
+        synthesized.append(threading.get_ident())
+        return synthesize(ref)
+
+    backend._pre_rep, backend._sync = watched_pre_rep, watched_sync
+    backend._asarray, backend.synthesize_leaf = (watched_asarray,
+                                                 watched_synthesize)
+    res = sweep(get_spec("aatb"), GridSpec.uniform((64, 128), 3).points(),
+                runner=backend, fastpath=True)
+    assert res.n_measured == 8 and res.fastpath.points_pipelined == 7
+    assert placed and all(t == main and not rep for t, rep in placed)
+    assert synthesized and all(t != main for t in synthesized)
+
+
+def test_fast_path_places_no_operand_during_a_timed_repetition(cuda):
+    from repro_torch.core.backends import CudaBackend
+    watched_fastpath_sweep(CudaBackend(seed=0, reps=1))
+
+
 ATTN_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
             torch.bfloat16: dict(rtol=2 ** -6, atol=2 ** -6)}
 #: Scale of q and k, as in chip_smoke.py: logits of standard deviation

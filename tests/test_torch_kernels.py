@@ -716,11 +716,14 @@ def _syrk_launches(m, k):
 
 def test_chip_smoke_sweep_launch_counts_are_the_sweeps_kernel_steps():
     """chip_smoke.SWEEP_LAUNCHES: every kernel step of the sweep's
-    algorithms, each run 1 + REPS times."""
+    algorithms, each run 2 + REPS times on the card (one eager walk
+    before the capture, one warm-up replay, REPS timed replays)."""
     cs = _chip_smoke()
     steps = {kind: sum(sum(c.values()) for c in shapes.values())
              for kind, shapes in _SWEEP.items()}
-    assert cs.SWEEP_LAUNCHES == {kind: n * (1 + cs.REPS)
+    assert cs.SWEEP_STEPS == steps
+    assert cs.EXECUTIONS == 2 + cs.REPS
+    assert cs.SWEEP_LAUNCHES == {kind: n * (2 + cs.REPS)
                                  for kind, n in steps.items()}
 
 

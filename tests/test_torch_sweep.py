@@ -66,6 +66,7 @@ def test_cpu_sweep_atlas_is_read_by_the_reference(tmp_path):
     header = json.loads(path.read_text().splitlines()[0])
     assert header["kernels"] == _build.source_hash()
     assert header["fusion"] is True
+    assert header["timing"] == "eager"   # the CPU times the walk itself
     replay = load_atlas_records(path)   # the reference ignores the new keys
     assert replay.spec_name == "AATB" and not replay.legacy
     assert replay.fingerprint.to_dict() == fp.to_dict()
@@ -198,7 +199,7 @@ def test_atlas_without_the_program_keys_is_refused(tmp_path, monkeypatch):
     fp = _swept_atlas(path, [(32, 32, 32)])
     lines = path.read_text().splitlines()
     header = json.loads(lines[0])
-    for key in ("kernels", "fusion"):
+    for key in ("kernels", "fusion", "timing"):
         stripped = {k: v for k, v in header.items() if k != key}
         path.write_text("\n".join([json.dumps(stripped)] + lines[1:]) + "\n")
         with pytest.raises(AtlasError, match="start a fresh atlas"):
@@ -230,3 +231,153 @@ def test_atlas_merge_refuses_shards_of_other_kernel_sources(tmp_path,
     _swept_atlas(third, [(64, 64, 64)])
     with pytest.raises(merge.MergeError, match=r"\['kernels'\]"):
         merge.merge_shards([first, third])
+
+
+def test_resume_under_the_other_timing_is_refused(tmp_path, monkeypatch):
+    """An atlas timed as replayed graphs (on a card) is not resumed by a
+    process that times the eager walk, nor the other way round."""
+    monkeypatch.delenv("REPRO_NO_FUSION", raising=False)
+    path = tmp_path / "atlas.jsonl"
+    fp = _swept_atlas(path, [(32, 32, 32)])
+    lines = path.read_text().splitlines()
+    header = json.loads(lines[0])
+    assert header["timing"] == "eager"
+    header["timing"] = "graph"
+    path.write_text("\n".join([json.dumps(header)] + lines[1:]) + "\n")
+    with pytest.raises(AtlasError, match="the atlas was timed 'graph', this "
+                                         "process times 'eager'"):
+        AnomalyAtlas(path, fp, "AATB", 0.10)
+    assert len(load_atlas_records(path).records) == 1   # the reference reads it
+
+
+def test_timing_mode_follows_the_device():
+    from repro_torch.core.backends import timing_mode
+    assert timing_mode("cpu") == "eager"
+    assert timing_mode("NVIDIA H100 80GB HBM3") == "graph"
+    assert CudaBackend(device="cpu").timing == "eager"
+
+
+def test_backend_protocol_hooks_match_the_reference():
+    from repro.core.backends import base as ref_base
+    from repro_torch.core.backends import (TorchBackend, backend_default_dtype,
+                                           backend_shard_mode, make_backend,
+                                           register_torch_backends)
+    from repro_torch.core.backends import base as port_base
+    register_torch_backends()
+    for hook in ("_pre_rep", "_sync", "_timed_callable", "fingerprint_tags",
+                 "time_algorithm", "benchmark_call"):
+        assert hasattr(port_base.ExecutionBackend, hook)
+        assert hasattr(ref_base.ExecutionBackend, hook)
+    assert ref_base.ExecutionBackend.shard_mode == \
+        port_base.ExecutionBackend.shard_mode == "process"
+    # The lenient constructor drops what a backend lacks: --no-flush
+    # reaches no device backend, as on the reference's jax/pallas.
+    b = make_backend("cuda", device="cpu", reps=2, flush_cache=False, seed=3)
+    assert isinstance(b, CudaBackend) and (b.reps, b.seed) == (2, 3)
+    assert isinstance(make_backend("torch", device="cpu"), TorchBackend)
+    assert ref_base.make_backend("jax", flush_cache=False).reps == 3
+    assert b.fingerprint_tags() == ("cuda", "float32")
+    assert backend_default_dtype("cuda") == "float32"
+    assert backend_shard_mode("cuda") == backend_shard_mode("torch") == \
+        "device" == ref_base.backend_shard_mode("pallas")
+
+
+def test_time_algorithm_times_the_timed_callable():
+    """time_algorithm times what _timed_callable returns: one warm-up call,
+    then each repetition between _pre_rep and _sync."""
+    calls = []
+
+    class Probe(CudaBackend):
+        def _pre_rep(self):
+            calls.append("pre_rep")
+
+        def _sync(self, out):
+            calls.append(("sync", out))
+            return out
+
+        def _timed_callable(self, alg, operands):
+            return lambda: calls.append("run") or "result"
+
+    probe = Probe(device="cpu", reps=2)
+    alg = get_spec("aatb").algorithms((32, 32, 32))[0]
+    assert probe.time_algorithm(alg, {}) >= 0
+    assert calls == ["run", ("sync", "result")] + 2 * [
+        "pre_rep", "run", ("sync", "result")]
+    calls.clear()
+    probe.benchmark_call(alg.calls[0], reps=1)
+    assert calls.count("run") == 2
+
+
+class _FixedTimes:
+    """A runner whose times are a fixed function of the algorithm's name
+    and the point (deterministic, one per backend)."""
+
+    def __init__(self, slow_alg: str):
+        self.slow_alg = slow_alg
+
+    def make_operands(self, alg):
+        return {}
+
+    def time_algorithm(self, alg, operands=None):
+        base = alg.flops * 1e-9
+        if alg.name.startswith(self.slow_alg) and sum(alg.calls[0].dims) > 200:
+            base *= 3.0
+        return base
+
+
+def test_compare_backends_gives_the_references_disagreements():
+    from repro.core import sweep as ref_sweep
+    from repro_torch.core import sweep as port_sweep
+    spec, ref_spec = get_spec("aatb"), ref_get_spec("aatb")
+    points = spec.grid("smoke").points() + [(128, 96, 64), (96, 128, 64)]
+    runners = {"torch": _FixedTimes("alg1"), "cuda": _FixedTimes("alg5")}
+    port = port_sweep.compare_backends(spec, points, {
+        n: port_sweep.sweep(spec, points, runner=r) for n, r in
+        runners.items()})
+    ref = ref_sweep.compare_backends(ref_spec, points, {
+        n: ref_sweep.sweep(ref_spec, points, runner=r) for n, r in
+        runners.items()})
+    assert port.backends == ref.backends == ("torch", "cuda")
+    assert port.n_points == ref.n_points == len(points)
+    for mine, theirs in ((port.fastest_differs, ref.fastest_differs),
+                         (port.anomaly_differs, ref.anomaly_differs)):
+        assert [dataclass_tuple(d) for d in mine] == \
+            [dataclass_tuple(d) for d in theirs]
+    assert port.fastest_differs and port.anomaly_differs
+    assert port.fastest_differs_rate == ref.fastest_differs_rate
+    with pytest.raises(ValueError, match="two sweeps"):
+        port_sweep.compare_backends(spec, points, {})
+
+
+def dataclass_tuple(d):
+    return (d.point, d.fastest, d.is_anomaly, d.time_score)
+
+
+def test_cli_compare_backends_prints_the_fastest_differs_line(tmp_path):
+    out = _cli("--expr", "aatb", "--grid", "smoke", "--device", "cpu",
+               "--reps", "1", "--seed", "0", "--atlas-dir", str(tmp_path),
+               "--quiet", "--compare-backends", "torch,cuda")
+    assert out.returncode == 0, out.stderr
+    assert re.search(r"compare AATB/smoke \[torch vs cuda\]: points=8 "
+                     r"fastest-differs=\d+ \(\d+\.\d%\) "
+                     r"anomaly-verdict-differs=\d+", out.stdout)
+    atlases = sorted(p.name for p in tmp_path.glob("atlas-aatb-*.jsonl"))
+    assert atlases == ["atlas-aatb-t0p1-cuda-cpu-float32.jsonl",
+                       "atlas-aatb-t0p1-torch-cpu-float32.jsonl"]
+    for path in tmp_path.glob("atlas-aatb-*.jsonl"):
+        assert len(load_atlas_records(path).records) == 8
+
+
+def test_cli_limit_fresh_and_no_flush(tmp_path):
+    args = ["--expr", "aatb", "--grid", "smoke", "--device", "cpu", "--reps",
+            "1", "--seed", "0", "--atlas-dir", str(tmp_path), "--quiet",
+            "--no-flush"]
+    first = _cli(*args, "--limit", "3")
+    assert first.returncode == 0, first.stderr
+    assert re.search(r"points=3 measured=3 skipped=0", first.stdout)
+    rest = _cli(*args)
+    assert re.search(r"points=8 measured=5 skipped=3", rest.stdout)
+    fresh = _cli(*args, "--fresh", "--limit", "2")
+    assert re.search(r"points=2 measured=2 skipped=0", fresh.stdout)
+    (path,) = tmp_path.glob("atlas-aatb-*.jsonl")
+    assert len(path.read_text().splitlines()) == 3   # header + 2
