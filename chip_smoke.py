@@ -73,7 +73,27 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    the same launches as phase 4's); ``--compare-backends torch,cuda``
    over that grid; ``--mode adaptive`` on ``aatb`` in the paper's box at
    a step of 40, unsharded and as ``--shard 0/2`` + ``--shard 1/2``,
-   merged by ``tools/atlas_merge.py`` and read back.
+   merged by ``tools/atlas_merge.py`` and read back;
+10. tuning and the planner, with a temporary ``REPRO_PROFILE_DIR``:
+   ``calibrate --tune --grid default --tune-budget 8`` (per kind the
+   requests, launches timed and pruned, the winners that differ from the
+   launch rule's pick, model pick / winner seconds, wall time and peak
+   reserved memory; every winner at most its model pick as measured, the
+   saved table reloads equal, and the launches are exactly timed
+   candidates × :data:`EXECUTIONS`); each kernel under up to 4 winners
+   that differ from the model's pick against its plain version, and a
+   table entry traced to the launch it makes; the sweeps of phase 4 with
+   the table auto-loaded and with ``--no-tuning`` (phase 4's launches both
+   ways, the anomaly counts both ways, and a resume under the other
+   tuning state refused); ``PlanService`` on the ``cuda`` backend:
+   ``lookup`` + ``execute`` of aatb, decmlp and decattn plans against the
+   plain composition, a second lookup returns the same plan, refinement
+   bumps the profile generation and the next lookup misses once, and the
+   load test (2,000 requests over 8 threads, one enumeration per burst);
+   Yi-9B again with ``plan_warmup``, prefill 2 × 2048 and 16 greedy
+   tokens decoded twice from the same cache, with the consult on (plan
+   cache hits = layers × tokens) and under ``REPRO_SERVE_PLANNER=0``: the
+   same tokens.
 
 The compiler's report must show no spills in any SYRK or GEMM+SYRK
 instance. The last two lines are the card's ``nvidia-smi`` name/power
@@ -213,7 +233,8 @@ def kernel_cases(torch, rng):
     from repro_torch.kernels import ops, ref
 
     def mat(r, c):
-        return torch.from_numpy(rng.standard_normal((r, c))).float().cuda()
+        return torch.from_numpy(rng.standard_normal((r, c))).float().to(
+            DEVICE)
 
     def lower_with_garbage(m):
         s = rng.standard_normal((m, m))
@@ -348,7 +369,8 @@ def time_symm_chain_configs(torch, np) -> None:
     rng = np.random.default_rng(SEED)
 
     def mat(r, c):
-        return torch.from_numpy(rng.standard_normal((r, c))).float().cuda()
+        return torch.from_numpy(rng.standard_normal((r, c))).float().to(
+            DEVICE)
 
     m, n = SYMM_SHAPE
     s = torch.tril(mat(m, m)) + torch.triu(mat(m, m) * 1e3, 1)
@@ -405,7 +427,8 @@ def time_syrk_gemm_syrk_configs(torch, np) -> None:
     rng = np.random.default_rng(SEED)
 
     def mat(r, c):
-        return torch.from_numpy(rng.standard_normal((r, c))).float().cuda()
+        return torch.from_numpy(rng.standard_normal((r, c))).float().to(
+            DEVICE)
 
     m, k = SYRK_SHAPE
     a = mat(m, k)
@@ -1395,6 +1418,512 @@ def sweep_engine(torch, atlas_dir: Path, phase4: dict) -> None:
                              "disjoint graph-timed shard atlases")
 
 
+#: Phase 10: the tune's grid and budget, the plans held against their
+#: plain compositions (aatb at phase 9's point; Yi-9B's decode MLP and
+#: attention tail in float32 at phase 7's cache length), the served
+#: decode (2 requests, 2048 prompt tokens, 16 new ones).
+TUNE_GRID, TUNE_BUDGET, TUNED_CHECKS = "default", 8, 4
+PLANS = (("aatb", (1200, 800, 400)), ("decmlp", (2, 4096, 11008)),
+         ("decattn", (1, 2176, 128, 4096)))
+CONSULT_NEW = 16
+
+
+def _tune(torch, np, tune_dir: Path):
+    """Phase 10, part 1: ``calibrate --tune`` into ``tune_dir``; per-kind
+    counts and ratios; the table reloads equal; launches exact."""
+    import statistics
+
+    from repro_torch.core import calibrate as cal
+    from repro_torch.core.tuning import (card_limits, default_config,
+                                         load_default_tuning_table)
+    from repro_torch.kernels import ops
+
+    os.environ["REPRO_PROFILE_DIR"] = str(tune_dir)
+    os.environ.pop("REPRO_NO_TUNING", None)
+    release(torch)
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    res = cal.tune(backend="cuda", grid=TUNE_GRID, reps=REPS,
+                   budget=TUNE_BUDGET, seed=SEED, device=DEVICE)
+    launches = ops.launch_counts()
+    peak = (torch.cuda.max_memory_reserved() / 2 ** 30
+            if DEVICE == "cuda" else 0.0)
+    print(f"phase 10 tune: calibrate --tune --grid {TUNE_GRID} "
+          f"--tune-budget {TUNE_BUDGET}: tuned {res.n_requests} kernel "
+          f"shapes on {res.fingerprint.backend}/{res.fingerprint.device}/"
+          f"{res.fingerprint.dtype} in {res.wall_s:.1f}s; peak reserved "
+          f"{peak:.2f} GiB; table written to {res.path}")
+    limits = card_limits(DEVICE)
+    table = res.table
+    by_kind, differ = {}, {}
+    for (kind, dims), e in sorted(table.entries.items()):
+        k = by_kind.setdefault(kind, {"requests": 0, "timed": 0,
+                                      "pruned": 0, "differ": 0,
+                                      "ratios": []})
+        k["requests"] += 1
+        k["timed"] += e.timed
+        k["pruned"] += e.pruned
+        k["ratios"].append(e.default_seconds / e.seconds)
+        if e.seconds > e.default_seconds:
+            raise AssertionError(f"{kind}{dims}: winner {e.seconds} s "
+                                 f"slower than the model's pick "
+                                 f"{e.default_seconds} s")
+        if e.config != default_config(kind, dims, limits):
+            k["differ"] += 1
+            differ.setdefault(kind, []).append((dims, e.config))
+    for kind, k in by_kind.items():
+        r = sorted(k["ratios"])
+        print(f"phase 10 tune {kind}: requests={k['requests']} "
+              f"timed={k['timed']} pruned={k['pruned']} "
+              f"winner!=model={k['differ']}; model/winner median="
+              f"{statistics.median(r):.3f} worst={r[-1]:.3f}")
+    ratios = sorted(x for k in by_kind.values() for x in k["ratios"])
+    print(f"phase 10 tune all: requests={len(table)} winner!=model="
+          f"{sum(k['differ'] for k in by_kind.values())}; model/winner "
+          f"median={statistics.median(ratios):.3f} worst={ratios[-1]:.3f}; "
+          f"launches {launches}")
+    want = {"gemm": by_kind["gemm"]["timed"], "syrk": by_kind["syrk"]["timed"],
+            "symm": by_kind["symm"]["timed"],
+            "chain_gemm": by_kind["chain_gemm"]["timed"],
+            "gemm_syrk": by_kind["gemm_syrk"]["timed"]}
+    want = {k: n * EXECUTIONS if DEVICE == "cuda" else 0
+            for k, n in want.items()}
+    if {k: launches[k] for k in want} != want or launches["flash_attention"]:
+        raise AssertionError(f"the tune launched {launches}, not timed "
+                             f"candidates x {EXECUTIONS}: {want}")
+    reloaded = load_default_tuning_table(device=DEVICE)
+    if reloaded is None or reloaded.entries != table.entries:
+        raise AssertionError("the saved tuning table does not reload equal")
+    return table, differ, launches
+
+
+def _tuned_launches(torch, np, table, differ) -> None:
+    """Phase 10, part 2: kernels under winners that differ from the model's
+    pick against their plain versions; a table entry traced through the
+    ``cuda`` backend to the launch it makes."""
+    from repro_torch.core.backends import (get_backend, synthetic_algorithm,
+                                           synthetic_fused_algorithm)
+    from repro_torch.core.flops import KernelCall
+    from repro_torch.core.tuning import KERNELS, card_limits, launch_config
+    from repro_torch.kernels import ops, ref
+
+    rng = np.random.default_rng(SEED)
+    limits = card_limits(DEVICE)
+
+    def mat(r, c):
+        return torch.from_numpy(rng.standard_normal((r, c))).float().to(
+            DEVICE)
+
+    def operands(kind, dims):
+        if kind == "gemm":
+            m, n, k = dims
+            return mat(m, k), mat(k, n)
+        if kind == "syrk":
+            return (mat(*dims),)
+        if kind == "symm":
+            m, n = dims
+            return mat(m, m), mat(m, n)
+        if kind == "chain_gemm":
+            m, k, l, n = dims
+            return mat(m, k), mat(k, l), mat(l, n)
+        m, k, l = dims
+        return mat(m, k), mat(k, l)
+
+    for kind, winners in sorted(differ.items()):
+        for dims, config in winners[:TUNED_CHECKS]:
+            cfg = launch_config(kind, dims, config, limits)
+            args = operands(kind, dims)
+            out = getattr(ops, kind)(*args, config=cfg)
+            expect = getattr(ref, kind)(*args)
+            if DEVICE == "cuda":
+                torch.cuda.synchronize()
+            rtol, atol = TOL[kind]
+            diff = (out - expect).abs()
+            if kind == "gemm_syrk":
+                ok = float(diff.max()) <= atol + rtol * float(
+                    expect.abs().max())
+            else:
+                ok = bool((diff <= atol + rtol * expect.abs()).all())
+            print(f"phase 10 tuned {kind}{dims} {config} ({cfg.name}): "
+                  f"max_abs_err={float(diff.max()):.3e} "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok or not bool(torch.isfinite(out).all()):
+                raise AssertionError(f"tuned {kind}{dims} {config} disagrees "
+                                     f"with its plain version")
+    # The table reaches the launch: one differing winner per kind, run
+    # through the auto-loading backend with the kernel's launch spied on.
+    if DEVICE != "cuda":
+        return
+    backend = get_backend("cuda", reps=1, seed=SEED)
+    for kind, winners in sorted(differ.items()):
+        dims, config = winners[0]
+        mod = KERNELS[kind]
+        seen, launch = [], mod.launch
+
+        def spy(*args, _launch=launch):
+            seen.append(args[-1])
+            return _launch(*args)
+
+        alg = (synthetic_fused_algorithm(kind, dims)
+               if kind in ("chain_gemm", "gemm_syrk")
+               else synthetic_algorithm(KernelCall(kind, dims)))
+        mod.launch = spy
+        try:
+            backend.execute(alg, backend.make_operands(alg))
+        finally:
+            mod.launch = launch
+        want = launch_config(kind, dims, config, limits)
+        print(f"phase 10 dispatch {kind}{dims}: table {config} -> launch "
+              f"{[c.name for c in seen]}")
+        if seen != [want]:
+            raise AssertionError(f"{kind}{dims}: the table's {config} did "
+                                 f"not reach the launch ({seen})")
+
+
+def _add(total: dict, counts: dict) -> dict:
+    """``total`` with ``counts`` added in, key by key."""
+    for k, n in counts.items():
+        total[k] = total.get(k, 0) + n
+    return total
+
+
+def _sweep_all(atlas_dir: Path, label: str, flags: list, phase4: dict,
+               tuning) -> tuple:
+    """Phase 4's three sweeps into ``atlas_dir / label``, with launches
+    checked against phase 4's and the header's tuning against ``tuning``:
+    ({family: (anomalies, points, {point: times})}, the three sweeps'
+    launches summed)."""
+    from repro_torch.core import sweep as sweep_mod
+    from repro_torch.kernels import ops
+
+    out, launched = {}, {}
+    for name, axis in SWEEPS:
+        ops.reset_launch_counts()
+        try:
+            text, _ = run_cli(sweep_mod.main, [
+                "--expr", name, "--grid", ",".join(map(str, axis)),
+                "--reps", str(REPS), "--seed", str(SEED), "--device", DEVICE,
+                "--quiet", "--atlas-dir", str(atlas_dir / label)] + flags)
+        finally:
+            os.environ.pop("REPRO_NO_TUNING", None)
+        got = ops.launch_counts()
+        _add(launched, got)
+        path = Path(re.findall(r"atlas written to (\S+)", text)[-1])
+        lines = path.read_text().splitlines()
+        head, records = json.loads(lines[0]), list(map(json.loads, lines[1:]))
+        n = sum(r["is_anomaly"] for r in records)
+        out[name] = (n, len(records),
+                     {tuple(r["point"]): r["times"] for r in records})
+        print(f"phase 10 sweep {name} {label}: {n}/{len(records)} anomalies;"
+              f" header tuning={head.get('tuning')!r}; launches {got}")
+        if got != phase4[name] or head.get("tuning") != tuning:
+            raise AssertionError(f"{label} {name}: launched {got} (phase 4: "
+                                 f"{phase4[name]}), header tuning "
+                                 f"{head.get('tuning')!r}, not {tuning!r}")
+    return out, launched
+
+
+def _sweep_shape_table(torch, tune_dir: Path):
+    """A tuning table of exactly the launches phase 4's sweeps make
+    (``ab_bench.sweep_shapes``), saved in ``tune_dir``: whether a table
+    tuned at the sweep's own shapes helps where the ``default`` grid's
+    nearest entries did not."""
+    import statistics
+
+    from repro_torch.core.backends import get_backend
+    from repro_torch.core.tuning import card_limits, default_config, \
+        save_tuning_table
+    from repro_torch.kernels.autotune import autotune
+
+    import ab_bench
+
+    shapes = ab_bench.sweep_shapes()
+    requests = sorted(
+        {("gemm", (m, n, k)) for m, k, n in shapes["gemm"]}
+        | {("symm", (m, n)) for m, n, _ in shapes["symm"]}
+        | {(kind, tuple(dims)) for kind in ("syrk", "chain_gemm",
+                                            "gemm_syrk")
+           for dims in shapes[kind]})
+    runner = get_backend("cuda", reps=REPS, seed=SEED, device=DEVICE)
+    t0 = time.perf_counter()
+    table = autotune(runner, requests, reps=REPS, budget=TUNE_BUDGET)
+    wall = time.perf_counter() - t0
+    save_tuning_table(table, runner.fingerprint(), directory=tune_dir)
+    limits = card_limits(DEVICE)
+    differ = sum(e.config != default_config(k, d, limits)
+                 for (k, d), e in table.entries.items())
+    ratios = sorted(e.default_seconds / e.seconds
+                    for e in table.entries.values())
+    print(f"phase 10 sweep-shape tune: {len(requests)} requests in "
+          f"{wall:.1f}s, winner!=model={differ}; model/winner median="
+          f"{statistics.median(ratios):.3f} worst={ratios[-1]:.3f}")
+    return table
+
+
+def _tuned_sweeps(torch, atlas_dir: Path, phase4: dict, table) -> dict:
+    """Phase 10, part 3: phase 4's sweeps with the table and with
+    ``--no-tuning`` (exact launches, anomaly counts, resumes across the
+    two tuning states refused), then with a table tuned at the sweep's
+    own shapes. Returns the launches of each part."""
+    from repro_torch.core import sweep as sweep_mod
+    from repro_torch.core.sweep import AtlasError
+    from repro_torch.kernels import ops
+
+    runs, parts = {}, {}
+    for label, flags, tuning in (("tuned", [], table.digest()),
+                                 ("untuned", ["--no-tuning"], None)):
+        runs[label], parts[f"sweep {label}"] = _sweep_all(
+            atlas_dir, label, flags, phase4, tuning)
+    ops.reset_launch_counts()
+    for label, other in (("tuned", ["--no-tuning"]), ("untuned", [])):
+        try:
+            run_cli(sweep_mod.main, [
+                "--expr", "aatb", "--grid",
+                ",".join(map(str, dict(SWEEPS)["aatb"])), "--reps",
+                str(REPS), "--seed", str(SEED), "--device", DEVICE,
+                "--quiet", "--atlas-dir", str(atlas_dir / label)] + other)
+        except AtlasError as e:
+            print(f"phase 10 resume of the {label} atlas under the other "
+                  f"tuning state refused: {str(e)[-90:]}")
+        else:
+            raise AssertionError(f"the {label} atlas resumed under the "
+                                 f"other tuning state")
+        finally:
+            os.environ.pop("REPRO_NO_TUNING", None)
+    parts["refused resumes"] = ops.launch_counts()
+    if any(parts["refused resumes"].values()):
+        raise AssertionError(f"a refused resume launched kernels: "
+                             f"{parts['refused resumes']}")
+
+    default_dir = os.environ["REPRO_PROFILE_DIR"]
+    os.environ["REPRO_PROFILE_DIR"] = str(atlas_dir / "tuning-sweep")
+    try:
+        ops.reset_launch_counts()
+        own = _sweep_shape_table(torch, atlas_dir / "tuning-sweep")
+        parts["sweep-shape tune"] = ops.launch_counts()
+        runs["sweep-tuned"], parts["sweep sweep-tuned"] = _sweep_all(
+            atlas_dir, "sweep-tuned", [], phase4, own.digest())
+    finally:
+        os.environ["REPRO_PROFILE_DIR"] = default_dir
+
+    for label in ("tuned", "sweep-tuned"):
+        for name, _ in SWEEPS:
+            tuned, untuned = runs[label][name][2], runs["untuned"][name][2]
+            algs = sorted(next(iter(tuned.values())))
+            ratios = {a: sorted(tuned[p][a] / untuned[p][a] for p in tuned)
+                      for a in algs}
+            print(f"phase 10 {name} {label}/untuned time by algorithm, "
+                  f"median (min, max) over {len(tuned)} points: " + ", ".join(
+                      f"{a} {r[len(r) // 2]:.3f} ({r[0]:.3f}, {r[-1]:.3f})"
+                      for a, r in ratios.items()))
+    print("phase 10 anomalies tuned / sweep-tuned / --no-tuning: " + ", ".join(
+        f"{name} {runs['tuned'][name][0]} / {runs['sweep-tuned'][name][0]} "
+        f"/ {runs['untuned'][name][0]} of {runs['tuned'][name][1]}"
+        for name, _ in SWEEPS))
+    return parts
+
+
+def plan_args(operands: dict) -> list:
+    """A plan's positional arguments from base-indexed operands: a plan
+    reads leaf ``base`` at position ``base`` (the reference's ``fn(A, A,
+    B)`` for A·Aᵀ·B); positions of no base are never read."""
+    return [operands.get(b) for b in range(max(operands) + 1)]
+
+
+def _planner(torch) -> None:
+    """Phase 10, part 4: ``PlanService`` on the ``cuda`` backend."""
+    from repro_torch.core.backends import measure_seconds
+    from repro_torch.core.discriminants import as_hybrid
+    from repro_torch.core.expressions import get_spec
+    from repro_torch.core.planner import Planner
+    from repro_torch.serve.loadtest import run_loadtest
+    from repro_torch.serve.plan_cache import PlanService
+
+    svc = PlanService(backend="cuda", device=DEVICE)
+    print(f"phase 10 planner: profile "
+          f"{type(svc.planner.profile).__name__}, discriminant "
+          f"{svc.planner.discriminant}")
+    for family, dims in PLANS:
+        plan = svc.lookup(family, dims)
+        operands = svc.planner.runner.make_operands(plan.algorithm)
+        args = plan_args(operands)
+        got = svc.execute(family, dims, *args)
+        want = get_spec(family).reference_value(dims, operands)
+        _agree(torch, f"phase 10 plan {family}{dims} {plan.algorithm.name} "
+                      f"(ranked {list(plan.ranked)})", got, want)
+        _, seconds = measure_seconds(plan.fn, *args)
+        ms = (time_ms(torch, lambda: plan.fn(*args)) if DEVICE == "cuda"
+              else float("nan"))
+        print(f"phase 10 plan {family}{dims}: measure_seconds "
+              f"{seconds * 1e3:.4f} ms, CUDA events {ms:.4f} ms")
+        if svc.lookup(family, dims) is not plan:
+            raise AssertionError(f"{family}: a second lookup re-planned")
+
+    # Refinement: timings folded by the worker bump the generation, and
+    # the next lookup misses once.
+    planner = Planner(backend="cuda", device=DEVICE, record=True,
+                      profile=as_hybrid(None))
+    svc = PlanService(planner=planner, refine=True)
+    family, dims = PLANS[0]
+    plan = svc.lookup(family, dims)
+    args = plan_args(planner.runner.make_operands(plan.algorithm))
+    gen0 = planner.profile_generation()
+    planner(get_spec(family).chain(dims), *args)   # record=True: observes
+    if planner.profile_generation() <= gen0:
+        raise AssertionError("a recording planner call folded no timing")
+    for _ in range(8):
+        svc.execute(family, dims, *args)
+    if not svc.shutdown(drain=True):
+        raise AssertionError("the refinement worker did not drain")
+    before = svc.cache.stats()
+    svc.lookup(family, dims)
+    svc.lookup(family, dims)
+    after = svc.cache.stats()
+    table = planner.profile.table_profile.table
+    print(f"phase 10 refinement: generation {gen0} -> "
+          f"{planner.profile_generation()}, 1 + {svc.stats()['refine_steps']}"
+          f" timings folded; table {sorted((k[0], k[1], round(v * 1e6, 2)) for k, v in table.items())} us; "
+          f"next lookups misses +{after['misses'] - before['misses']} "
+          f"hits +{after['hits'] - before['hits']}")
+    if planner.profile_generation() <= gen0 or \
+            after["misses"] - before["misses"] != 1 or \
+            after["hits"] - before["hits"] != 1:
+        raise AssertionError("refinement did not invalidate the plan once")
+
+    def make_service():
+        return PlanService(backend="cuda", device=DEVICE)
+
+    rep = run_loadtest(make_service(), requests=2000, threads=8,
+                       make_service=make_service)
+    print(f"phase 10 loadtest: requests={rep.requests} threads={rep.threads} "
+          f"hit p50={rep.hit_p50_us:.1f}us p99={rep.hit_p99_us:.1f}us "
+          f"(hit rate {rep.hit_rate:.1%}), miss p50={rep.miss_p50_us:.1f}us "
+          f"p99={rep.miss_p99_us:.1f}us, coalescing "
+          f"{rep.coalesce_effectiveness:.1%} (burst enumerations "
+          f"{rep.burst_misses})")
+    if rep.burst_misses != 1 or rep.stats["errors"]:
+        raise AssertionError("the load test's burst did not coalesce into one "
+                             "enumeration")
+
+
+def _served_consult(torch, np) -> dict:
+    """Phase 10, part 5: Yi-9B decode with the plan consult on (after
+    ``plan_warmup``) and off, from one prefill's cache. The consult is
+    made once per cache (``transformer.plan_decode``, which
+    ``init_caches`` calls); a decode step makes none."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import api, transformer
+    from repro_torch.serve.decode import plan_warmup
+    from repro_torch.serve.plan_cache import (default_plan_service,
+                                              reset_default_plan_service)
+
+    cfg = configs.get("yi_9b")
+    model = api.init(cfg, seed=SEED, device=DEVICE, dtype=torch.bfloat16)
+    b, s0, n_new = SERVE_BATCH, SERVE_PROMPT, CONSULT_NEW
+    max_s = s0 + n_new
+    rng = np.random.default_rng(SEED)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (b, s0))).to(DEVICE)
+    reset_default_plan_service()
+    os.environ.pop("REPRO_SERVE_PLANNER", None)
+    shapes = plan_warmup(cfg, max_s, device=DEVICE)
+    svc = default_plan_service(DEVICE)
+    for family, dims in shapes:
+        print(f"phase 10 warmed {family}{dims}: "
+              f"{svc.lookup(family, dims).algorithm.name}")
+    logits, caches = api.prefill(model, cfg, {"tokens": prompt},
+                                 api.init_caches(model, cfg, b, max_s))
+    k0, v0 = caches.kv.k.clone(), caches.kv.v.clone()
+    first = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    del logits
+
+    def decode(planned):
+        caches.kv.k.copy_(k0)
+        caches.kv.v.copy_(v0)
+        state, tok, out = planned._replace(
+            kv=planned.kv._replace(length=s0)), first, [first]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n_new):
+            step_logits, state = api.decode_step(model, cfg, tok, state)
+            tok = torch.argmax(step_logits[:, -1], dim=-1)[:, None]
+            out.append(tok)
+        torch.cuda.synchronize()
+        return torch.cat(out, dim=1), (time.perf_counter() - t0) * 1e3 / n_new
+
+    decode(caches)   # warm-up (allocator, cuBLAS heuristics), not counted
+    # In turns (on, off, on, off): the host's noise between runs is as
+    # large as the difference looked for. Each run plans its cache anew.
+    runs, hits, consult_us, orders = {"on": [], "off": []}, [], [], []
+    for state in ("on", "off", "on", "off"):
+        before = svc.cache.stats()
+        if state == "off":
+            os.environ["REPRO_SERVE_PLANNER"] = "0"
+        try:
+            t0 = time.perf_counter()
+            planned = transformer.plan_decode(cfg, caches)
+            if state == "on":
+                consult_us.append((time.perf_counter() - t0) * 1e6)
+            runs[state].append(decode(planned))
+        finally:
+            os.environ.pop("REPRO_SERVE_PLANNER", None)
+        after = svc.cache.stats()
+        hits.append(after["hits"] - before["hits"])
+        orders.append("right" if planned.kv.right_first else "left")
+        if after["misses"] != len(set(shapes)):
+            raise AssertionError(f"the decode's consult missed: {after}")
+    tokens = [t for state in runs.values() for t, _ in state]
+    ms = {state: [m for _, m in r] for state, r in runs.items()}
+    print(f"phase 10 decode {n_new} tokens x {b} (cache {max_s}), in turns: "
+          f"consult on {ms['on'][0]:.2f}, {ms['on'][1]:.2f} ms/token; "
+          f"REPRO_SERVE_PLANNER=0 {ms['off'][0]:.2f}, {ms['off'][1]:.2f} "
+          f"ms/token; the consult {consult_us[0]:.1f}, {consult_us[1]:.1f} "
+          f"us per cache (a step makes none); association per run {orders}; "
+          f"plan cache misses {len(set(shapes))} (warm-up), hits per run "
+          f"{hits}; tokens equal: "
+          f"{all(torch.equal(t, tokens[0]) for t in tokens)}; launches "
+          f"{ops.launch_counts()}")
+    if hits != [1, 0] * 2 or \
+            not all(torch.equal(t, tokens[0]) for t in tokens):
+        raise AssertionError("the served decode's consult did not hit once "
+                             "per cache, or changed the tokens")
+    del model, caches
+    return {"decode_ms_consult": ms["on"], "decode_ms_off": ms["off"],
+            "consult_us_per_cache": consult_us}
+
+
+def tuning_and_planner(torch, np, atlas_dir: Path, phase4: dict) -> dict:
+    """Phase 10: the tune, tuned launches, tuned vs default sweeps, the
+    planner and its serving cache, the served decode's consult. Each part
+    past the tune is counted from 0 on its own (the sweeps reset the
+    counts before each sweep and sum them); ``launches`` is their sum."""
+    from repro_torch.kernels import ops
+
+    tune_dir = atlas_dir / "tuning"
+    table, differ, tune_launches = _tune(torch, np, tune_dir)
+    ops.reset_launch_counts()
+    _tuned_launches(torch, np, table, differ)
+    parts = {"tuned checks": ops.launch_counts()}
+    parts.update(_tuned_sweeps(torch, atlas_dir, phase4, table))
+    release(torch)
+    ops.reset_launch_counts()
+    _planner(torch)
+    parts["planner"] = ops.launch_counts()
+    release(torch)
+    ops.reset_launch_counts()
+    served = _served_consult(torch, np)
+    parts["decode"] = ops.launch_counts()
+    release(torch)
+    launches = {}
+    for part, counts in parts.items():
+        print(f"phase 10 launches, {part}: {counts}")
+        _add(launches, counts)
+    print(f"phase 10 kernel launches past the tune: {launches}")
+    return {"launches": launches, "parts": parts,
+            "tune_launches": tune_launches, **served}
+
+
 def _read_atlas(path: Path, shard=None) -> list:
     """The records of the ``cuda`` backend's atlas at ``path``, opened as
     a resume would open it (its header must match this process)."""
@@ -1446,6 +1975,13 @@ def print_ptxas_report(log: Path) -> dict:
     return spills
 
 
+def memory_line(torch, phase: int) -> None:
+    """The card's peak reserved memory since the start, after a phase."""
+    print(f"device memory after phase {phase}: peak reserved "
+          f"{torch.cuda.max_memory_reserved() / 2 ** 30:.2f} GiB, now "
+          f"{torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB")
+
+
 def release(torch) -> None:
     """Hand the memory of the last phase's backends and graphs back to the
     card (a released graph's pool is freed only by ``empty_cache``)."""
@@ -1487,17 +2023,25 @@ def main() -> int:
     time_gemm_configs(torch, np)
     time_symm_chain_configs(torch, np)
     time_syrk_gemm_syrk_configs(torch, np)
+    memory_line(torch, 3)
     with tempfile.TemporaryDirectory(prefix="chip-smoke-atlas-") as d:
         launches, by_family = run_sweeps(torch, Path(d))
         release(torch)
+        memory_line(torch, 4)
         check_algorithms(torch)
+        memory_line(torch, 5)
         results["flash_attention"] = check_flash(torch, np)
+        memory_line(torch, 6)
         served = serve_model(torch, np)
         launches["flash_attention"] = served["launches"]["flash_attention"]
         release(torch)
+        memory_line(torch, 7)
         predicted = calibrate_predict_evaluate(Path(d))
         release(torch)
+        memory_line(torch, 8)
         sweep_engine(torch, Path(d), by_family)
+        release(torch)
+        phase10 = tuning_and_planner(torch, np, Path(d), by_family)
 
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
@@ -1509,7 +2053,12 @@ def main() -> int:
             "ms_b2b": r["ms_b2b"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": r["shape"],
-            "launches_phase8": predicted["launches"].get(name, 0)})
+            "launches_phase8": predicted["launches"].get(name, 0),
+            "launches_phase10": phase10["launches"].get(name, 0),
+            "launches_phase10_by_part": {
+                part: counts.get(name, 0)
+                for part, counts in phase10["parts"].items()},
+            "launches_phase10_tune": phase10["tune_launches"].get(name, 0)})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -10,6 +10,7 @@ from .base import (
     get_backend,
     get_backend_class,
     make_backend,
+    measure_seconds,
     num_inputs,
     operands_from_numpy,
     register_backend,
@@ -32,7 +33,8 @@ __all__ = [
     "CudaBackend", "CudaOps", "ExecutionBackend", "KernelOps",
     "TorchBackend", "TorchOps", "backend_default_dtype",
     "backend_shard_mode", "fusable_pattern", "fusion_enabled",
-    "get_backend", "get_backend_class", "make_backend", "num_inputs",
+    "get_backend", "get_backend_class", "make_backend", "measure_seconds",
+    "num_inputs",
     "operands_from_numpy", "register_backend", "register_torch_backends",
     "registered_backends", "synthetic_algorithm",
     "synthetic_fused_algorithm", "timing_mode", "walk_steps",

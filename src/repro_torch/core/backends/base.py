@@ -295,6 +295,9 @@ class ExecutionBackend:
     #: Allowed dtype labels; ``None`` means any.
     dtypes: Optional[Tuple[str, ...]] = None
     shard_mode: str = "process"
+    #: Whether the kernels take launch configs ``calibrate --tune`` can
+    #: search (``tuning_override`` / ``set_tuning`` / ``tuning_table``).
+    supports_tuning: bool = False
 
     def __init__(self, reps: int = 3, dtype: Optional[str] = None,
                  rng: Optional[np.random.Generator] = None,
@@ -480,3 +483,19 @@ def backend_default_dtype(name: str) -> str:
 def backend_shard_mode(name: str) -> str:
     """How the sweep engine fans this backend out: process | device."""
     return getattr(get_backend_class(name), "shard_mode", "process")
+
+
+def measure_seconds(fn: Callable, *args) -> tuple:
+    """Run ``fn(*args)`` and wait for its result; (result, seconds).
+
+    Used by the planner's online refinement, so the recorded time is the
+    work's completion, not its enqueueing: a result on a card is
+    synchronised before the second clock read. A deferred CUDA error
+    surfaced by the synchronise propagates — recording the enqueue time
+    of a failed computation would poison the profile.
+    """
+    t0 = time.perf_counter()
+    out = fn(*args)
+    if isinstance(out, torch.Tensor) and out.is_cuda:
+        torch.cuda.synchronize(out.device)
+    return out, time.perf_counter() - t0

@@ -14,6 +14,11 @@ is ``cuda``; without a card, constructing a backend without
 ``device="cpu"`` raises rather than quietly measuring the CPU.
 Registration is the explicit call :func:`register_torch_backends`.
 
+The ``cuda`` backend runs each kernel under the launch a
+:class:`~repro_torch.core.tuning.TuningTable` names for its dims (auto-
+loaded for the card on first dispatch; ``REPRO_NO_TUNING`` kills it),
+else under the wrapper's own launch rule.
+
 On a card, ``time_algorithm`` times one captured CUDA graph of the
 algorithm's walk, replayed: the counterpart of the reference's memo of
 one jitted program per algorithm (``JaxBackend._jitted``). The host's
@@ -25,6 +30,7 @@ program. On the CPU the eager walk is timed.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import os
 from typing import Callable, Dict, Mapping, Optional, Tuple
@@ -32,8 +38,10 @@ from typing import Callable, Dict, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
+from ...kernels import gemm_syrk as _gemm_syrk
 from ...kernels import ops as kops
 from ...kernels import ref
+from .. import tuning as _tuning
 from ..algorithms import Algorithm, Leaf
 from ..arena import algorithm_structural_key
 from ..fingerprint import HardwareFingerprint, device_label
@@ -93,10 +101,36 @@ class CudaOps(TorchOps):
     transposition stay tensor ops (a transpose is a strided view the
     kernels read in place).
 
+    ``config_lookup(kind, dims) -> dict | None`` supplies tuned launches
+    (from a :class:`~repro_torch.core.tuning.TuningTable`, or the
+    autotuner's per-candidate override), with dims read from the operands
+    exactly as the reference's ``PallasOps`` reads them. Each entry goes
+    through the kernel's ``config_from_dict``: one it refuses (a foreign
+    or hand-edited entry) is dropped and the wrapper's launch rule picks.
+
     Advertises the fused ``gemm+gemm`` (``chain_gemm``) and ``gemm+syrk``
     (``gemm_syrk``) patterns unless ``REPRO_NO_FUSION`` is set, as the
     reference's ``pallas`` does.
     """
+
+    _lookup: Optional[Callable[[str, Tuple[int, ...]], Optional[dict]]] = None
+
+    def __init__(self, config_lookup: Optional[
+            Callable[[str, Tuple[int, ...]], Optional[dict]]] = None):
+        self._lookup = config_lookup
+
+    def _cfg(self, kind: str, dims: Tuple[int, ...], t: torch.Tensor):
+        """The tuned launch for ``(kind, dims)``, or None."""
+        if self._lookup is None:
+            return None
+        entry = self._lookup(kind, dims)
+        if not entry:
+            return None
+        limits = _tuning.CardLimits()
+        if kind == "gemm_syrk" and t.is_cuda:
+            limits = _tuning.CardLimits(
+                active=_gemm_syrk.active_clusters(t.get_device()))
+        return _tuning.launch_config(kind, dims, entry, limits)
 
     def fused_kinds(self) -> frozenset:
         if not fusion_enabled():
@@ -104,26 +138,34 @@ class CudaOps(TorchOps):
         return frozenset({"gemm+gemm", "gemm+syrk"})
 
     def gemm(self, a, b):
-        return kops.gemm(a, b)
+        cfg = self._cfg("gemm", (a.shape[-2], b.shape[-1], a.shape[-1]), a)
+        return kops.gemm(a, b, config=cfg)
 
     def syrk(self, a):
-        return kops.syrk(a)
+        return kops.syrk(a, config=self._cfg(
+            "syrk", (a.shape[-2], a.shape[-1]), a))
 
     def symm(self, s, b):
-        return kops.symm(s, b)
+        return kops.symm(s, b, config=self._cfg(
+            "symm", (s.shape[-2], b.shape[-1]), b))
 
     def symm_r(self, b, s):
         # B·S with S symmetric: (S·Bᵀ)ᵀ via the side-L kernel.
-        return kops.symm(s, b.mT).mT
+        cfg = self._cfg("symm", (s.shape[-2], b.shape[-2]), b)
+        return kops.symm(s, b.mT, config=cfg).mT
 
     def tri2full(self, t):
         return kops.tri2full(t)
 
     def chain_gemm(self, a, b, c):
-        return kops.chain_gemm(a, b, c)
+        cfg = self._cfg("chain_gemm", (a.shape[-2], a.shape[-1],
+                                       b.shape[-1], c.shape[-1]), a)
+        return kops.chain_gemm(a, b, c, config=cfg)
 
     def gemm_syrk(self, a, b):
-        return kops.gemm_syrk(a, b)
+        cfg = self._cfg("gemm_syrk", (a.shape[-2], a.shape[-1],
+                                      b.shape[-1]), a)
+        return kops.gemm_syrk(a, b, config=cfg)
 
 
 @dataclasses.dataclass
@@ -294,12 +336,92 @@ class TorchBackend(ExecutionBackend):
 
 
 class CudaBackend(TorchBackend):
-    """Execute and time algorithms through the hand-written CUDA kernels."""
+    """Execute and time algorithms through the hand-written CUDA kernels.
+
+    Tuning: with ``tuning="auto"`` (the default) the backend loads the
+    :class:`~repro_torch.core.tuning.TuningTable` cached for its
+    fingerprint (written by ``calibrate --tune``) on first dispatch; a
+    kernel whose dims the table holds then runs under that entry's
+    launch. Unseen dims keep the wrapper's launch rule: unlike the
+    reference's ``TuningTable.config``, dispatch borrows no nearest
+    entry, because the launch rule is a cost model fitted on this card
+    and a config tuned at other dims ran slower than it there (PERF.md
+    §6). Pass a table, or ``tuning=None`` to pin the wrappers' launch
+    rules; ``REPRO_NO_TUNING=1`` kills lookups at dispatch regardless.
+    :meth:`tuning_override` is the autotuner's hook and wins over both.
+    """
 
     name = "cuda"
+    supports_tuning = True
+
+    def __init__(self, device="cuda", reps: int = 3,
+                 dtype: Optional[str] = None,
+                 rng: Optional[np.random.Generator] = None,
+                 seed: Optional[int] = None, tuning="auto"):
+        super().__init__(device=device, reps=reps, dtype=dtype, rng=rng,
+                         seed=seed)
+        self._tuning = tuning          # "auto" | TuningTable | None
+        self._tuning_resolved = tuning != "auto"
+        self._override: Optional[Callable[
+            [str, Tuple[int, ...]], Optional[dict]]] = None
+        #: Bumped whenever the effective lookup changes (table swap,
+        #: override entry and exit): a captured graph bakes in its
+        #: launches, so the graph memo keys on it.
+        self._tuning_generation = 0
+
+    def set_tuning(self, table) -> None:
+        """Pin a :class:`~repro_torch.core.tuning.TuningTable` (or None)."""
+        self._tuning = table
+        self._tuning_resolved = True
+        self._tuning_generation += 1
+
+    def tuning_table(self):
+        """The resolved table (auto-load happens here), or ``None``."""
+        if not self._tuning_resolved:
+            self._tuning = _tuning.load_default_tuning_table(
+                backend=self.name, dtype=self.dtype, device=self.device)
+            self._tuning_resolved = True
+        return self._tuning
+
+    @contextlib.contextmanager
+    def tuning_override(self, entries: Dict[Tuple[str, Tuple[int, ...]],
+                                            dict]):
+        """Force exact per-``(kind, dims)`` configs for the duration.
+
+        The autotuner's measurement hook: candidates run through the same
+        lookup production dispatch uses, bypassing the table and the
+        kill-switch (a tuning run measures while ``REPRO_NO_TUNING``
+        protects production traffic). Entry and exit bump the tuning
+        generation, so no graph captured under one candidate is replayed
+        under another.
+        """
+        prev = self._override
+        self._override = lambda kind, dims: entries.get((kind, dims))
+        self._tuning_generation += 1
+        try:
+            yield self
+        finally:
+            self._override = prev
+            self._tuning_generation += 1
+
+    def _config_lookup(self, kind: str,
+                       dims: Tuple[int, ...]) -> Optional[dict]:
+        if self._override is not None:
+            return self._override(kind, dims)
+        if _tuning.tuning_disabled():
+            return None
+        table = self.tuning_table()
+        entry = None if table is None else table.entry(kind, dims)
+        return None if entry is None else dict(entry.config)
+
+    def _memo_generation(self) -> Tuple:
+        """Fusion and tuning state a captured walk bakes in: the fused
+        patterns, the kill-switch and the tuning generation."""
+        return super()._memo_generation() + (_tuning.tuning_disabled(),
+                                             self._tuning_generation)
 
     def ops(self) -> KernelOps:
-        return CudaOps()
+        return CudaOps(self._config_lookup)
 
 
 def register_torch_backends() -> None:

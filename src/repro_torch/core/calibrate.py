@@ -20,6 +20,12 @@ CLI::
     PYTHONPATH=src python -m repro_torch.core.calibrate --grid small
     PYTHONPATH=src python -m repro_torch.core.calibrate --expr aatb --grid 400,800,1200
     PYTHONPATH=src python -m repro_torch.core.calibrate --backend torch --device cpu --grid tiny
+    PYTHONPATH=src python -m repro_torch.core.calibrate --tune --grid default --tune-budget 8
+
+``--tune`` measures the kernels' launches instead of a profile
+(:func:`tune`): it writes the
+:class:`~repro_torch.core.tuning.TuningTable` the ``cuda`` backend
+auto-loads.
 
 Grids are named (tiny/small/default/full) rather than free-form so cache
 files produced on different machines cover comparable shape ranges; with
@@ -216,6 +222,69 @@ def calibrate(
                              wall_s=wall, n_calls=len(profile.table))
 
 
+@dataclasses.dataclass
+class TuneResult:
+    table: object                 # repro_torch.core.tuning.TuningTable
+    fingerprint: HardwareFingerprint
+    path: Optional[Path]          # None when persistence was disabled
+    wall_s: float
+    n_requests: int
+
+
+def tune(
+    backend: str = "cuda",
+    grid: str = "tiny",
+    reps: int = 3,
+    out: Optional[Path] = None,
+    dtype: Optional[str] = None,
+    save: bool = True,
+    budget: int = 8,
+    progress=None,
+    seed: Optional[int] = None,
+    device: str = "cuda",
+) -> TuneResult:
+    """``calibrate --tune``: autotune the kernels' launches, persist the
+    winners.
+
+    The tuning sibling of :func:`calibrate`: the same named grids, the
+    same fingerprint, the same cache directory — but the measured object
+    is a :class:`~repro_torch.core.tuning.TuningTable` of winning launch
+    configs (one per ``(kind, dims)``; tri2full has none, and the grid's
+    diagonal adds the two fused patterns), pruned before any timing and
+    measured under a per-request ``budget``. Only a backend whose kernels
+    take launch configs can be tuned: ``cuda``.
+    """
+    if grid not in GRIDS:
+        raise ValueError(f"unknown grid {grid!r}; expected {sorted(GRIDS)}")
+    register_torch_backends()
+    if backend not in registered_backends():
+        raise ValueError(
+            f"unknown backend {backend!r}; registered: "
+            f"{registered_backends()}")
+    runner = get_backend(backend, device=device, reps=reps, dtype=dtype,
+                         seed=seed)
+    if not getattr(runner, "supports_tuning", False):
+        raise ValueError(
+            f"backend {backend!r} has no tunable kernel parameters; "
+            f"--tune requires a tuning-capable backend (cuda)")
+    from ..kernels.autotune import autotune, default_tune_requests
+    from .tuning import save_tuning_table
+    dims = GRIDS[grid]
+    requests = default_tune_requests(grid_calls(dims), fused_dims=dims)
+    fp = runner.fingerprint()
+    t0 = time.perf_counter()
+    table = autotune(runner, requests, reps=reps, budget=budget,
+                     progress=progress)
+    wall = time.perf_counter() - t0
+    path = None
+    if save:
+        meta = {"grid": grid, "reps": reps, "budget": budget,
+                "wall_s": round(wall, 3)}
+        path = save_tuning_table(table, fp, directory=out, meta=meta)
+    return TuneResult(table=table, fingerprint=fp, path=path, wall_s=wall,
+                      n_requests=len(requests))
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     from .cli_help import (analysis_rules_epilog, backends_epilog,
                            discriminants_epilog)
@@ -252,12 +321,43 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--dtype", default=None,
                     help="dtype label for the fingerprint (default: the "
                          "backend's own, float32)")
+    ap.add_argument("--tune", action="store_true",
+                    help="autotune the kernels' launches instead of "
+                         "measuring a kernel profile: prune each kernel's "
+                         "launch candidates by shared memory and its cost "
+                         "model, time the survivors, persist the winners "
+                         "as a TuningTable the cuda backend auto-loads")
+    ap.add_argument("--tune-budget", type=int, default=8,
+                    help="with --tune: max candidate launches timed per "
+                         "(kind, dims) request after pruning")
     ap.add_argument("--seed", type=int, default=None,
                     help="operand-synthesis seed: benchmark operands "
                          "become pure functions of (seed, base, shape), "
                          "so repeat calibrations time identical inputs")
     ap.add_argument("--quiet", action="store_true")
     args = ap.parse_args(argv)
+
+    if args.tune:
+        if args.expr is not None:
+            ap.error("--tune and --expr are mutually exclusive")
+
+        def tune_progress(i, n, kind, dims, entry):
+            if not args.quiet:
+                speedup = entry.default_seconds / max(entry.seconds, 1e-12)
+                print(f"  [{i}/{n}] {kind}{dims} -> {entry.config} "
+                      f"({entry.timed} timed, {entry.pruned} pruned, "
+                      f"{speedup:.2f}x vs the model's pick)",
+                      file=sys.stderr)
+
+        res = tune(backend=args.backend, grid=args.grid, reps=args.reps,
+                   out=args.out, dtype=args.dtype,
+                   budget=args.tune_budget, progress=tune_progress,
+                   seed=args.seed, device=args.device)
+        print(f"tuned {res.n_requests} kernel shapes on "
+              f"{res.fingerprint.backend}/{res.fingerprint.device}"
+              f"/{res.fingerprint.dtype} in {res.wall_s:.1f}s")
+        print(f"tuning table written to {res.path}")
+        return 0
 
     def progress(i: int, n: int, call: KernelCall, seconds: float):
         if not args.quiet and (i % 25 == 0 or i == n):

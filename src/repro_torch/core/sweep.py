@@ -74,6 +74,7 @@ from .expressions import (REGISTRY, SWEEP_GRIDS, ExpressionSpec, GridSpec, get_s
 from .fingerprint import HardwareFingerprint, cache_base_dir
 from .flops import KernelCall
 from .perfmodel import KernelProfile, TableProfile, predict_algorithm_time
+from .tuning import ENV_NO_TUNING, atlas_tuning, runner_tuning
 
 # --------------------------------------------------- instance measurement ---
 
@@ -232,9 +233,16 @@ class AnomalyAtlas:
     ``torch`` backend), ``fusion``, whether fused dispatch was on, and
     ``timing``, what each time is of (``"graph"``: one replayed CUDA graph
     per algorithm, on a card; ``"eager"``: the walk, on the CPU; see
-    :func:`repro_torch.core.backends.timing_mode`). A resume under another
-    value of any of them, or of an atlas whose header lacks one, is
-    refused: one atlas never mixes two programs' timings.
+    :func:`repro_torch.core.backends.timing_mode`), and ``tuning``, the
+    digest of the tuning table the ``cuda`` backend launches under (None
+    under ``REPRO_NO_TUNING``, without a table, or on the ``torch``
+    backend). It opens as the tuning state of ``runner`` when one is
+    given, else as the cached table's digest
+    (:func:`repro_torch.core.tuning.atlas_tuning`), and :func:`sweep`
+    binds it to the measuring runner's own table before the first timing
+    (:meth:`bind_tuning`). A resume under another value of any of them,
+    or of an atlas whose header lacks one, is refused: one atlas never
+    mixes two programs' timings.
 
     A torn final line (the kill landed mid-write) is tolerated on load;
     any undecodable line is skipped and counted in ``skipped_lines``.
@@ -249,7 +257,7 @@ class AnomalyAtlas:
 
     def __init__(self, path: Path, fingerprint: HardwareFingerprint,
                  spec_name: str, threshold: float, chunk_size: int = 32,
-                 shard: Optional[Tuple[int, int]] = None):
+                 shard: Optional[Tuple[int, int]] = None, runner=None):
         if chunk_size < 1:
             raise ValueError("chunk_size must be >= 1")
         if shard is not None:
@@ -267,7 +275,10 @@ class AnomalyAtlas:
         cuda = fingerprint.backend == "cuda"
         self.program = {"kernels": _build.source_hash() if cuda else None,
                         "fusion": cuda and fusion_enabled(),
-                        "timing": timing_mode(fingerprint.device)}
+                        "timing": timing_mode(fingerprint.device),
+                        "tuning": (atlas_tuning(fingerprint)
+                                   if runner is None
+                                   else runner_tuning(runner))}
         self.skipped_lines = 0
         self._records: Dict[Tuple[int, ...], Instance] = {}
         self._buffer: List[str] = []
@@ -340,9 +351,9 @@ class AnomalyAtlas:
             if not self.program.keys() <= head.keys():
                 raise AtlasError(
                     f"atlas {self.path} does not record the kernel sources, "
-                    f"the fusion setting and the timing it was measured "
-                    f"with; start a fresh atlas (another --atlas-dir, "
-                    f"--fresh, or delete it)")
+                    f"the fusion setting, the timing and the tuning it was "
+                    f"measured with; start a fresh atlas (another "
+                    f"--atlas-dir, --fresh, or delete it)")
             recorded = {key: head[key] for key in self.program}
             if recorded != self.program:
                 raise AtlasError(
@@ -352,7 +363,9 @@ class AnomalyAtlas:
                     f"{self.program['kernels']!r} fusion="
                     f"{self.program['fusion']!r}; the atlas was timed "
                     f"{recorded['timing']!r}, this process times "
-                    f"{self.program['timing']!r}")
+                    f"{self.program['timing']!r}; the atlas was tuned by "
+                    f"table {recorded['tuning']!r}, this process by "
+                    f"{self.program['tuning']!r}")
             self._header_on_disk = True
             raw = first
             for raw in f:
@@ -370,6 +383,20 @@ class AnomalyAtlas:
             # A torn tail has no trailing newline; flush starts with one so
             # the next record is not merged into the garbage line.
             self._needs_newline = not raw.endswith("\n")
+
+    def bind_tuning(self, tuning: Optional[str]) -> None:
+        """Record ``tuning``, the measuring runner's tuning state
+        (:func:`~repro_torch.core.tuning.runner_tuning`), as the header's.
+        An atlas whose header is on disk must already record it."""
+        if tuning == self.program["tuning"]:
+            return
+        if self._header_on_disk:
+            raise AtlasError(
+                f"atlas {self.path} was tuned by table "
+                f"{self.program['tuning']!r}, but its runner launches "
+                f"under {tuning!r}; one atlas never mixes two programs' "
+                f"timings")
+        self.program["tuning"] = tuning
 
     def append(self, inst: Instance) -> bool:
         """Add one instance; returns False (no write) for known points."""
@@ -708,6 +735,11 @@ def sweep(
     what makes a restarted sweep resume; newly measured instances stream
     into the atlas and are flushed in chunks. ``max_instances`` caps new
     measurements. Requested-point order is preserved in the result.
+    On the serial path the atlas's ``tuning`` is bound to the runner's
+    own table before the first timing (:meth:`AnomalyAtlas.bind_tuning`;
+    a resumed atlas of another tuning state raises :class:`AtlasError`);
+    the ``process`` and ``devices`` workers auto-load the cached table
+    the header names.
     ``executor`` (process backend) is a pool to reuse, left open.
 
     ``fastpath`` controls the measurement fast path (operand arena, graph
@@ -771,6 +803,8 @@ def sweep(
                     register_torch_backends()
                     r = make_backend(exec_backend, device=device, reps=reps,
                                      dtype=dtype, seed=seed)
+            if atlas is not None:
+                atlas.bind_tuning(runner_tuning(r))
             if fp_on:
                 _run_serial_fastpath(spec, todo, r, threshold, on_done,
                                      stats)
@@ -1145,6 +1179,13 @@ def main(argv: Optional[List[str]] = None) -> int:
                     help="cuda: disable fused adjacent-step dispatch (sets "
                          "REPRO_NO_FUSION) — every step launches its own "
                          "kernel")
+    ap.add_argument("--no-tuning", action="store_true",
+                    help="cuda: ignore the tuning table (sets "
+                         "REPRO_NO_TUNING) — every kernel launches as its "
+                         "wrapper's cost model picks; the atlas header "
+                         "records tuning=null, so a tuned and a default "
+                         "atlas of one grid make the tuned vs default "
+                         "anomaly map")
     ap.add_argument("--no-fastpath", action="store_true",
                     help="disable the measurement fast path (operand "
                          "arena, pipelined preparation; sets "
@@ -1173,6 +1214,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     # at every dispatch and worker processes inherit them.
     if args.no_fusion:
         os.environ["REPRO_NO_FUSION"] = "1"
+    if args.no_tuning:
+        os.environ[ENV_NO_TUNING] = "1"
     if args.no_fastpath:
         os.environ[FASTPATH_ENV] = "1"
 

@@ -16,12 +16,12 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 from functools import lru_cache
-from typing import Iterator, Tuple
+from typing import Iterator, Mapping, Optional, Sequence, Tuple
 
 import torch
 
 from . import _build
-from .gemm import SMS, US_PER_MMAC, sm_count
+from .gemm import PAD, SMS, US_PER_MMAC, sm_count, tile_smem_bytes
 
 #: Pieces (BM rows, BL l-columns) compiled into ``csrc/chain_gemm.cu``,
 #: largest first; the index is the ``config`` argument of
@@ -54,8 +54,30 @@ class ChainConfig:
     def name(self) -> str:
         return f"{self.bm}x{self.bl}"
 
+    @property
+    def smem_bytes(self) -> int:
+        """Dynamic shared memory of a block: the GEMM routine's ring plus
+        the parked piece (``piece_bytes`` in ``csrc/chain_gemm.cu``)."""
+        return tile_smem_bytes(self.bm, self.bl) + self.bl * (self.bm + PAD) * 4
+
 
 CONFIGS = tuple(ChainConfig(i, bm, bl) for i, (bm, bl) in enumerate(TILES))
+
+
+def config_to_dict(cfg: ChainConfig) -> dict:
+    """The launch as a tuning-table entry: ``{"piece"}``."""
+    return {"piece": cfg.config}
+
+
+def config_from_dict(dims: Sequence[int],
+                     d: Mapping) -> Optional[ChainConfig]:
+    """The launch a tuning-table entry names, or None unless its piece is
+    one of :data:`CONFIGS` (other keys are ignored)."""
+    try:
+        piece = int(d["piece"])
+    except (KeyError, TypeError, ValueError):
+        return None
+    return CONFIGS[piece] if 0 <= piece < len(CONFIGS) else None
 
 
 def chain_cost(m: int, k: int, l: int, n: int, cfg: ChainConfig,
@@ -92,14 +114,16 @@ def chain_blocks(m: int, l: int,
             yield y * cfg.bm, x * cfg.bl, min(l, (x + 1) * cfg.bl)
 
 
-def chain_gemm_cuda(a: torch.Tensor, b: torch.Tensor,
-                    c: torch.Tensor) -> torch.Tensor:
-    """(A·B)·C on the card; operands already validated by
+def chain_gemm_cuda(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+                    cfg: Optional[ChainConfig] = None) -> torch.Tensor:
+    """(A·B)·C on the card under ``cfg`` (a tuned launch), else under
+    :func:`chain_config`'s pick; operands already validated by
     ``ops.chain_gemm``."""
-    m, k = a.shape
-    l, n = c.shape
-    return launch(a, b, c, chain_config(m, k, l, n,
-                                        sm_count(a.get_device())))
+    if cfg is None:
+        m, k = a.shape
+        l, n = c.shape
+        cfg = chain_config(m, k, l, n, sm_count(a.get_device()))
+    return launch(a, b, c, cfg)
 
 
 def launch(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 from functools import lru_cache
-from typing import Iterator, List, Tuple
+from typing import Iterator, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 
@@ -22,8 +22,11 @@ from . import _build
 #: Block tiles (rows, columns) compiled into ``csrc/gemm.cu``, largest
 #: first; the index is the ``config`` argument of ``repro_gemm_f32``.
 TILES: Tuple[Tuple[int, int], ...] = ((128, 128), (128, 64), (64, 64))
-#: Contraction slab depth; every split slice is a multiple of it.
+#: Contraction slab depth; every split slice is a multiple of it. Slabs
+#: in the cp.async ring, and the floats each slab row is padded by
+#: (``csrc/sgemm.cuh``).
 BK = 16
+STAGES, PAD = 3, 4
 #: Shallowest slice a split makes, in contraction steps, and the most
 #: slices: the range of splits timed on the card (PERF.md, section 6).
 MIN_SLICE = 96
@@ -65,6 +68,16 @@ class GemmConfig:
         split = f" split {self.split}x{self.kchunk}" if self.split > 1 else ""
         return f"{self.bm}x{self.bn}{split}"
 
+    @property
+    def smem_bytes(self) -> int:
+        return tile_smem_bytes(self.bm, self.bn)
+
+
+def tile_smem_bytes(bm: int, bn: int) -> int:
+    """Dynamic shared memory of a block of tile bm x bn: the ring of A and
+    B slabs (``Tile::smem_bytes`` in ``csrc/sgemm.cuh``)."""
+    return STAGES * BK * ((bm + PAD) + (bn + PAD)) * 4
+
 
 def with_split(config: int, k: int, split: int) -> GemmConfig:
     """Tile ``config`` with the contraction cut into at most ``split``
@@ -80,6 +93,31 @@ def candidates(k: int) -> List[GemmConfig]:
     most = max(1, min(MAX_SPLIT, k // MIN_SLICE))
     return [with_split(c, k, s) for c in range(len(TILES))
             for s in range(1, most + 1)]
+
+
+def config_to_dict(cfg: GemmConfig) -> dict:
+    """The launch as a tuning-table entry: ``{"tile", "split"}``."""
+    return {"tile": cfg.config, "split": cfg.split}
+
+
+def match_config(cands: Sequence[GemmConfig],
+                 d: Mapping) -> Optional[GemmConfig]:
+    """The candidate a ``{"tile", "split"}`` entry names, or None for an
+    entry that names none of them (other keys are ignored)."""
+    try:
+        tile, split = int(d["tile"]), int(d["split"])
+    except (KeyError, TypeError, ValueError):
+        return None
+    for c in cands:
+        if c.config == tile and c.split == split:
+            return c
+    return None
+
+
+def config_from_dict(dims: Sequence[int], d: Mapping) -> Optional[GemmConfig]:
+    """The launch a tuning-table entry names for an (m, n, k) product, or
+    None unless it is one of :func:`candidates` at that k."""
+    return match_config(candidates(int(dims[2])), d)
 
 
 def gemm_cost(m: int, n: int, cfg: GemmConfig, sms: int = SMS) -> float:
@@ -120,11 +158,15 @@ def sm_count(device: int) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def gemm_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """C = A·B on the card; operands already validated by ``ops.gemm``."""
-    m, k = a.shape
-    return launch(a, b, gemm_config(m, b.shape[1], k,
-                                    sm_count(a.get_device())))
+def gemm_cuda(a: torch.Tensor, b: torch.Tensor,
+              cfg: Optional[GemmConfig] = None) -> torch.Tensor:
+    """C = A·B on the card under ``cfg`` (a tuned launch), else under
+    :func:`gemm_config`'s pick; operands already validated by
+    ``ops.gemm``."""
+    if cfg is None:
+        m, k = a.shape
+        cfg = gemm_config(m, b.shape[1], k, sm_count(a.get_device()))
+    return launch(a, b, cfg)
 
 
 def launch(a: torch.Tensor, b: torch.Tensor, cfg: GemmConfig) -> torch.Tensor:

@@ -23,18 +23,18 @@ from __future__ import annotations
 import ctypes
 from dataclasses import dataclass
 from functools import lru_cache
-from typing import Iterator, List, Optional, Tuple
+from typing import Iterator, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 
 from . import _build
 from . import gemm as _gemm
 from . import syrk as _syrk
+# The slab depth, ring stages and row padding of ``csrc/sgemm.cuh``.
+from .gemm import BK, PAD, STAGES
 
 #: Rows of a piece of M1 and side of an output tile.
 BM = 64
-#: Contraction slab depth of ``csrc/sgemm.cuh``; stages of its ring.
-BK, STAGES, PAD = 16, 3, 4
 #: Chunk widths compiled into ``csrc/gemm_syrk.cu`` (multiples of BK).
 WIDTHS = (16, 32, 64)
 #: The portable thread-block cluster size.
@@ -142,6 +142,28 @@ def candidates(m: int) -> List[GemmSyrkConfig]:
     return [c for c in CONFIGS if c.fits(m)]
 
 
+def config_to_dict(cfg: GemmSyrkConfig) -> dict:
+    """The launch as a tuning-table entry: ``{"bl", "cluster"}``."""
+    return {"bl": cfg.bl, "cluster": cfg.cluster}
+
+
+def config_from_dict(dims: Sequence[int], d: Mapping,
+                     active: Tuple[int, ...] = ACTIVE_CLUSTERS
+                     ) -> Optional[GemmSyrkConfig]:
+    """The launch a tuning-table entry names for (m, k, l), or None
+    unless it is one of :func:`candidates` at that m and a card holding
+    ``active[C - 1]`` resident clusters of C can run a cluster of its
+    size (other keys are ignored)."""
+    try:
+        bl, cluster = int(d["bl"]), int(d["cluster"])
+    except (KeyError, TypeError, ValueError):
+        return None
+    for c in candidates(int(dims[0])):
+        if c.bl == bl and c.cluster == cluster and active[cluster - 1] > 0:
+            return c
+    return None
+
+
 @lru_cache(maxsize=4096)
 def gemm_syrk_config(m: int, k: int, l: int,
                      active: Tuple[int, ...] = ACTIVE_CLUSTERS
@@ -185,12 +207,16 @@ def executed_flops(m: int, k: int, l: int, cfg: GemmSyrkConfig) -> int:
     return flops
 
 
-def gemm_syrk_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """tril((A·B)(A·B)ᵀ) on the card; operands already validated by
-    ``ops.gemm_syrk``. Above :func:`max_m` rows, ``syrk(gemm(a, b))`` on
-    the port's kernels."""
-    m, k = a.shape
-    cfg = gemm_syrk_config(m, k, b.shape[1], active_clusters(a.get_device()))
+def gemm_syrk_cuda(a: torch.Tensor, b: torch.Tensor,
+                   cfg: Optional[GemmSyrkConfig] = None) -> torch.Tensor:
+    """tril((A·B)(A·B)ᵀ) on the card under ``cfg`` (a tuned launch), else
+    under :func:`gemm_syrk_config`'s pick; operands already validated by
+    ``ops.gemm_syrk``. Above :func:`max_m` rows, where no launch holds the
+    panel, ``syrk(gemm(a, b))`` on the port's kernels."""
+    if cfg is None:
+        m, k = a.shape
+        cfg = gemm_syrk_config(m, k, b.shape[1],
+                               active_clusters(a.get_device()))
     if cfg is None:
         return _syrk.syrk_cuda(_gemm.gemm_cuda(a, b))
     return launch(a, b, cfg)

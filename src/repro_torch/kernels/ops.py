@@ -9,6 +9,10 @@ mismatched dims), then dispatches on where the operands lie:
 * on the CPU, it runs the plain PyTorch version in :mod:`.ref`, which is
   what the CPU tests compare with the reference package.
 
+The five matrix kernels take an optional ``config=``: a launch of the
+kernel's own (a tuned one, from :mod:`repro_torch.core.tuning`), made in
+place of the one its launch rule picks. The plain version ignores it.
+
 ``flash_attention`` keeps the reference's (B, H, S, D) layout at its
 boundary. ``tri2full`` is data movement (the paper charges it no flops)
 and stays a plain tensor op on either device, as in the reference.
@@ -67,37 +71,38 @@ def _on_card(kernel: str, t: torch.Tensor) -> bool:
     raise ValueError(f"{kernel}: no kernel for device {t.device}")
 
 
-def gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def gemm(a: torch.Tensor, b: torch.Tensor, config=None) -> torch.Tensor:
     """C = A·B."""
     check_matrices("gemm", A=a, B=b)
     check_same("gemm", "contraction dim k",
                ("A.shape[1]", a.shape[1]), ("B.shape[0]", b.shape[0]))
     if _on_card("gemm", a):
-        return _gemm.gemm_cuda(a, b)
+        return _gemm.gemm_cuda(a, b, config)
     return ref.gemm(a, b)
 
 
-def syrk(a: torch.Tensor) -> torch.Tensor:
+def syrk(a: torch.Tensor, config=None) -> torch.Tensor:
     """Lower triangle of A·Aᵀ (strictly-upper entries zero)."""
     check_matrices("syrk", A=a)
     if _on_card("syrk", a):
-        return _syrk.syrk_cuda(a)
+        return _syrk.syrk_cuda(a, config)
     return ref.syrk(a)
 
 
-def symm(s_lower: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def symm(s_lower: torch.Tensor, b: torch.Tensor,
+         config=None) -> torch.Tensor:
     """C = S·B, S symmetric and stored in its lower triangle (the strict
     upper triangle is never read)."""
     check_matrices("symm", S=s_lower, B=b)
     check_same("symm", "symmetric dim m", ("S.shape[0]", s_lower.shape[0]),
                ("S.shape[1]", s_lower.shape[1]), ("B.shape[0]", b.shape[0]))
     if _on_card("symm", b):
-        return _symm.symm_cuda(s_lower, b)
+        return _symm.symm_cuda(s_lower, b, config)
     return ref.symm(s_lower, b)
 
 
-def chain_gemm(a: torch.Tensor, b: torch.Tensor,
-               c: torch.Tensor) -> torch.Tensor:
+def chain_gemm(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+               config=None) -> torch.Tensor:
     """(A·B)·C without materializing A·B (on the card)."""
     check_matrices("chain_gemm", A=a, B=b, C=c)
     check_same("chain_gemm", "contraction dim k",
@@ -105,18 +110,18 @@ def chain_gemm(a: torch.Tensor, b: torch.Tensor,
     check_same("chain_gemm", "contraction dim l",
                ("B.shape[1]", b.shape[1]), ("C.shape[0]", c.shape[0]))
     if _on_card("chain_gemm", a):
-        return _chain_gemm.chain_gemm_cuda(a, b, c)
+        return _chain_gemm.chain_gemm_cuda(a, b, c, config)
     return ref.chain_gemm(a, b, c)
 
 
-def gemm_syrk(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def gemm_syrk(a: torch.Tensor, b: torch.Tensor, config=None) -> torch.Tensor:
     """Lower triangle of (A·B)(A·B)ᵀ without materializing A·B (on the
     card); strictly-upper entries zero."""
     check_matrices("gemm_syrk", A=a, B=b)
     check_same("gemm_syrk", "contraction dim k",
                ("A.shape[1]", a.shape[1]), ("B.shape[0]", b.shape[0]))
     if _on_card("gemm_syrk", a):
-        return _gemm_syrk.gemm_syrk_cuda(a, b)
+        return _gemm_syrk.gemm_syrk_cuda(a, b, config)
     return ref.gemm_syrk(a, b)
 
 

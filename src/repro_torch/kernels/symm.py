@@ -12,12 +12,14 @@ are chosen per call (:func:`symm_config`). Side R (B·S) is
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Mapping, Optional, Sequence, Tuple
 
 import torch
 
 from . import _build
-from .gemm import SMS, GemmConfig, gemm_config, sm_count
+# config_to_dict is the GEMM's: a SYMM launch has the same knobs.
+from .gemm import (SMS, GemmConfig, candidates, config_to_dict,  # noqa: F401
+                   gemm_config, match_config, sm_count)
 
 #: Launches of the CUDA kernel in this process.
 launches = 0
@@ -30,6 +32,13 @@ def symm_config(m: int, n: int, sms: int = SMS) -> GemmConfig:
     4-byte copies are BM of the m contraction steps and are charged
     nothing (PERF.md, section 6)."""
     return gemm_config(m, n, m, sms)
+
+
+def config_from_dict(dims: Sequence[int], d: Mapping) -> Optional[GemmConfig]:
+    """The launch a tuning-table entry (``{"tile", "split"}``) names for
+    sym(S)·B at (m, n), or None unless it is one of the GEMM's candidates
+    over the contraction m."""
+    return match_config(candidates(int(dims[0])), d)
 
 
 def symm_segments(row0: int, bm: int, k0: int,
@@ -48,10 +57,14 @@ def symm_segments(row0: int, bm: int, k0: int,
     return [(kind, s, e) for kind, s, e in cuts if s < e]
 
 
-def symm_cuda(s_lower: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """sym(S)·B on the card; operands already validated by ``ops.symm``."""
-    return launch(s_lower, b, symm_config(b.shape[0], b.shape[1],
-                                          sm_count(b.get_device())))
+def symm_cuda(s_lower: torch.Tensor, b: torch.Tensor,
+              cfg: Optional[GemmConfig] = None) -> torch.Tensor:
+    """sym(S)·B on the card under ``cfg`` (a tuned launch), else under
+    :func:`symm_config`'s pick; operands already validated by
+    ``ops.symm``."""
+    if cfg is None:
+        cfg = symm_config(b.shape[0], b.shape[1], sm_count(b.get_device()))
+    return launch(s_lower, b, cfg)
 
 
 def launch(s_lower: torch.Tensor, b: torch.Tensor,

@@ -14,14 +14,15 @@ pass runs outside the kernel. Its plain version is
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import Iterator, List, Tuple
+from typing import Iterator, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from . import _build
+# config_to_dict is the GEMM's: a SYRK launch has the same knobs.
 from .gemm import (SMS, US_PER_MMAC, US_SPLIT, GemmConfig, candidates,
-                   sm_count)
+                   config_to_dict, match_config, sm_count)  # noqa: F401
 
 #: Launches of the CUDA kernel in this process.
 launches = 0
@@ -41,6 +42,14 @@ def syrk_candidates(k: int) -> List[GemmConfig]:
     """The GEMM's square tiles (128x128, 64x64), each with the contraction
     cut as :func:`repro_torch.kernels.gemm.candidates` cuts it."""
     return [c for c in candidates(k) if c.bm == c.bn]
+
+
+def config_from_dict(dims: Sequence[int], d: Mapping) -> Optional[GemmConfig]:
+    """The launch a tuning-table entry (``{"tile", "split"}``, as
+    :func:`repro_torch.kernels.gemm.config_to_dict` writes it) names for
+    an (m, k) SYRK, or None unless it is one of :func:`syrk_candidates`
+    at that k."""
+    return match_config(syrk_candidates(int(dims[1])), d)
 
 
 def syrk_cost(m: int, cfg: GemmConfig, sms: int = SMS) -> float:
@@ -88,10 +97,14 @@ def syrk_blocks(m: int, k: int,
             yield bi * cfg.bm, bj * cfg.bm, k0, min(k, k0 + cfg.kchunk)
 
 
-def syrk_cuda(a: torch.Tensor) -> torch.Tensor:
-    """tril(A·Aᵀ) on the card; ``a`` already validated by ``ops.syrk``."""
-    m, k = a.shape
-    return launch(a, syrk_config(m, k, sm_count(a.get_device())))
+def syrk_cuda(a: torch.Tensor,
+              cfg: Optional[GemmConfig] = None) -> torch.Tensor:
+    """tril(A·Aᵀ) on the card under ``cfg`` (a tuned launch), else under
+    :func:`syrk_config`'s pick; ``a`` already validated by ``ops.syrk``."""
+    if cfg is None:
+        m, k = a.shape
+        cfg = syrk_config(m, k, sm_count(a.get_device()))
+    return launch(a, cfg)
 
 
 def launch(a: torch.Tensor, cfg: GemmConfig) -> torch.Tensor:

@@ -19,12 +19,14 @@ identity outside a mesh and are left out.
 
 from __future__ import annotations
 
+import warnings
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
 
 from repro_torch.kernels import ops as kops
+from repro_torch.serve.plan_cache import default_plan_service, planner_enabled
 
 from .layers import Dense, apply_rope, dense, softcap
 
@@ -46,6 +48,9 @@ class KVCache(NamedTuple):
     k: torch.Tensor     # (B, max_s, Hkv, Dh)
     v: torch.Tensor     # (B, max_s, Hkv, Dh)
     length: int         # tokens currently valid
+    #: Decode's P·V·Wo association, resolved once for the cache's
+    #: capacity (:func:`planned_pv_right_first`); False is left.
+    right_first: bool = False
 
 
 class Attention(nn.Module):
@@ -147,37 +152,68 @@ def apply_prefill(p: Attention, cfg: AttnConfig, x: torch.Tensor,
                                differentiable=False)
     cache.k[:, :s] = k
     cache.v[:, :s] = v
-    return proj, KVCache(cache.k, cache.v, s)
+    return proj, cache._replace(length=s)
 
 
-def planned_pv_right_first(t: int, s: int, head_dim: int,
-                           d_model: int) -> bool:
-    """Associate decode P·V·Wo right-first? Always left here.
+def planned_pv_right_first(t: int, s: int, head_dim: int, d_model: int,
+                           device="cuda") -> bool:
+    """Planner consult: associate decode P·V·Wo right-first?
 
-    The reference asks its serving plan cache (``REPRO_SERVE_PLANNER``);
-    that cache is not ported yet (ROADMAP A6), so this returns the left
-    association, which is the reference's ``REPRO_SERVE_PLANNER=0``
-    behaviour. For the decode geometries of all four dense configs
-    (t = 1, head_dim ≤ d_model) the reference's planner picks left too:
-    right costs s·head_dim·d_model multiply-adds per head against left's
-    s·head_dim.
+    The decode value→output tail is a 3-matrix chain per head —
+    P (t×s) · V (s×head_dim) · Wo (head_dim×d_model), the ``decattn`` zoo
+    family — with two association orders. This asks the serving plan
+    cache (:mod:`repro_torch.serve.plan_cache`, the default service of
+    ``device``) which order its discriminant ranks first. The reference
+    consults at trace time with the cache buffer's length; the port
+    consults once per KV cache, with its capacity as ``s``
+    (:func:`repro_torch.models.transformer.plan_decode`, a plan-cache hit
+    after :func:`repro_torch.serve.decode.plan_warmup`), and carries the
+    answer in :attr:`KVCache.right_first`: a decode step makes no lookup.
+
+    Selection must never take down the serving path: any failure, or the
+    ``REPRO_SERVE_PLANNER=0`` kill-switch, gives the left association.
+    For decode geometries (t = 1, head_dim ≤ d_model) every shipped
+    policy picks left — right costs s·head_dim·d_model multiply-adds per
+    head against left's s·head_dim.
     """
-    return False
+    if not planner_enabled():
+        return False
+    try:
+        plan = default_plan_service(device).lookup(
+            "decattn", (t, s, head_dim, d_model))
+        first = plan.algorithm.calls[0]
+        # Right-first iff the first GEMM is V·Wo (its rows are the s axis).
+        return s != t and first.dims[0] == s
+    except Exception as e:   # noqa: BLE001 — serving must go on
+        warnings.warn(f"decode plan consult failed ({e!r}); using the left "
+                      f"association", RuntimeWarning, stacklevel=2)
+        return False
 
 
 def pv_wo_output(p_attn: torch.Tensor, v: torch.Tensor, wo: Dense,
-                 n_heads: int, head_dim: int, out_dtype) -> torch.Tensor:
-    """Decode value→output tail ``(P·V)·Wo``, left-associated (see
-    :func:`planned_pv_right_first`).
+                 n_heads: int, head_dim: int, out_dtype,
+                 right_first: bool = False) -> torch.Tensor:
+    """Decode value→output tail, associated as the planner chose for the
+    KV cache (``right_first``, :attr:`KVCache.right_first`).
 
     ``p_attn`` (B, H, 1, K) are the softmax probabilities and ``v``
     (B, K, Hkv, head_dim) the cached values. Query head ``h`` reads kv
     head ``h // (H // Hkv)``: the same products as the reference's
-    head-expanded ``repeat``, without copying the cache.
+    head-expanded ``repeat``, without copying the cache. Left is
+    ``(P·V)·Wo``; right applies Wo, viewed (Hkv, group, head_dim,
+    d_model), to V per head first. Both contract the same operands, so
+    they agree up to float reassociation.
     """
     b, _, _, kk = p_attn.shape
     hkv = v.shape[2]
-    pg = p_attn.reshape(b, hkv, n_heads // hkv, kk)
+    group = n_heads // hkv
+    pg = p_attn.reshape(b, hkv, group, kk)
+    d_model = wo.w.shape[1]
+    if right_first:
+        w4 = wo.w.to(p_attn.dtype).reshape(hkv, group, head_dim, d_model)
+        vwo = torch.einsum("bkhd,hgde->bkhge", v.to(p_attn.dtype), w4)
+        out = torch.einsum("bhgk,bkhge->be", pg, vwo)
+        return out.reshape(b, 1, d_model).to(out_dtype)
     out = torch.einsum("bhgk,bkhd->bhgd", pg, v.to(p_attn.dtype))
     out = out.reshape(b, 1, n_heads * head_dim)
     return dense(wo, out.to(out_dtype))
@@ -218,5 +254,5 @@ def apply_decode(p: Attention, cfg: AttnConfig, x: torch.Tensor,
     logits = softcap(logits, cfg.logit_softcap)
     p_attn = torch.softmax(logits, dim=-1).reshape(b, cfg.n_heads, 1, -1)
     proj = pv_wo_output(p_attn, vals.to(q.dtype), p.wo, cfg.n_heads,
-                        cfg.head_dim, x.dtype)
-    return proj, KVCache(cache.k, cache.v, idx + 1)
+                        cfg.head_dim, x.dtype, right_first=cache.right_first)
+    return proj, cache._replace(length=idx + 1)

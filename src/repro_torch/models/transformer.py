@@ -207,16 +207,30 @@ class LayerCaches(NamedTuple):
 
 def init_caches(cfg: ModelConfig, batch: int, max_s: int,
                 dtype=torch.bfloat16, device=None) -> LayerCaches:
+    """Zeroed caches of ``max_s`` positions, with the decode attention
+    tail's association planned for them (:func:`plan_decode`)."""
     _check_dense(cfg)
     shape = (cfg.n_layers, batch, max_s, cfg.n_kv_heads, cfg.head_dim)
-    return LayerCaches(kv=KVCache(
+    return plan_decode(cfg, LayerCaches(kv=KVCache(
         k=torch.zeros(shape, dtype=dtype, device=device),
-        v=torch.zeros(shape, dtype=dtype, device=device), length=0))
+        v=torch.zeros(shape, dtype=dtype, device=device), length=0)))
+
+
+def plan_decode(cfg: ModelConfig, caches: LayerCaches) -> LayerCaches:
+    """``caches`` with decode's P·V·Wo association resolved: one consult
+    of the serving plan cache at the caches' capacity
+    (:func:`~repro_torch.models.attention.planned_pv_right_first`; the
+    ``REPRO_SERVE_PLANNER=0`` kill-switch, or a failure, gives left),
+    carried by every decode step of these caches."""
+    kv = caches.kv
+    right = attention.planned_pv_right_first(
+        1, kv.k.shape[2], cfg.head_dim, cfg.d_model, device=kv.k.device)
+    return caches._replace(kv=kv._replace(right_first=right))
 
 
 def _layer_cache(caches: LayerCaches, i: int) -> KVCache:
     kv = caches.kv
-    return KVCache(kv.k[i], kv.v[i], kv.length)
+    return kv._replace(k=kv.k[i], v=kv.v[i])
 
 
 def apply_prefill(model: DecoderLM, cfg: ModelConfig, tokens: torch.Tensor,

@@ -2,13 +2,14 @@
 
 Counterpart of the reference's ``serve/decode.py``. ``serve_step`` is one
 new token for the whole batch against the KV cache; ``generate`` feeds a
-prompt token by token (teacher-forced) and then decodes. The reference
-consults its serving plan cache in the decode attention tail and warms
-it in :func:`plan_warmup`; that cache is not ported yet (ROADMAP A6), so
-decode takes the left association and :func:`plan_warmup` warms nothing.
-Sampling draws from an explicit ``torch.Generator`` seeded by ``seed``
-(its numbers differ from ``jax.random``'s; greedy decoding does not
-sample).
+prompt token by token (teacher-forced) and then decodes. The decode
+attention tail's association is a consult of the serving plan cache,
+made once when the KV cache is set up (``transformer.plan_decode``, with
+the cache's capacity), so :func:`plan_warmup` plans a model's decode
+shapes before that: the consult is then a cache hit, and a step makes
+none. Sampling draws from an explicit ``torch.Generator`` seeded by
+``seed`` (its numbers differ from ``jax.random``'s; greedy decoding does
+not sample).
 """
 
 from __future__ import annotations
@@ -22,12 +23,31 @@ import torch
 from repro_torch.models import api
 from repro_torch.models.transformer import ModelConfig
 from repro_torch.runtime.supervisor import StragglerMonitor
+from repro_torch.serve.plan_cache import default_plan_service, planner_enabled
 
 
-def plan_warmup(cfg: ModelConfig, max_s: int) -> List[Tuple[str, Tuple]]:
-    """The (family, dims) pairs warmed in the plan cache: none until the
-    plan cache is ported (the reference's ``REPRO_SERVE_PLANNER=0``)."""
-    return []
+def plan_warmup(cfg: ModelConfig, max_s: int,
+                device="cuda") -> List[Tuple[str, Tuple]]:
+    """Pre-plan the zoo families a decode step of ``cfg`` consults, in the
+    default plan service of ``device`` (the reference's shapes: the
+    attention tail at the cache's ``max_s``, the attention output and
+    logits projections, the MLP).
+
+    Returns the (family, dims) pairs warmed. No-op (empty list) when the
+    consult is disabled via ``REPRO_SERVE_PLANNER=0``.
+    """
+    if not planner_enabled():
+        return []
+    shapes: List[Tuple[str, Tuple]] = []
+    if cfg.n_heads and cfg.head_dim:
+        shapes.append(("decattn", (1, max_s, cfg.head_dim, cfg.d_model)))
+        shapes.append(("decproj", (1, cfg.d_model,
+                                   cfg.n_heads * cfg.head_dim)))
+    if cfg.d_ff:
+        shapes.append(("decmlp", (1, cfg.d_model, cfg.d_ff)))
+    shapes.append(("decproj", (1, cfg.d_model, cfg.vocab)))  # logits
+    default_plan_service(device).warmup(shapes)
+    return shapes
 
 
 class ServeState(NamedTuple):
@@ -70,7 +90,7 @@ def generate(params: Any, cfg: ModelConfig, prompt, max_new: int,
     prompt = torch.as_tensor(prompt, device=device).long()
     b, s0 = prompt.shape
     max_s = max_s or (s0 + max_new + 1)
-    plan_warmup(cfg, max_s)
+    plan_warmup(cfg, max_s, device=device)
     caches = api.init_caches(params, cfg, b, max_s)
     state = ServeState(caches=caches, last_tokens=prompt[:, :1],
                        rng=torch.Generator(device=device).manual_seed(seed))

@@ -15,6 +15,7 @@ CLI runs end to end on the ``cuda`` backend's plain versions
 import functools
 import importlib.util
 import json
+import os
 import pathlib
 import sys
 
@@ -355,8 +356,16 @@ def test_cli_returns_2_as_the_reference_does(tmp_path, capsys, flags,
     assert message in capsys.readouterr().err
 
 
-def test_cli_rejects_no_tuning_until_the_tuner_is_ported(tmp_path, capsys):
-    with pytest.raises(SystemExit) as exc:
-        port_main(CLI + ["--atlas-dir", str(tmp_path), "--no-tuning"])
-    assert exc.value.code == 2
-    assert "unrecognized arguments: --no-tuning" in capsys.readouterr().err
+def test_cli_rejects_no_tuning_until_the_tuner_is_ported(tmp_path, capsys,
+                                                         monkeypatch):
+    """The tuner is ported: ``--no-tuning`` is accepted, as in the
+    reference, and sets ``REPRO_NO_TUNING`` (the reference's
+    ``sweep.py:1191``), which the atlas header records as tuning=null."""
+    # Empty (tuning on), and recorded, so that the value the CLI sets in
+    # this process is undone after the test and leaks into no later one.
+    monkeypatch.setenv("REPRO_NO_TUNING", "")
+    assert port_main(CLI + ["--atlas-dir", str(tmp_path), "--no-tuning",
+                            "--quiet"]) == 0
+    assert os.environ.get("REPRO_NO_TUNING") == "1"
+    [path] = tmp_path.glob("atlas-*.jsonl")
+    assert json.loads(path.read_text().splitlines()[0])["tuning"] is None

@@ -746,3 +746,142 @@ def test_smoke_model_prefill_on_card_runs_flash_and_matches_cpu(cuda, arch):
     step, _ = api.decode_step(card, cfg, toks[:, :1], caches)
     assert step.shape == (2, 1, cfg.vocab)
     assert bool(torch.isfinite(step).all())
+
+
+# ------------------------------------------------ tuned launches (slice 9) --
+
+#: (kind, dims) of the tuned-launch tests: ragged dims, each kind's
+#: candidates at them all exercised.
+TUNED_SHAPES = [("gemm", (333, 517, 401)), ("syrk", (333, 401)),
+                ("symm", (333, 517)), ("chain_gemm", (333, 401, 517, 129)),
+                ("gemm_syrk", (333, 401, 517))]
+
+
+def _tuned_operands(kind, dims, rng, device):
+    if kind == "gemm":
+        m, n, k = dims
+        return _mat(rng, m, k, device), _mat(rng, k, n, device)
+    if kind == "syrk":
+        return (_mat(rng, *dims, device),)
+    if kind == "symm":
+        m, n = dims
+        return _mat(rng, m, m, device), _mat(rng, m, n, device)
+    if kind == "chain_gemm":
+        m, k, l, n = dims
+        return (_mat(rng, m, k, device), _mat(rng, k, l, device),
+                _mat(rng, l, n, device))
+    m, k, l = dims
+    return _mat(rng, m, k, device), _mat(rng, k, l, device)
+
+
+@pytest.mark.parametrize("kind,dims", TUNED_SHAPES)
+def test_tuned_launch_of_each_candidate_matches_plain(cuda, kind, dims):
+    """Every launch the tuner may pick at ``dims`` — each table entry of
+    ``candidate_configs``, resolved as dispatch resolves it — runs the
+    kernel once and equals the plain version."""
+    from repro_torch.core.tuning import (candidate_configs, card_limits,
+                                         launch_config)
+    rng = np.random.default_rng(len(dims) * 31 + dims[0])
+    args = _tuned_operands(kind, dims, rng, cuda)
+    want = getattr(ref, kind)(*args)
+    limits = card_limits(cuda)
+    for entry in candidate_configs(kind, dims):
+        cfg = launch_config(kind, dims, entry, limits)
+        assert cfg is not None, entry
+        before = ops.launch_counts()[kind]
+        got = getattr(ops, kind)(*args, config=cfg)
+        assert ops.launch_counts()[kind] == before + 1
+        torch.cuda.synchronize()
+        if kind == "gemm_syrk":
+            scale = float(want.abs().max())
+            assert float((got - want).abs().max()) <= 1e-2 + 1e-5 * scale
+            assert not bool((torch.triu(got, 1) != 0).any())
+        else:
+            _close(got, want, CHAIN_TOL if kind == "chain_gemm" else TOL)
+
+
+def test_graph_memo_replays_the_candidate_it_captured(cuda, monkeypatch):
+    """Under ``tuning_override`` each candidate is captured in a graph of
+    its own (the tuning generation is in the memo key) and a replay runs
+    the launch it captured: two candidates at one set of pointers give
+    two memo entries, the same candidate timed twice one; the launch each
+    capture made is the candidate's."""
+    from repro_torch.core.backends import CudaBackend, synthetic_algorithm
+    from repro_torch.core.flops import KernelCall
+    from repro_torch.core.tuning import candidate_configs, launch_config
+    from repro_torch.kernels import gemm as gemm_mod
+    monkeypatch.delenv("REPRO_NO_TUNING", raising=False)
+    dims = (600, 500, 700)
+    backend = CudaBackend(seed=0, reps=1, tuning=None)
+    alg = synthetic_algorithm(KernelCall("gemm", dims))
+    operands = backend.make_operands(alg)
+    first, second = candidate_configs("gemm", dims)[:2]
+    seen, launch = [], gemm_mod.launch
+
+    def spy(a, b, cfg):
+        seen.append(cfg)
+        return launch(a, b, cfg)
+
+    monkeypatch.setattr(gemm_mod, "launch", spy)
+    outs = []
+    for entry in (first, second):
+        with backend.tuning_override({("gemm", dims): entry}):
+            misses = backend.memo_misses
+            backend.time_algorithm(alg, operands)
+            backend.time_algorithm(alg, operands)
+            assert backend.memo_misses == misses + 1
+            outs.append(backend._timed_callable(alg, operands)().clone())
+        want = launch_config("gemm", dims, entry)
+        # The eager walk and the capture each called the wrapper once.
+        assert seen[-2:] == [want, want]
+    assert backend.memo_misses == 2
+    expect = operands[0] @ operands[1]
+    for out in outs:
+        _close(out, expect, TOL)
+
+
+def test_plan_service_execute_on_the_card_matches_the_plain_composition(
+        cuda):
+    """``PlanService`` on the ``cuda`` backend runs its plans through the
+    hand kernels and agrees with the plain left-to-right product."""
+    from repro_torch.core.expressions import get_spec
+    from repro_torch.serve.plan_cache import PlanService
+    svc = PlanService(backend="cuda", discriminant="perfmodel")
+    for family, dims in (("aatb", (300, 200, 100)),
+                         ("decmlp", (2, 256, 512)),
+                         ("decattn", (1, 300, 64, 256))):
+        plan = svc.lookup(family, dims)
+        operands = svc.planner.runner.make_operands(plan.algorithm)
+        args = [operands.get(b) for b in range(max(operands) + 1)]
+        before = sum(ops.launch_counts().values())
+        got = svc.execute(family, dims, *args)
+        assert sum(ops.launch_counts().values()) > before
+        want = get_spec(family).reference_value(dims, operands)
+        torch.cuda.synchronize()
+        scale = float(want.abs().max())
+        assert float((got - want).abs().max()) <= 1e-3 + 1e-4 * scale
+        assert svc.lookup(family, dims) is plan
+
+
+def test_warmup_and_decode_consult_share_the_cards_plan_service(cuda):
+    """``plan_warmup(device="cuda")`` and the consult made with a tensor's
+    device (``cuda:0``) reach one default service: the consult hits."""
+    from repro_torch import configs
+    from repro_torch.models import transformer
+    from repro_torch.serve.decode import plan_warmup
+    from repro_torch.serve.plan_cache import (default_plan_service,
+                                              reset_default_plan_service)
+    cfg = configs.get_smoke("yi_9b")
+    reset_default_plan_service()
+    try:
+        plan_warmup(cfg, 64, device="cuda")
+        svc = default_plan_service("cuda")
+        assert default_plan_service(torch.zeros(1, device="cuda").device) \
+            is svc
+        before = svc.cache.stats()
+        transformer.init_caches(cfg, 1, 64, device="cuda")
+        after = svc.cache.stats()
+        assert (after["hits"] - before["hits"],
+                after["misses"] - before["misses"]) == (1, 0)
+    finally:
+        reset_default_plan_service()

@@ -381,3 +381,149 @@ def test_cli_limit_fresh_and_no_flush(tmp_path):
     assert re.search(r"points=2 measured=2 skipped=0", fresh.stdout)
     (path,) = tmp_path.glob("atlas-aatb-*.jsonl")
     assert len(path.read_text().splitlines()) == 3   # header + 2
+
+
+# ------------------------------------------- the atlas names its tuning --
+
+def _save_table(fp, config):
+    from repro_torch.core.tuning import (TunedEntry, TuningTable,
+                                         save_tuning_table)
+    table = TuningTable()
+    table.set("gemm", (32, 32, 32), TunedEntry(
+        config=config, seconds=1.0, default_seconds=1.0, timed=1, pruned=0))
+    save_tuning_table(table, fp)
+    return table
+
+
+def test_atlas_header_names_the_tuning_table(tmp_path, monkeypatch):
+    """``tuning`` is the digest of the table the cuda backend auto-loads
+    for the atlas's fingerprint; null without a table, under
+    ``REPRO_NO_TUNING`` and on the torch backend."""
+    monkeypatch.setenv("REPRO_PROFILE_DIR", str(tmp_path / "profiles"))
+    monkeypatch.delenv("REPRO_NO_TUNING", raising=False)
+    monkeypatch.delenv("REPRO_NO_FUSION", raising=False)
+    fp = HardwareFingerprint("cuda", "cpu", "float32")
+
+    def header(name):
+        path = tmp_path / name
+        _swept_atlas(path, [(32, 32, 32)])
+        return json.loads(path.read_text().splitlines()[0])
+
+    assert header("none.jsonl")["tuning"] is None
+    table = _save_table(fp, {"tile": 2, "split": 1})
+    assert header("tuned.jsonl")["tuning"] == table.digest()
+    monkeypatch.setenv("REPRO_NO_TUNING", "1")
+    assert header("killed.jsonl")["tuning"] is None
+    monkeypatch.delenv("REPRO_NO_TUNING")
+    torch_fp = HardwareFingerprint("torch", "cpu", "float32")
+    _save_table(torch_fp, {"tile": 2, "split": 1})
+    assert AnomalyAtlas(tmp_path / "t.jsonl", torch_fp, "AATB",
+                        0.10).program["tuning"] is None
+
+
+def test_resume_under_another_tuning_table_is_refused(tmp_path, monkeypatch):
+    monkeypatch.setenv("REPRO_PROFILE_DIR", str(tmp_path / "profiles"))
+    monkeypatch.delenv("REPRO_NO_TUNING", raising=False)
+    monkeypatch.delenv("REPRO_NO_FUSION", raising=False)
+    path = tmp_path / "atlas.jsonl"
+    fp = _swept_atlas(path, [(32, 32, 32)])        # untuned
+    AnomalyAtlas(path, fp, "AATB", 0.10)           # resumes untuned
+    table = _save_table(fp, {"tile": 2, "split": 1})
+    with pytest.raises(AtlasError, match=r"tuned by table None, this "
+                                         r"process by '" + table.digest()):
+        AnomalyAtlas(path, fp, "AATB", 0.10)
+    monkeypatch.setenv("REPRO_NO_TUNING", "1")       # --no-tuning resumes
+    AnomalyAtlas(path, fp, "AATB", 0.10)
+    monkeypatch.delenv("REPRO_NO_TUNING")
+    tuned = tmp_path / "tuned.jsonl"
+    _swept_atlas(tuned, [(32, 32, 32)])
+    _save_table(fp, {"tile": 1, "split": 1})         # another table
+    with pytest.raises(AtlasError, match="tuned by table"):
+        AnomalyAtlas(tuned, fp, "AATB", 0.10)
+
+
+def test_atlas_without_the_tuning_key_is_refused(tmp_path, monkeypatch):
+    monkeypatch.setenv("REPRO_PROFILE_DIR", str(tmp_path / "profiles"))
+    monkeypatch.delenv("REPRO_NO_FUSION", raising=False)
+    path = tmp_path / "atlas.jsonl"
+    fp = _swept_atlas(path, [(32, 32, 32)])
+    lines = path.read_text().splitlines()
+    header = json.loads(lines[0])
+    assert "tuning" in header
+    del header["tuning"]
+    path.write_text("\n".join([json.dumps(header)] + lines[1:]) + "\n")
+    with pytest.raises(AtlasError, match="start a fresh atlas"):
+        AnomalyAtlas(path, fp, "AATB", 0.10)
+    assert len(load_atlas_records(path).records) == 1   # the reference reads it
+
+
+def test_atlas_merge_reads_tuned_headers_and_refuses_mixed_tuning(
+        tmp_path, monkeypatch):
+    """tools/atlas_merge.py is unchanged: shards whose headers carry the
+    same ``tuning`` merge (the merged header keeps it), shards of two
+    tuning states are refused by key."""
+    monkeypatch.setenv("REPRO_PROFILE_DIR", str(tmp_path / "profiles"))
+    monkeypatch.delenv("REPRO_NO_TUNING", raising=False)
+    monkeypatch.delenv("REPRO_NO_FUSION", raising=False)
+    merge = _atlas_merge()
+    fp = HardwareFingerprint("cuda", "cpu", "float32")
+    table = _save_table(fp, {"tile": 2, "split": 1})
+    first, second = tmp_path / "a.jsonl", tmp_path / "b.jsonl"
+    _swept_atlas(first, [(32, 32, 32)])
+    _swept_atlas(second, [(64, 64, 64)])
+    out = tmp_path / "merged.jsonl"
+    assert merge.merge_shards([first, second], out).n_records == 2
+    assert json.loads(out.read_text().splitlines()[0])["tuning"] == \
+        table.digest()
+    assert len(load_atlas_records(out).records) == 2
+    monkeypatch.setenv("REPRO_NO_TUNING", "1")
+    third = tmp_path / "c.jsonl"
+    _swept_atlas(third, [(64, 64, 64)])
+    with pytest.raises(merge.MergeError, match=r"\['tuning'\]"):
+        merge.merge_shards([first, third])
+
+
+def test_atlas_header_takes_the_runners_tuning(tmp_path, monkeypatch):
+    """The header records the table the measuring runner launches under,
+    not the cached file's: a runner pinned to another table, or to none,
+    writes its own state, and resuming an atlas under a runner of another
+    state is refused before anything is timed."""
+    from repro_torch.core.tuning import TunedEntry, TuningTable
+    monkeypatch.setenv("REPRO_PROFILE_DIR", str(tmp_path / "profiles"))
+    monkeypatch.delenv("REPRO_NO_TUNING", raising=False)
+    monkeypatch.delenv("REPRO_NO_FUSION", raising=False)
+    spec = get_spec("aatb")
+    fp = HardwareFingerprint("cuda", "cpu", "float32")
+    cached = _save_table(fp, {"tile": 2, "split": 1})
+    pinned = TuningTable()
+    pinned.set("gemm", (32, 32, 32), TunedEntry(
+        config={"tile": 1, "split": 1}, seconds=1.0, default_seconds=1.0,
+        timed=1, pruned=0))
+    assert pinned.digest() != cached.digest()
+
+    def run(name, runner, points=((32, 32, 32),), opened_for=None):
+        path = tmp_path / name
+        atlas = AnomalyAtlas(path, fp, spec.name, 0.10, runner=opened_for)
+        res = sweep(spec, list(points), runner=runner, atlas=atlas)
+        return res, json.loads(path.read_text().splitlines()[0])["tuning"]
+
+    assert run("auto.jsonl", CudaBackend(device="cpu", reps=1,
+                                         seed=0))[1] == cached.digest()
+    assert run("none.jsonl", CudaBackend(device="cpu", reps=1, seed=0,
+                                         tuning=None))[1] is None
+    runner = CudaBackend(device="cpu", reps=1, seed=0)
+    runner.set_tuning(pinned)
+    assert run("pinned.jsonl", runner)[1] == pinned.digest()
+    assert AnomalyAtlas(tmp_path / "x.jsonl", fp, spec.name, 0.10,
+                        runner=runner).program["tuning"] == pinned.digest()
+    # Resumes: the pinned atlas opens for the pinned runner and resumes
+    # under it; under the auto-loading runner it is refused, opened as
+    # the cached table's or for the pinned runner alike.
+    with pytest.raises(AtlasError, match="tuned by table"):
+        AnomalyAtlas(tmp_path / "pinned.jsonl", fp, spec.name, 0.10)
+    with pytest.raises(AtlasError, match="its runner launches under"):
+        run("pinned.jsonl", CudaBackend(device="cpu", reps=1, seed=0),
+            points=((64, 64, 64),), opened_for=runner)
+    res, head = run("pinned.jsonl", runner, points=((64, 64, 64),),
+                    opened_for=runner)
+    assert res.n_measured == 1 and head == pinned.digest()
