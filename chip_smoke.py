@@ -93,7 +93,23 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    Yi-9B again with ``plan_warmup``, prefill 2 × 2048 and 16 greedy
    tokens decoded twice from the same cache, with the consult on (plan
    cache hits = layers × tokens) and under ``REPRO_SERVE_PLANNER=0``: the
-   same tokens.
+   same tokens;
+11. the other decoder families, each at full width and depth in bf16 on
+   random weights, one at a time: the flash kernel against its plain
+   version at OLMoE's prefill shape (MHA, 16 heads of 128; the planted
+   fault rejected); OLMoE-1B-7B prefills 2 × 2048 tokens (flash once in
+   each of its 16 layers), decodes 32 greedy tokens with no kernel
+   launch, holds ``moe.apply``'s gather dispatch against its einsum
+   dispatch on layer 0's real input and prints decode against a
+   re-prefill of 2080 (not gated: a decode step's expert capacity is 1);
+   Mamba2-370M prints ``select_ssd_mode``'s picks, prefills 2 × 2048
+   (chunked SSD), decodes 128 greedy tokens and holds them against a
+   re-prefill of 2176, as phase 7; Zamba2-1.2B runs
+   ``serve.decode.generate`` (a 2 × 128 prompt fed token by token, 32 new
+   tokens) twice: the tokens must be identical and every logit finite.
+   One prefill and one decode step of each (Zamba2: a step) run once more
+   under ``torch.profiler``: host wall time, device time and the ATen
+   ops and hand kernels that take the most device time.
 
 The compiler's report must show no spills in any SYRK or GEMM+SYRK
 instance. The last two lines are the card's ``nvidia-smi`` name/power
@@ -165,8 +181,8 @@ EXECUTIONS = 2 + REPS
 #: them; phase 4 checks its counts against these), fused pairs as one.
 SWEEP_STEPS = {"gemm": 914, "syrk": 162, "symm": 162, "chain_gemm": 290,
                "gemm_syrk": 27}
-#: Launches of each kernel in the sweep of phase 4. The served model
-#: (phase 7) runs flash_attention.
+#: Launches of each kernel in the sweep of phase 4. The served models
+#: (phases 7 and 11) run flash_attention.
 SWEEP_LAUNCHES = {k: n * EXECUTIONS for k, n in SWEEP_STEPS.items()}
 
 #: (rtol, atol). Element-wise |kernel - plain| <= atol + rtol·|plain|
@@ -736,14 +752,16 @@ def attention_pairs(s: int, causal: bool, window: int) -> int:
     return s * s - (s - w) * (s - w + 1) // 2
 
 
-def check_flash(torch, np) -> dict:
-    """Phase 6: the flash-attention kernel against its plain version."""
+def check_flash(torch, np, cases=FLASH_CASES) -> dict:
+    """Phase 6: the flash-attention kernel against its plain version at
+    ``cases``; the first is the main path's shape, where the check must
+    reject the planted fault, and its times are returned."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
 
     rng = np.random.default_rng(SEED)
     result = {"max_abs_err": 0.0}
-    for label, b, h, hkv, s, d, dtype, kw in FLASH_CASES:
+    for label, b, h, hkv, s, d, dtype, kw in cases:
         dt = getattr(torch, dtype)
         q, k, v = (attention_heads(torch, rng, b, s, n, d, dt, scale)
                    for n, scale in ((h, QK_SCALE), (hkv, QK_SCALE),
@@ -828,10 +846,83 @@ def aten_calls_per_decode_step(torch, api, model, cfg, batch: int) -> int:
     return count.n
 
 
+def timed_prefill(torch, api, model, cfg, tokens, caches):
+    """One ``api.prefill`` between CUDA events, each flash launch timed by
+    its own event pair → (logits, caches, prefill ms, flash ms, flash
+    launches)."""
+    from repro_torch.kernels import flash_attention as flash_mod
+
+    flash_events = []
+    launch = flash_mod.flash_attention_cuda
+
+    def timed_launch(*args, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = launch(*args, **kw)
+        end.record()
+        flash_events.append((start, end))
+        return out
+
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    flash_mod.flash_attention_cuda = timed_launch
+    try:
+        start.record()
+        logits, caches = api.prefill(model, cfg, {"tokens": tokens}, caches)
+        end.record()
+        torch.cuda.synchronize()
+    finally:
+        flash_mod.flash_attention_cuda = launch
+    flash_ms = sum(a.elapsed_time(z) for a, z in flash_events)
+    return (logits, caches, start.elapsed_time(end), flash_ms,
+            len(flash_events))
+
+
+def greedy_decode(torch, api, model, cfg, logits, caches, n_new: int):
+    """``n_new`` greedy tokens from a prefill's last logits and caches →
+    (logits (B, n_new + 1, V) from the prefill's last on, the tokens fed
+    and the next one (B, n_new + 1), caches, ms/token by CUDA events)."""
+    last = logits[:, -1]
+    tok = torch.argmax(last, dim=-1)[:, None]
+    generated, decode_logits = [tok], [last]
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(n_new):
+        step_logits, caches = api.decode_step(model, cfg, tok, caches)
+        decode_logits.append(step_logits[:, 0])
+        tok = torch.argmax(step_logits[:, -1], dim=-1)[:, None]
+        generated.append(tok)
+    end.record()
+    torch.cuda.synchronize()
+    return (torch.stack(decode_logits, dim=1), torch.cat(generated, dim=1),
+            caches, start.elapsed_time(end) / n_new)
+
+
+def decode_agrees(torch, dec, chosen, ref_logits) -> bool:
+    """Print decode's logits ``dec`` and greedy tokens ``chosen`` against a
+    re-prefill's ``ref_logits`` at the same positions; True when every
+    logit is finite and within :data:`DECODE_LOGIT_TOL` and the greedy
+    tokens agree wherever the re-prefill's top-2 margin exceeds it."""
+    b, n = chosen.shape
+    diff = (dec - ref_logits).abs()
+    max_err, mean_err = float(diff.max()), float(diff.mean())
+    top2 = torch.topk(ref_logits, 2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]
+    agree = chosen == torch.argmax(ref_logits, dim=-1)
+    decided = margin > DECODE_LOGIT_TOL
+    print(f"decode vs re-prefill logits over {n} positions x "
+          f"{b}: max|d|={max_err:.4f} mean|d|={mean_err:.5f} (tol "
+          f"{DECODE_LOGIT_TOL}); logit std {float(ref_logits.std()):.3f}; "
+          f"greedy tokens agree at {int(agree.sum())}/{agree.numel()}, at "
+          f"{int((agree & decided).sum())}/{int(decided.sum())} where the "
+          f"re-prefill's top-2 margin exceeds the tolerance")
+    return bool(torch.isfinite(dec).all()) and max_err <= DECODE_LOGIT_TOL \
+        and bool(agree[decided].all())
+
+
 def serve_model(torch, np) -> dict:
     """Phase 7: Yi-9B at full width and depth on the card."""
     from repro_torch import configs
-    from repro_torch.kernels import flash_attention as flash_mod
     from repro_torch.kernels import ops
     from repro_torch.models import api
 
@@ -860,34 +951,12 @@ def serve_model(torch, np) -> dict:
     torch.cuda.synchronize()
 
     # The served path: counts from 0, the flash launches timed one by one.
-    flash_events = []
-    launch = flash_mod.flash_attention_cuda
-
-    def timed_launch(*args, **kw):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = launch(*args, **kw)
-        end.record()
-        flash_events.append((start, end))
-        return out
-
     ops.reset_launch_counts()
-    caches = api.init_caches(model, cfg, b, max_s)
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    flash_mod.flash_attention_cuda = timed_launch
-    try:
-        start.record()
-        logits, caches = api.prefill(model, cfg, {"tokens": prompt}, caches)
-        end.record()
-        torch.cuda.synchronize()
-    finally:
-        flash_mod.flash_attention_cuda = launch
-    prefill_ms = start.elapsed_time(end)
-    flash_ms = sum(a.elapsed_time(z) for a, z in flash_events)
+    logits, caches, prefill_ms, flash_ms, n_flash = timed_prefill(
+        torch, api, model, cfg, prompt, api.init_caches(model, cfg, b, max_s))
     after_prefill = ops.launch_counts()
     print(f"prefill {b}x{s0}: {prefill_ms:.1f} ms, flash_attention "
-          f"{flash_ms:.1f} ms in {len(flash_events)} launches "
+          f"{flash_ms:.1f} ms in {n_flash} launches "
           f"({flash_ms / prefill_ms:.1%} of prefill); launches "
           f"{after_prefill}")
     if after_prefill["flash_attention"] != cfg.n_layers:
@@ -899,18 +968,9 @@ def serve_model(torch, np) -> dict:
         raise AssertionError("prefill: bad logits or cache length")
 
     # Greedy decode from the prefill's cache.
-    last = logits[:, -1]
-    tok = torch.argmax(last, dim=-1)[:, None]
-    generated, decode_logits = [tok], []
-    start.record()
-    for _ in range(n_new):
-        step_logits, caches = api.decode_step(model, cfg, tok, caches)
-        decode_logits.append(step_logits[:, 0])
-        tok = torch.argmax(step_logits[:, -1], dim=-1)[:, None]
-        generated.append(tok)
-    end.record()
-    torch.cuda.synchronize()
-    decode_ms = start.elapsed_time(end) / n_new
+    dec, generated, caches, decode_ms = greedy_decode(
+        torch, api, model, cfg, logits, caches, n_new)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     print(f"decode {n_new} tokens x {b} requests: {decode_ms:.2f} ms/token "
           f"({aten_calls_per_decode_step(torch, api, model, cfg, b)} ATen "
           f"calls a step); launches {ops.launch_counts()}")
@@ -918,7 +978,7 @@ def serve_model(torch, np) -> dict:
         raise AssertionError("decode launched a kernel or lost a token")
 
     # Re-prefill over prompt + the 128 tokens fed to decode.
-    seq = torch.cat([prompt] + generated[:-1], dim=1)
+    seq = torch.cat([prompt, generated[:, :-1]], dim=1)
     start.record()
     logits2, _ = api.prefill(model, cfg, {"tokens": seq},
                              api.init_caches(model, cfg, b, max_s))
@@ -932,23 +992,7 @@ def serve_model(torch, np) -> dict:
         raise AssertionError("re-prefill did not run flash_attention once "
                              "per layer")
 
-    dec = torch.stack([last] + decode_logits, dim=1)           # (B, 129, V)
-    ref_logits = logits2[:, s0 - 1:]                           # (B, 129, V)
-    diff = (dec - ref_logits).abs()
-    max_err, mean_err = float(diff.max()), float(diff.mean())
-    top2 = torch.topk(ref_logits, 2, dim=-1).values
-    margin = top2[..., 0] - top2[..., 1]
-    chosen = torch.cat(generated, dim=1)                       # (B, 129)
-    agree = chosen == torch.argmax(ref_logits, dim=-1)
-    decided = margin > DECODE_LOGIT_TOL
-    print(f"decode vs re-prefill logits over {dec.shape[1]} positions x "
-          f"{b}: max|d|={max_err:.4f} mean|d|={mean_err:.5f} (tol "
-          f"{DECODE_LOGIT_TOL}); logit std {float(ref_logits.std()):.3f}; "
-          f"greedy tokens agree at {int(agree.sum())}/{agree.numel()}, at "
-          f"{int((agree & decided).sum())}/{int(decided.sum())} where the "
-          f"re-prefill's top-2 margin exceeds the tolerance")
-    if not bool(torch.isfinite(dec).all()) or max_err > DECODE_LOGIT_TOL \
-            or not bool(agree[decided].all()):
+    if not decode_agrees(torch, dec, generated, logits2[:, s0 - 1:]):
         raise AssertionError("decode disagrees with the re-prefill")
     return {"prefill_ms": prefill_ms, "flash_ms": flash_ms,
             "decode_ms_per_token": decode_ms, "reprefill_ms": reprefill_ms,
@@ -1924,6 +1968,381 @@ def tuning_and_planner(torch, np, atlas_dir: Path, phase4: dict) -> dict:
             "tune_launches": tune_launches, **served}
 
 
+#: Phase 11: the other decoder families. OLMoE-1B-7B prefills
+#: OLMOE_PROMPT tokens a request and decodes OLMOE_NEW; Mamba2-370M
+#: prefills MAMBA_PROMPT and decodes MAMBA_NEW (both prompt and re-prefill
+#: multiples of its chunk of 128, as ``ssd_chunked`` needs); Zamba2-1.2B
+#: generates ZAMBA_NEW tokens after a ZAMBA_PROMPT-token prompt fed token
+#: by token (the family has no prefill). SERVE_BATCH requests each.
+OLMOE_PROMPT, OLMOE_NEW = 2048, 32
+MAMBA_PROMPT, MAMBA_NEW = 2048, 128
+ZAMBA_PROMPT, ZAMBA_NEW = 128, 32
+#: One OLMoE prefill layer: MHA, 16 heads of 128, bf16, causal.
+OLMOE_FLASH_CASE = ("olmoe-1b-7b prefill B2 H16/16 S2048 D128 bf16 causal",
+                    2, 16, 16, 2048, 128, "bfloat16", dict(causal=True))
+#: max|gather - einsum| <= MOE_DISPATCH_TOL · max|einsum| of one MoE layer
+#: in bf16. In one dispatch group the two route with the same ``_route``,
+#: place the same rows in the same (E, C, d) slots and run the same three
+#: batched products, so the expert outputs y_k are identical; they combine
+#: differently. einsum sums g_k·y_k in float32 and rounds once to bf16
+#: (at most 2**-8 of |y|); gather rounds each gate and each product to
+#: bf16 (2**-8 each of g_k·|y_k|, with the g_k summing to 1: 2**-7 of the
+#: largest |y_k|) and rounds its sum once more (2**-8 of |y|). The bound
+#: is 2**-6 of the largest output, the combined output's max standing in
+#: for the expert outputs'.
+MOE_DISPATCH_TOL = 2 ** -6
+#: (S, N, P, Q, heads) at which phase 11 prints ``select_ssd_mode``'s
+#: picks: one Mamba2-370M prefill request of MAMBA_PROMPT tokens.
+SSD_POINT = (MAMBA_PROMPT, 128, 64, 128, 32)
+
+
+def device_time_by_op(torch, label: str, fn, top: int = 6) -> dict:
+    """Phase 11: one call of ``fn`` under ``torch.profiler``; print the
+    host's wall time, the device's (the sum of its kernels' times) and
+    the ``top`` ATen ops and hand kernels by device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total", None) \
+            or getattr(e, "self_cuda_time_total", 0)
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    ops_ = [e for e in events if e.key.startswith("aten::") or
+            "repro_" in e.key]
+    kernels_ms = sum(device_us(e) for e in events
+                     if not e.key.startswith("aten::")) / 1e3
+    ranked = sorted(ops_, key=device_us, reverse=True)[:top]
+    print(f"phase 11 profile {label}: wall {wall_ms:.1f} ms, device "
+          f"{kernels_ms:.1f} ms ({kernels_ms / wall_ms:.0%}); by device "
+          f"time: " + ", ".join(
+              f"{e.key[:48]} {device_us(e) / 1e3:.2f} ms x{e.count}"
+              for e in ranked))
+    return {"wall_ms": wall_ms, "device_ms": kernels_ms}
+
+
+def check_params(model, cfg) -> None:
+    """A served model's parameters against ``cfg.param_count()``, plus
+    what the analytic count leaves out: norm gains, the vocabulary's pad
+    rows and each Mamba2 layer's conv, conv bias and per-head vectors."""
+    n_params = sum(p.numel() for p in model.parameters())
+    norms = sum(p.numel() for name, p in model.named_parameters()
+                if name.endswith(".g"))
+    pad = (cfg.padded_vocab - cfg.vocab) * cfg.d_model * (
+        1 if cfg.tied_embeddings else 2)
+    mixers = 0
+    if cfg.ssm is not None:
+        s = cfg.ssm
+        conv_ch = s.d_inner + 2 * s.n_groups * s.d_state
+        mixers = cfg.n_layers * ((s.conv_kernel + 1) * conv_ch
+                                 + 3 * s.n_heads)
+    print(f"serve {cfg.name} ({cfg.family}): {cfg.n_layers} layers "
+          f"d_model {cfg.d_model} vocab {cfg.vocab}; {n_params} parameters "
+          f"(config count {cfg.param_count()} + {norms} norm gains + {pad} "
+          f"pad rows + {mixers} conv/head vectors; active "
+          f"{cfg.active_param_count()}) in bf16")
+    if n_params != cfg.param_count() + norms + pad + mixers:
+        raise AssertionError(f"{cfg.name}: parameter count differs from "
+                             f"the config's")
+
+
+def moe_dispatch_check(torch, p, mcfg, h) -> dict:
+    """Phase 11: ``moe.apply`` gather against einsum dispatch on one MoE
+    layer's real input ``h`` (B, S, d), in one dispatch group."""
+    from repro_torch.models import moe
+
+    b, s, d = h.shape
+    nt = b * s
+    groups = max(1, nt // max(mcfg.group_size, 1))
+    cap = moe.capacity(mcfg, nt // groups)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gather, aux_g = moe.apply(p, mcfg._replace(dispatch="gather"), h)
+    torch.cuda.synchronize()
+    peak_gather = torch.cuda.max_memory_reserved()
+    einsum, aux_e = moe.apply(p, mcfg._replace(dispatch="einsum"), h)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_reserved()
+    _, idx, _ = moe._route(p, mcfg, h.reshape(nt, d))
+    counts = torch.bincount(idx.reshape(-1), minlength=mcfg.n_experts)
+    dropped = int((counts - cap).clamp_min(0).sum())
+    err = float((gather.float() - einsum.float()).abs().max())
+    scale = float(einsum.float().abs().max())
+    print(f"phase 11 moe dispatch, layer 0's MLP input {tuple(h.shape)} "
+          f"{h.dtype}: {groups} group(s) of {nt // groups} tokens, capacity "
+          f"{cap} a expert, {dropped} of {nt * mcfg.top_k} assignments "
+          f"dropped (per expert {counts.min().item()}..{counts.max().item()}"
+          f"); gather vs einsum max|d|={err:.3e} of max|y|={scale:.3e} (tol "
+          f"{MOE_DISPATCH_TOL:g}·max|y|); aux {float(aux_g):.6f} / "
+          f"{float(aux_e):.6f}; peak reserved {peak_gather / 2 ** 30:.2f} "
+          f"GiB (gather), {peak / 2 ** 30:.2f} GiB (einsum)")
+    if groups != 1 or not bool(torch.isfinite(gather).all()) or \
+            err > MOE_DISPATCH_TOL * scale or \
+            abs(float(aux_g) - float(aux_e)) > 1e-6 * abs(float(aux_e)):
+        raise AssertionError("the gather dispatch disagrees with the einsum "
+                             "dispatch")
+    return {"dispatch_max_abs_err": err, "dropped": dropped,
+            "peak_reserved_gib": peak / 2 ** 30}
+
+
+def serve_olmoe(torch, np) -> dict:
+    """Phase 11: OLMoE-1B-7B at full width and depth, bf16."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import api, moe
+
+    cfg = configs.get("olmoe_1b_7b")
+    model = api.init(cfg, seed=SEED, device="cuda", dtype=torch.bfloat16)
+    check_params(model, cfg)
+    b, s0, n_new = SERVE_BATCH, OLMOE_PROMPT, OLMOE_NEW
+    max_s = s0 + n_new
+    rng = np.random.default_rng(SEED)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (b, s0))).cuda()
+
+    # Warm-up prefill, not counted; it keeps layer 0's MLP input (the
+    # first call of moe.apply) for the dispatch check.
+    first, apply = [], moe.apply
+
+    def keep_first(p, mcfg, x):
+        if not first:
+            first.append(x.clone())
+        return apply(p, mcfg, x)
+
+    moe.apply = keep_first
+    try:
+        api.prefill(model, cfg, {"tokens": prompt},
+                    api.init_caches(model, cfg, b, max_s))
+    finally:
+        moe.apply = apply
+    profiled = {"prefill": device_time_by_op(
+        torch, f"olmoe prefill {b}x{s0}", lambda: api.prefill(
+            model, cfg, {"tokens": prompt},
+            api.init_caches(model, cfg, b, max_s)))}
+
+    ops.reset_launch_counts()
+    logits, caches, prefill_ms, flash_ms, n_flash = timed_prefill(
+        torch, api, model, cfg, prompt, api.init_caches(model, cfg, b, max_s))
+    launches = ops.launch_counts()
+    print(f"phase 11 olmoe prefill {b}x{s0}: {prefill_ms:.1f} ms, "
+          f"flash_attention {flash_ms:.1f} ms in {n_flash} launches "
+          f"({flash_ms / prefill_ms:.1%} of prefill); launches {launches}")
+    if launches["flash_attention"] != cfg.n_layers or \
+            logits.shape != (b, s0, cfg.vocab) or \
+            not bool(torch.isfinite(logits).all()) or caches.kv.length != s0:
+        raise AssertionError("olmoe prefill: flash not once per layer, or "
+                             "bad logits or cache length")
+    # Steps on the prefill's cache, their results dropped: each writes K/V
+    # at position s0, which the first real step writes again.
+    api.decode_step(model, cfg, prompt[:, -1:], caches)     # warm-up
+    profiled["decode step"] = device_time_by_op(
+        torch, "olmoe decode step", lambda: api.decode_step(
+            model, cfg, prompt[:, -1:], caches))
+
+    dec, generated, caches, decode_ms = greedy_decode(
+        torch, api, model, cfg, logits, caches, n_new)
+    del logits
+    print(f"phase 11 olmoe decode {n_new} tokens x {b}: {decode_ms:.2f} "
+          f"ms/token ({aten_calls_per_decode_step(torch, api, model, cfg, b)}"
+          f" ATen calls a step); launches {ops.launch_counts()}")
+    if ops.launch_counts() != launches or caches.kv.length != max_s:
+        raise AssertionError("olmoe decode launched a kernel or lost a token")
+
+    del caches
+    dispatch = moe_dispatch_check(torch, model.blocks[0].moe, cfg.moe,
+                                  first[0])
+    del first
+
+    # Re-prefill of the prompt and the tokens decode was fed: S = 2080 is
+    # no multiple of 128, so attention takes the masked dense route (no
+    # flash launch), as in the reference.
+    seq = torch.cat([prompt, generated[:, :-1]], dim=1)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    logits2, _ = api.prefill(model, cfg, {"tokens": seq},
+                             api.init_caches(model, cfg, b, max_s))
+    end.record()
+    torch.cuda.synchronize()
+    print(f"phase 11 olmoe re-prefill {b}x{max_s}: "
+          f"{start.elapsed_time(end):.1f} ms; launches {ops.launch_counts()}")
+    if ops.launch_counts() != launches or \
+            not bool(torch.isfinite(logits2).all()):
+        raise AssertionError("olmoe re-prefill launched a kernel or gave "
+                             "non-finite logits")
+    print("phase 11 olmoe decode vs re-prefill (printed, not gated: a decode "
+          "step routes 2 tokens with capacity max(int(1.25*2*8/64), 1) = 1 "
+          "a expert, the prefill 4,160 with 650, so tokens the two route to "
+          "one expert drop in one and are kept in the other):")
+    decode_agrees(torch, dec, generated, logits2[:, s0 - 1:])
+    del model, logits2
+    return {"prefill_ms": prefill_ms, "flash_ms": flash_ms,
+            "decode_ms_per_token": decode_ms, "launches": launches,
+            "profile": profiled, **dispatch}
+
+
+def serve_mamba2(torch, np) -> dict:
+    """Phase 11: Mamba2-370M at full width and depth, bf16."""
+    from repro_torch import configs
+    from repro_torch.core.perfmodel import (AnalyticalHopperProfile,
+                                            AnalyticalTPUProfile)
+    from repro_torch.kernels import ops
+    from repro_torch.models import api, ssm
+
+    s, n, p, q, heads = SSD_POINT
+    hopper = AnalyticalHopperProfile()
+    modeled = {mode: sum(hopper.time(c, 2) for c in ssm.ssd_algorithm_calls(
+        mode, s, n, p, q, heads)) * 1e3 for mode in ("quadratic", "chunked")}
+    picks = {name: ssm.select_ssd_mode(s, n, p, q, heads=heads,
+                                       discriminant=disc, profile=prof)
+             for name, disc, prof in (
+                 ("perfmodel/AnalyticalHopperProfile", "perfmodel", None),
+                 ("flops", "flops", None),
+                 ("perfmodel/AnalyticalTPUProfile", "perfmodel",
+                  AnalyticalTPUProfile()))}
+    print(f"phase 11 select_ssd_mode at (S {s}, N {n}, P {p}, Q {q}, H "
+          f"{heads}): {picks}; Hopper model quadratic "
+          f"{modeled['quadratic']:.4f} ms, chunked {modeled['chunked']:.4f} "
+          f"ms (prefill runs chunked SSD with the state handed over)")
+
+    cfg = configs.get("mamba2_370m")
+    model = api.init(cfg, seed=SEED, device="cuda", dtype=torch.bfloat16)
+    check_params(model, cfg)
+    b, s0, n_new = SERVE_BATCH, MAMBA_PROMPT, MAMBA_NEW
+    max_s = s0 + n_new
+    rng = np.random.default_rng(SEED)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (b, s0))).cuda()
+    api.prefill(model, cfg, {"tokens": prompt},
+                api.init_caches(model, cfg, b, max_s))   # warm-up
+    # The steps run on a scratch cache: a step updates the SSM state in
+    # place, and its cost does not depend on the length.
+    scratch = api.init_caches(model, cfg, b, max_s)
+    api.decode_step(model, cfg, prompt[:, -1:], scratch)     # warm-up
+    profiled = {
+        "prefill": device_time_by_op(
+            torch, f"mamba2 prefill {b}x{s0}", lambda: api.prefill(
+                model, cfg, {"tokens": prompt},
+                api.init_caches(model, cfg, b, max_s))),
+        "decode step": device_time_by_op(
+            torch, "mamba2 decode step", lambda: api.decode_step(
+                model, cfg, prompt[:, -1:], scratch))}
+    del scratch
+    ops.reset_launch_counts()
+    logits, caches, prefill_ms, _, _ = timed_prefill(
+        torch, api, model, cfg, prompt, api.init_caches(model, cfg, b, max_s))
+    print(f"phase 11 mamba2 prefill {b}x{s0}: {prefill_ms:.1f} ms")
+    # 50,280 is no multiple of 16: the logits carry the reference's pad
+    # columns (-1e30) up to padded_vocab.
+    if logits.shape != (b, s0, cfg.padded_vocab) or \
+            not bool(torch.isfinite(logits).all()) or \
+            caches.ssm.length != s0:
+        raise AssertionError("mamba2 prefill: bad logits or cache length")
+    dec, generated, caches, decode_ms = greedy_decode(
+        torch, api, model, cfg, logits, caches, n_new)
+    del logits
+    print(f"phase 11 mamba2 decode {n_new} tokens x {b}: {decode_ms:.2f} "
+          f"ms/token ({aten_calls_per_decode_step(torch, api, model, cfg, b)}"
+          f" ATen calls a step)")
+    seq = torch.cat([prompt, generated[:, :-1]], dim=1)
+    logits2, _, reprefill_ms, _, _ = timed_prefill(
+        torch, api, model, cfg, seq, api.init_caches(model, cfg, b, max_s))
+    launches = ops.launch_counts()
+    print(f"phase 11 mamba2 re-prefill {b}x{max_s}: {reprefill_ms:.1f} ms; "
+          f"launches {launches} (no kernel on this path)")
+    if any(launches.values()) or caches.ssm.length != max_s:
+        raise AssertionError("mamba2 launched a kernel or lost a token")
+    v = cfg.vocab
+    if not decode_agrees(torch, dec[..., :v], generated,
+                         logits2[:, s0 - 1:, :v]):
+        raise AssertionError("mamba2 decode disagrees with the re-prefill")
+    del model, logits2, caches
+    return {"prefill_ms": prefill_ms, "decode_ms_per_token": decode_ms,
+            "reprefill_ms": reprefill_ms, "ssd_modes": picks,
+            "profile": profiled}
+
+
+def serve_zamba2(torch, np) -> dict:
+    """Phase 11: Zamba2-1.2B at full width and depth, bf16, through
+    ``serve.decode.generate`` twice."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import api
+    from repro_torch.serve.decode import generate
+
+    cfg = configs.get("zamba2_1p2b")
+    model = api.init(cfg, seed=SEED, device="cuda", dtype=torch.bfloat16)
+    check_params(model, cfg)
+    b, s0, n_new = SERVE_BATCH, ZAMBA_PROMPT, ZAMBA_NEW
+    rng = np.random.default_rng(SEED)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (b, s0))).cuda()
+    scratch = api.init_caches(model, cfg, b, s0 + n_new + 1)
+    api.decode_step(model, cfg, prompt[:, :1], scratch)      # warm-up
+    profiled = {"decode step": device_time_by_op(
+        torch, "zamba2 decode step", lambda: api.decode_step(
+            model, cfg, prompt[:, :1], scratch))}
+    del scratch
+    ops.reset_launch_counts()
+    finite = torch.ones((), dtype=torch.bool, device="cuda")
+    step = api.decode_step
+
+    def checked_step(*args, **kw):   # every step's logits finite
+        logits, caches = step(*args, **kw)
+        finite.logical_and_(torch.isfinite(logits).all())
+        return logits, caches
+
+    runs = []
+    api.decode_step = checked_step
+    try:
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = generate(model, cfg, prompt, max_new=n_new)
+            torch.cuda.synchronize()
+            runs.append((out, (time.perf_counter() - t0) * 1e3
+                         / (s0 - 1 + n_new)))
+    finally:
+        api.decode_step = step
+    same = torch.equal(runs[0][0], runs[1][0])
+    print(f"phase 11 zamba2 generate {b}x{s0} prompt (teacher-forced) + "
+          f"{n_new} tokens, twice: {runs[0][1]:.2f}, {runs[1][1]:.2f} "
+          f"ms/token over {s0 - 1 + n_new} steps "
+          f"({aten_calls_per_decode_step(torch, api, model, cfg, b)} ATen "
+          f"calls a step); tokens identical: {same}; logits finite: "
+          f"{bool(finite)}; launches {ops.launch_counts()}")
+    if not same or not bool(finite) or runs[0][0].shape != (b, s0 + n_new) \
+            or any(ops.launch_counts().values()):
+        raise AssertionError("zamba2: the two generations differ, a logit "
+                             "is not finite, or a kernel launched")
+    del model
+    return {"decode_ms_per_token": [ms for _, ms in runs],
+            "profile": profiled}
+
+
+def serve_families(torch, np) -> dict:
+    """Phase 11: flash at OLMoE's prefill shape, then OLMoE-1B-7B,
+    Mamba2-370M and Zamba2-1.2B served at full width and depth; each
+    model's peak reserved memory counted from its load."""
+    from repro_torch.kernels import ops
+
+    ops.reset_launch_counts()
+    flash = check_flash(torch, np, cases=(OLMOE_FLASH_CASE,))
+    flash["check_launches"] = ops.launch_counts()["flash_attention"]
+    release(torch)
+    served = {}
+    for name, serve in (("olmoe", serve_olmoe), ("mamba2", serve_mamba2),
+                        ("zamba2", serve_zamba2)):
+        torch.cuda.reset_peak_memory_stats()
+        served[name] = serve(torch, np)
+        release(torch)
+        print(f"phase 11 {name}: peak reserved "
+              f"{torch.cuda.max_memory_reserved() / 2 ** 30:.2f} GiB")
+    return {"flash": flash, **served}
+
+
 def _read_atlas(path: Path, shard=None) -> list:
     """The records of the ``cuda`` backend's atlas at ``path``, opened as
     a resume would open it (its header must match this process)."""
@@ -2042,6 +2461,10 @@ def main() -> int:
         sweep_engine(torch, Path(d), by_family)
         release(torch)
         phase10 = tuning_and_planner(torch, np, Path(d), by_family)
+    memory_line(torch, 10)
+    families = serve_families(torch, np)
+    launches["flash_attention"] += \
+        families["olmoe"]["launches"]["flash_attention"]
 
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
@@ -2059,6 +2482,15 @@ def main() -> int:
                 part: counts.get(name, 0)
                 for part, counts in phase10["parts"].items()},
             "launches_phase10_tune": phase10["tune_launches"].get(name, 0)})
+    flash = families["flash"]
+    next(k for k in kernels if k["name"] == "flash_attention")["phase11"] = {
+        "shape": flash["shape"], "max_abs_err": flash["max_abs_err"],
+        "ms": flash["ms"], "ms_b2b": flash["ms_b2b"],
+        "plain_ms": flash["plain_ms"], "library_ms": flash["library_ms"],
+        "bound_ms": flash["bound_ms"], "bound_by": flash["bound_by"],
+        "launches_olmoe_prefill":
+            families["olmoe"]["launches"]["flash_attention"],
+        "launches_shape_check": flash["check_launches"]}
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

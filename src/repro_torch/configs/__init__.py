@@ -1,5 +1,6 @@
-"""Architecture configs of the port (the dense family) and the shape
-cells, copied from the reference package's ``configs``."""
+"""Architecture configs of the port (the dense, moe, ssm and hybrid
+families) and the shape cells, copied from the reference package's
+``configs``."""
 
 from .base import (
     ALIASES,

@@ -3,9 +3,9 @@
 Own copy of the reference's ``configs/base.py``. Each ported architecture
 lives in ``configs/<id>.py`` exposing ``config()`` (the exact published
 configuration) and ``smoke()`` (a reduced same-family variant for CPU
-tests). Only the dense family is ported; ``get``/``get_smoke`` of an
-architecture of another family raise :class:`NotImplementedError` naming
-the ROADMAP item that will port it.
+tests). The dense, moe, ssm and hybrid families are ported;
+``get``/``get_smoke`` of an encdec or vlm architecture raise
+:class:`NotImplementedError` naming the ROADMAP item that will port it.
 
 Shape cells:
   train_4k     seq 4096,   global_batch 256  (train_step)
@@ -35,17 +35,15 @@ ARCH_IDS = (
     "zamba2_1p2b",
 )
 
-#: The architectures of the dense family, which this package runs.
-PORTED_ARCHS = ("gemma2_9b", "glm4_9b", "phi3_mini", "yi_9b")
+#: The architectures this package runs: the dense, moe, ssm and hybrid
+#: families.
+PORTED_ARCHS = ("gemma2_9b", "glm4_9b", "phi3_mini", "yi_9b", "arctic_480b",
+                "olmoe_1b_7b", "mamba2_370m", "zamba2_1p2b")
 
-#: Family of every architecture not ported yet; all wait for ROADMAP A7.
+#: Family of every architecture not ported yet; both wait for ROADMAP A7.
 _UNPORTED_FAMILY = {
-    "mamba2_370m": "ssm",
     "whisper_tiny": "encdec",
     "internvl2_76b": "vlm",
-    "arctic_480b": "moe",
-    "olmoe_1b_7b": "moe",
-    "zamba2_1p2b": "hybrid",
 }
 
 # Assignment ids → module names (dashes/dots not importable).

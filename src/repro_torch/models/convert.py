@@ -2,11 +2,13 @@
 
 ``from_reference_params(params, cfg)`` takes the reference's parameter
 pytree — nested dicts of arrays (numpy or anything ``numpy.asarray``
-reads, bfloat16 included), the blocks stacked on axis 0 — and returns a
-:class:`~repro_torch.models.transformer.DecoderLM` holding the same
-values. Every leaf must land on exactly one parameter of the same shape:
-a missing, unused or mis-shaped leaf raises :class:`ValueError`. This
-module imports no JAX; callers hand it arrays.
+reads, bfloat16 included), the blocks stacked on axis 0 — and returns the
+port's model of ``cfg``'s family holding the same values: the attention
+blocks' ``attn``/``mlp``/``moe`` leaves, the SSM blocks' ``mixer``
+leaves, and the hybrid family's unstacked ``shared`` block beside its
+stacked ``blocks``. Every leaf must land on exactly one parameter of the
+same shape: a missing, unused or mis-shaped leaf raises
+:class:`ValueError`. This module imports no JAX; callers hand it arrays.
 """
 
 from __future__ import annotations
@@ -15,10 +17,11 @@ from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
+from torch import nn
 
-from . import transformer
+from .api import family_module
 from .layers import resolve_device
-from .transformer import DecoderLM, ModelConfig
+from .transformer import ModelConfig
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str,
@@ -53,11 +56,11 @@ def _reference_state(params: Mapping[str, Any],
 
 @torch.no_grad()
 def from_reference_params(params: Mapping[str, Any], cfg: ModelConfig, *,
-                          device=None, dtype=torch.float32) -> DecoderLM:
+                          device=None, dtype=torch.float32) -> nn.Module:
     """The reference's weights in a port model on ``device`` (the card
     unless ``device="cpu"``), cast to ``dtype``."""
     device = resolve_device(device)
-    model = transformer.init(cfg, None, device="meta", dtype=dtype)
+    model = family_module(cfg).init(cfg, None, device="meta", dtype=dtype)
     flat = _reference_state(params, cfg)
     expected = model.state_dict()
     missing = sorted(set(expected) - set(flat))

@@ -1,13 +1,13 @@
-"""Decoder-LM assembly for the dense family.
+"""Decoder-LM assembly for the dense, MoE and SSM families.
 
-Counterpart of the reference's ``models/transformer.py``, dense family
-only (the MoE, SSM and hybrid branches wait for ROADMAP A7). ``init``
+Counterpart of the reference's ``models/transformer.py`` (the hybrid
+family is :mod:`.hybrid`; encdec and vlm wait for ROADMAP A7). ``init``
 builds an ``nn.Module`` tree whose state-dict keys are the reference's
 parameter paths; ``apply_train`` / ``apply_prefill`` / ``apply_decode``
-run it. The reference's ``lax.scan`` over stacked layers becomes a
-Python loop over ``blocks``: layer ``i`` takes window
-``layer_windows()[i]``, the order in which the reference's gemma2
-grouping walks its local/global pairs.
+run it. The reference's ``lax.scan`` over stacked layers (its
+``scan_util.scan``) becomes a Python loop over ``blocks``: layer ``i``
+takes window ``layer_windows()[i]``, the order in which the reference's
+gemma2 grouping walks its local/global pairs.
 """
 
 from __future__ import annotations
@@ -18,14 +18,16 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import torch
 from torch import nn
 
-from . import attention, layers
+from . import attention, layers, moe as moe_lib, ssm as ssm_lib
 from .attention import AttnConfig, KVCache
+from .moe import MoEConfig
+from .ssm import SSMCache, SSMConfig
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                   # dense (the only family ported)
+    family: str                   # dense | moe | ssm | hybrid
     n_layers: int
     d_model: int
     vocab: int
@@ -42,6 +44,14 @@ class ModelConfig:
     norm_plus_one: bool = False
     embed_scale: bool = False
     tied_embeddings: bool = True
+    # moe
+    moe: Optional[MoEConfig] = None
+    dense_residual: bool = False
+    # ssm / hybrid
+    ssm: Optional[SSMConfig] = None
+    attn_every: int = 0
+    shared_attn: bool = False
+    shared_window: int = 0
     max_seq: int = 131072
 
     @property
@@ -69,21 +79,57 @@ class ModelConfig:
         return tuple((pat * reps)[: self.n_layers])
 
     def param_count(self) -> int:
-        """Parameters of a dense decoder (embedding + blocks)."""
+        """The reference's analytic parameter count: embedding, attention,
+        MLP, MoE and SSM projections (norm gains, the SSM conv and its
+        per-head vectors left out)."""
         d = self.d_model
         n = self.vocab * d * (1 if self.tied_embeddings else 2)
+        L = self.n_layers
         attn = d * (self.n_heads + 2 * self.n_kv_heads) * self.head_dim \
             + self.n_heads * self.head_dim * d
-        gates = 3 if self.activation_is_glu else 2
-        return n + self.n_layers * (attn + gates * d * self.d_ff)
+        if self.family in ("dense", "moe"):
+            n += L * attn
+        if self.family == "dense":
+            gates = 3 if self.activation_is_glu else 2
+            n += L * gates * d * self.d_ff
+        if self.moe is not None:
+            n += L * (d * self.moe.n_experts
+                      + 3 * self.moe.n_experts * d * self.moe.d_ff)
+            if self.dense_residual:
+                n += L * 3 * d * self.d_ff
+        if self.ssm is not None:
+            s = self.ssm
+            proj = 2 * s.d_inner + 2 * s.n_groups * s.d_state + s.n_heads
+            # every hybrid layer is an SSM layer; the shared block below
+            n += L * (d * proj + s.d_inner * d)
+        if self.shared_attn:
+            n += attn + 3 * d * self.d_ff
+        return n
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: top-k experts only)."""
+        if self.moe is None:
+            return self.param_count()
+        d = self.d_model
+        n = self.param_count()
+        n -= self.n_layers * 3 * self.moe.n_experts * d * self.moe.d_ff
+        n += self.n_layers * 3 * self.moe.top_k * d * self.moe.d_ff
+        return n
 
     @property
     def activation_is_glu(self) -> bool:
         return self.activation in ("silu", "gelu_glu")
 
 
-def _check_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+#: The families this module assembles (hybrid is :mod:`.hybrid`).
+FAMILIES = ("dense", "moe", "ssm")
+
+
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.family == "hybrid":
+        raise ValueError(f"{cfg.name}: the hybrid family is assembled by "
+                         f"models.hybrid")
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported to PyTorch "
             f"yet (ROADMAP A7)")
@@ -92,7 +138,8 @@ def _check_dense(cfg: ModelConfig) -> None:
 # ------------------------------------------------------------------ init ---
 
 class Block(nn.Module):
-    """One decoder block: pre-norms, attention, GLU (or plain) MLP and,
+    """One attention block: pre-norms, attention, then a GLU (or plain)
+    MLP, or a MoE (with a parallel GLU MLP when ``dense_residual``) and,
     for gemma2, post-norms."""
 
     def __init__(self, cfg: ModelConfig, *, generator, device, dtype):
@@ -105,8 +152,24 @@ class Block(nn.Module):
         if cfg.post_norms:
             self.post_attn_norm = layers.RMSNorm(cfg.d_model, **norm)
             self.post_mlp_norm = layers.RMSNorm(cfg.d_model, **norm)
-        mlp_cls = layers.GluMLP if cfg.activation_is_glu else layers.MLP
-        self.mlp = mlp_cls(cfg.d_model, cfg.d_ff, **kw)
+        if cfg.moe is not None:
+            self.moe = moe_lib.MoE(cfg.moe, **kw)
+            if cfg.dense_residual:
+                self.mlp = layers.GluMLP(cfg.d_model, cfg.d_ff, **kw)
+        else:
+            mlp_cls = layers.GluMLP if cfg.activation_is_glu else layers.MLP
+            self.mlp = mlp_cls(cfg.d_model, cfg.d_ff, **kw)
+
+
+class SSMBlock(nn.Module):
+    """One Mamba2 block: ``pre_norm`` and the ``mixer``."""
+
+    def __init__(self, cfg: ModelConfig, *, generator, device, dtype):
+        super().__init__()
+        self.pre_norm = layers.RMSNorm(cfg.d_model, device=device,
+                                       dtype=dtype)
+        self.mixer = ssm_lib.Mamba2Mixer(cfg.ssm, generator=generator,
+                                         device=device, dtype=dtype)
 
 
 class DecoderLM(nn.Module):
@@ -114,8 +177,9 @@ class DecoderLM(nn.Module):
         super().__init__()
         kw = dict(generator=generator, device=device, dtype=dtype)
         self.embed = layers.Embed(cfg.padded_vocab, cfg.d_model, **kw)
+        block = SSMBlock if cfg.family == "ssm" else Block
         self.blocks = nn.ModuleList(
-            Block(cfg, **kw) for _ in range(cfg.n_layers))
+            block(cfg, **kw) for _ in range(cfg.n_layers))
         self.final_norm = layers.RMSNorm(cfg.d_model, device=device,
                                          dtype=dtype)
         if not cfg.tied_embeddings:
@@ -126,7 +190,7 @@ def init(cfg: ModelConfig, generator: Optional[torch.Generator], *,
          device, dtype=torch.float32) -> DecoderLM:
     """Weights from the reference's distributions, drawn from
     ``generator`` (which lies on ``device``; ``None`` only for ``meta``)."""
-    _check_dense(cfg)
+    _check_family(cfg)
     return DecoderLM(cfg, generator=generator, device=device, dtype=dtype)
 
 
@@ -134,8 +198,9 @@ def init(cfg: ModelConfig, generator: Optional[torch.Generator], *,
 
 def _block_apply(cfg: ModelConfig, bp: Block, x: torch.Tensor,
                  attend: Callable[[torch.Tensor], torch.Tensor]
-                 ) -> torch.Tensor:
-    """One block around ``attend`` (normed input → attention output)."""
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One attention block around ``attend`` (normed input → attention
+    output) → (x, the MoE's aux loss, None without a MoE)."""
     h = layers.rmsnorm(bp.pre_attn_norm, x, plus_one=cfg.norm_plus_one)
     attn_out = attend(h)
     if cfg.post_norms:
@@ -143,7 +208,12 @@ def _block_apply(cfg: ModelConfig, bp: Block, x: torch.Tensor,
                                   plus_one=cfg.norm_plus_one)
     x = x + attn_out
     h = layers.rmsnorm(bp.pre_mlp_norm, x, plus_one=cfg.norm_plus_one)
-    if cfg.activation_is_glu:
+    aux = None
+    if cfg.moe is not None:
+        mlp_out, aux = moe_lib.apply(bp.moe, cfg.moe, h)
+        if cfg.dense_residual:
+            mlp_out = mlp_out + layers.glu_mlp(bp.mlp, h, cfg.activation)
+    elif cfg.activation_is_glu:
         act = "silu" if cfg.activation == "silu" else "gelu"
         mlp_out = layers.glu_mlp(bp.mlp, h, act)
     else:
@@ -151,7 +221,15 @@ def _block_apply(cfg: ModelConfig, bp: Block, x: torch.Tensor,
     if cfg.post_norms:
         mlp_out = layers.rmsnorm(bp.post_mlp_norm, mlp_out,
                                  plus_one=cfg.norm_plus_one)
-    return x + mlp_out
+    return x + mlp_out, aux
+
+
+def _ssm_block_apply(cfg: ModelConfig, bp: SSMBlock, x: torch.Tensor,
+                     mix: Callable[[torch.Tensor], torch.Tensor]
+                     ) -> torch.Tensor:
+    """One Mamba2 block around ``mix`` (normed input → mixer output)."""
+    h = layers.rmsnorm(bp.pre_norm, x, plus_one=cfg.norm_plus_one)
+    return x + mix(h)
 
 
 def _embed(cfg: ModelConfig, model: DecoderLM,
@@ -163,6 +241,8 @@ def _embed(cfg: ModelConfig, model: DecoderLM,
 
 
 def _rope_tables(cfg: ModelConfig, max_pos: int, device):
+    if cfg.family == "ssm":
+        return None
     return layers.rope_frequencies(cfg.head_dim, max_pos, cfg.rope_theta,
                                    device=device)
 
@@ -183,33 +263,49 @@ def _logits(cfg: ModelConfig, model: DecoderLM,
 
 def apply_train(model: DecoderLM, cfg: ModelConfig, tokens: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens (B, S) → (logits (B, S, vocab) fp32, aux_loss). Forward only:
-    attention runs as the reference's differentiable route does (dense
-    below the chunked threshold)."""
-    _check_dense(cfg)
+    """tokens (B, S) → (logits (B, S, vocab) fp32, aux_loss summed over
+    the MoE layers). Forward only: attention runs as the reference's
+    differentiable route does (dense below the chunked threshold), the
+    SSM layers take ``ssm.ssd``'s selected algorithm."""
+    _check_family(cfg)
     x = _embed(cfg, model, tokens)
     s = x.shape[1]
     rope = _rope_tables(cfg, s, x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for bp, window in zip(model.blocks, cfg.layer_windows()):
+        if cfg.family == "ssm":
+            x = _ssm_block_apply(cfg, bp, x, lambda h, bp=bp:
+                                 ssm_lib.apply_train(bp.mixer, cfg.ssm, h))
+            continue
         acfg = cfg.attn_cfg._replace(window=window)
-        x = _block_apply(cfg, bp, x, lambda h, bp=bp, acfg=acfg:
-                         attention.apply_train(bp.attn, acfg, h, rope=rope))
-    return _logits(cfg, model, x), torch.zeros((), dtype=torch.float32)
+        x, a = _block_apply(cfg, bp, x, lambda h, bp=bp, acfg=acfg:
+                            attention.apply_train(bp.attn, acfg, h,
+                                                  rope=rope))
+        if a is not None:
+            aux = aux + a
+    return _logits(cfg, model, x), aux
 
 
 # ------------------------------------------------------------- serving ---
 
 class LayerCaches(NamedTuple):
-    """Per-layer KV caches stacked on a leading layer axis:
-    ``kv.k``/``kv.v`` (L, B, max_s, Hkv, Dh), ``kv.length`` shared."""
-    kv: KVCache
+    """Per-layer caches stacked on a leading layer axis: attention
+    families ``kv.k``/``kv.v`` (L, B, max_s, Hkv, Dh), the SSM family
+    ``ssm.conv`` (L, B, K-1, C) and ``ssm.state`` (L, B, H, N, P); the
+    length is shared."""
+    kv: Optional[KVCache]
+    ssm: Optional[SSMCache] = None
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_s: int,
                 dtype=torch.bfloat16, device=None) -> LayerCaches:
-    """Zeroed caches of ``max_s`` positions, with the decode attention
-    tail's association planned for them (:func:`plan_decode`)."""
-    _check_dense(cfg)
+    """Zeroed caches (KV caches of ``max_s`` positions, with the decode
+    attention tail's association planned for them, :func:`plan_decode`;
+    SSM caches of one conv tail and state a layer)."""
+    _check_family(cfg)
+    if cfg.family == "ssm":
+        return LayerCaches(kv=None, ssm=ssm_lib.init_cache(
+            cfg.ssm, batch, dtype, device=device, n_layers=cfg.n_layers))
     shape = (cfg.n_layers, batch, max_s, cfg.n_kv_heads, cfg.head_dim)
     return plan_decode(cfg, LayerCaches(kv=KVCache(
         k=torch.zeros(shape, dtype=dtype, device=device),
@@ -221,8 +317,12 @@ def plan_decode(cfg: ModelConfig, caches: LayerCaches) -> LayerCaches:
     of the serving plan cache at the caches' capacity
     (:func:`~repro_torch.models.attention.planned_pv_right_first`; the
     ``REPRO_SERVE_PLANNER=0`` kill-switch, or a failure, gives left),
-    carried by every decode step of these caches."""
+    carried by every decode step of these caches. Caches without
+    attention (the SSM family) make no consult and are returned as
+    they are."""
     kv = caches.kv
+    if kv is None:
+        return caches
     right = attention.planned_pv_right_first(
         1, kv.k.shape[2], cfg.head_dim, cfg.d_model, device=kv.k.device)
     return caches._replace(kv=kv._replace(right_first=right))
@@ -233,15 +333,28 @@ def _layer_cache(caches: LayerCaches, i: int) -> KVCache:
     return kv._replace(k=kv.k[i], v=kv.v[i])
 
 
+def _layer_ssm_cache(caches: LayerCaches, i: int) -> SSMCache:
+    sc = caches.ssm
+    return sc._replace(conv=sc.conv[i], state=sc.state[i])
+
+
 def apply_prefill(model: DecoderLM, cfg: ModelConfig, tokens: torch.Tensor,
                   caches: LayerCaches
                   ) -> Tuple[torch.Tensor, LayerCaches]:
     """Prefill: full-sequence forward that also fills the caches (in
     place). Attention takes the flash kernel when S is a multiple of 128
-    and at least 256."""
-    _check_dense(cfg)
+    and at least 256; the SSM family runs chunked SSD with the final
+    state handed to the cache (S a multiple of min(chunk, S))."""
+    _check_family(cfg)
     x = _embed(cfg, model, tokens)
     s = x.shape[1]
+    if cfg.family == "ssm":
+        for i, bp in enumerate(model.blocks):
+            x = _ssm_block_apply(
+                cfg, bp, x, lambda h, bp=bp, sc=_layer_ssm_cache(caches, i):
+                ssm_lib.apply_prefill(bp.mixer, cfg.ssm, h, sc)[0])
+        return _logits(cfg, model, x), caches._replace(
+            ssm=caches.ssm._replace(length=s))
     rope = _rope_tables(cfg, max(s, caches.kv.k.shape[2]), x.device)
     for i, (bp, window) in enumerate(zip(model.blocks, cfg.layer_windows())):
         acfg = cfg.attn_cfg._replace(window=window)
@@ -252,9 +365,9 @@ def apply_prefill(model: DecoderLM, cfg: ModelConfig, tokens: torch.Tensor,
                                              rope=rope)
             return out
 
-        x = _block_apply(cfg, bp, x, attend)
+        x, _ = _block_apply(cfg, bp, x, attend)
     logits = _logits(cfg, model, x)
-    return logits, LayerCaches(kv=caches.kv._replace(length=s))
+    return logits, caches._replace(kv=caches.kv._replace(length=s))
 
 
 def _decode_attn_dynwin(p: attention.Attention, acfg: AttnConfig,
@@ -270,16 +383,24 @@ def _decode_attn_dynwin(p: attention.Attention, acfg: AttnConfig,
 def apply_decode(model: DecoderLM, cfg: ModelConfig, tokens: torch.Tensor,
                  caches: LayerCaches) -> Tuple[torch.Tensor, LayerCaches]:
     """One-token decode: tokens (B, 1) → (logits (B, 1, V), caches with
-    the new K/V written in place and the length advanced)."""
-    _check_dense(cfg)
+    the new K/V (or SSM conv tail and state) written in place and the
+    length advanced)."""
+    _check_family(cfg)
     x = _embed(cfg, model, tokens)
+    if cfg.family == "ssm":
+        for i, bp in enumerate(model.blocks):
+            x = _ssm_block_apply(
+                cfg, bp, x, lambda h, bp=bp, sc=_layer_ssm_cache(caches, i):
+                ssm_lib.apply_decode(bp.mixer, cfg.ssm, h, sc)[0])
+        return _logits(cfg, model, x), caches._replace(
+            ssm=caches.ssm._replace(length=caches.ssm.length + 1))
     rope = _rope_tables(cfg, caches.kv.k.shape[2], x.device)
     acfg = cfg.attn_cfg
     for i, (bp, window) in enumerate(zip(model.blocks, cfg.layer_windows())):
         cache = _layer_cache(caches, i)
-        x = _block_apply(cfg, bp, x, lambda h, bp=bp, cache=cache, w=window:
-                         _decode_attn_dynwin(bp.attn, acfg, h, cache, rope,
-                                             w)[0])
+        x, _ = _block_apply(cfg, bp, x, lambda h, bp=bp, cache=cache,
+                            w=window: _decode_attn_dynwin(bp.attn, acfg, h,
+                                                          cache, rope, w)[0])
     logits = _logits(cfg, model, x)
-    return logits, LayerCaches(
+    return logits, caches._replace(
         kv=caches.kv._replace(length=caches.kv.length + 1))

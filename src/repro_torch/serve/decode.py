@@ -1,11 +1,13 @@
 """Serving steps: single-token decode (greedy/temperature) and generation.
 
 Counterpart of the reference's ``serve/decode.py``. ``serve_step`` is one
-new token for the whole batch against the KV cache; ``generate`` feeds a
-prompt token by token (teacher-forced) and then decodes. The decode
-attention tail's association is a consult of the serving plan cache,
-made once when the KV cache is set up (``transformer.plan_decode``, with
-the cache's capacity), so :func:`plan_warmup` plans a model's decode
+new token for the whole batch against the caches (KV, SSM, or the hybrid
+family's SSM caches and shared ring-buffer KV); ``generate`` feeds a
+prompt token by token (teacher-forced; the only prefill the hybrid family
+has) and then decodes. The decode attention tail's association is a
+consult of the serving plan cache, made once when the KV cache is set up
+(``transformer.plan_decode``, with the cache's capacity; caches without
+attention make none), so :func:`plan_warmup` plans a model's decode
 shapes before that: the consult is then a cache hit, and a step makes
 none. Sampling draws from an explicit ``torch.Generator`` seeded by
 ``seed`` (its numbers differ from ``jax.random``'s; greedy decoding does
@@ -29,9 +31,10 @@ from repro_torch.serve.plan_cache import default_plan_service, planner_enabled
 def plan_warmup(cfg: ModelConfig, max_s: int,
                 device="cuda") -> List[Tuple[str, Tuple]]:
     """Pre-plan the zoo families a decode step of ``cfg`` consults, in the
-    default plan service of ``device`` (the reference's shapes: the
-    attention tail at the cache's ``max_s``, the attention output and
-    logits projections, the MLP).
+    default plan service of ``device``: the reference's shapes, the
+    attention tail at the cache's ``max_s`` and the attention output
+    projection only where the model has attention heads (none for the
+    SSM family), the MLP where it has a ``d_ff``, and the logits.
 
     Returns the (family, dims) pairs warmed. No-op (empty list) when the
     consult is disabled via ``REPRO_SERVE_PLANNER=0``.

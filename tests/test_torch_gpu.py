@@ -748,6 +748,84 @@ def test_smoke_model_prefill_on_card_runs_flash_and_matches_cpu(cuda, arch):
     assert bool(torch.isfinite(step).all())
 
 
+def test_flash_attention_bf16_mha_at_olmoe_head_dim(cuda):
+    """OLMoE's prefill case, cut to smoke size: MHA (H = Hkv), D = 128,
+    bf16, causal."""
+    _attention_case(cuda, 2, 4, 4, 384, 128, dict(causal=True), 20)
+
+
+def _card_and_cpu(cuda, arch):
+    import copy
+
+    from repro_torch import configs
+    from repro_torch.models import api
+    cfg = configs.get_smoke(arch)
+    cpu = api.init(cfg, seed=0, device="cpu")
+    return cfg, cpu, copy.deepcopy(cpu).to(cuda), api
+
+
+@pytest.mark.parametrize("arch", ["olmoe_1b_7b", "arctic_480b",
+                                  "mamba2_370m"])
+def test_family_smoke_model_on_card_matches_cpu(cuda, arch):
+    """A float32 smoke model of the moe or ssm family: prefill (S = 256
+    takes flash once per attention layer; the SSM family launches no
+    kernel) and three decode steps agree with the same weights on the
+    CPU (plain version) at rtol = atol = 1e-4."""
+    cfg, cpu, card, api = _card_and_cpu(cuda, arch)
+    s = 64 if cfg.family == "ssm" else 256
+    toks = np.random.default_rng(1).integers(0, cfg.vocab, (2, s))
+    ops.reset_launch_counts()
+    got, caches = api.prefill(card, cfg, {"tokens": toks},
+                              api.init_caches(card, cfg, 2, s + 4))
+    assert ops.launch_counts()["flash_attention"] == (
+        0 if cfg.family == "ssm" else cfg.n_layers)
+    want, cpu_caches = api.prefill(cpu, cfg, {"tokens": toks},
+                                   api.init_caches(cpu, cfg, 2, s + 4))
+    _close(got, want, dict(rtol=1e-4, atol=1e-4))
+    for i in range(3):
+        step, caches = api.decode_step(card, cfg, toks[:, i:i + 1], caches)
+        ref_step, cpu_caches = api.decode_step(cpu, cfg, toks[:, i:i + 1],
+                                               cpu_caches)
+        _close(step, ref_step, dict(rtol=1e-4, atol=1e-4))
+    logits, aux = api.forward_train(card, cfg, {"tokens": toks[:, :64]})
+    ref_logits, ref_aux = api.forward_train(cpu, cfg,
+                                            {"tokens": toks[:, :64]})
+    _close(logits, ref_logits, dict(rtol=1e-4, atol=1e-4))
+    assert abs(float(aux) - float(ref_aux)) <= 1e-5 * max(1.0,
+                                                         float(ref_aux))
+
+
+def test_moe_dispatches_agree_on_card(cuda):
+    """gather and einsum dispatch, drops forced by capacity 0.25, on the
+    card against each other and against the CPU."""
+    from repro_torch.models import moe
+    cfg = moe.MoEConfig(d_model=64, d_ff=96, n_experts=8, top_k=2,
+                        capacity_factor=0.25)
+    gen = torch.Generator().manual_seed(0)
+    p = moe.MoE(cfg, generator=gen, device="cpu", dtype=torch.float32)
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (2, 64, 64))).float()
+    want, _ = moe.apply(p, cfg, x)
+    p.to(cuda)
+    for dispatch in ("gather", "einsum"):
+        got, _ = moe.apply(p, cfg._replace(dispatch=dispatch), x.to(cuda))
+        _close(got, want, dict(rtol=1e-4, atol=1e-4))
+
+
+def test_zamba2_smoke_generate_on_card_matches_cpu(cuda, monkeypatch):
+    """The hybrid family on the card: generate past the 32-slot shared
+    window equals the CPU's tokens, with no kernel launch."""
+    from repro_torch.serve.decode import generate
+    monkeypatch.setenv("REPRO_SERVE_PLANNER", "0")
+    cfg, cpu, card, api = _card_and_cpu(cuda, "zamba2_1p2b")
+    prompt = np.random.default_rng(3).integers(0, cfg.vocab, (2, 40))
+    ops.reset_launch_counts()
+    got = generate(card, cfg, prompt, max_new=6, max_s=48)
+    assert not any(ops.launch_counts().values())
+    want = generate(cpu, cfg, prompt, max_new=6, max_s=48)
+    assert torch.equal(got.cpu(), want)
+
+
 # ------------------------------------------------ tuned launches (slice 9) --
 
 #: (kind, dims) of the tuned-launch tests: ragged dims, each kind's

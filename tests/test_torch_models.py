@@ -1,4 +1,4 @@
-"""The port's dense model stack against the JAX package's, on the CPU.
+"""The port's model stack against the JAX package's, on the CPU.
 
 Same seeded numpy inputs into both packages; the reference's weights are
 carried into the port by ``repro_torch.models.convert``. Float32 compares
@@ -33,8 +33,9 @@ from repro_torch.models import api, attention, convert, layers, transformer
 TOL = dict(rtol=1e-4, atol=1e-4)
 CACHE_TOL = dict(rtol=2 ** -7, atol=1e-5)
 DENSE = ("yi_9b", "gemma2_9b", "glm4_9b", "phi3_mini")
-UNPORTED = ("mamba2_370m", "whisper_tiny", "internvl2_76b", "arctic_480b",
-            "olmoe_1b_7b", "zamba2_1p2b")
+#: The moe, ssm and hybrid architectures (tests/test_torch_families.py).
+FAMILIES = ("olmoe_1b_7b", "arctic_480b", "mamba2_370m", "zamba2_1p2b")
+UNPORTED = ("whisper_tiny", "internvl2_76b")
 
 
 def _np(x):
@@ -61,7 +62,7 @@ def smoke_models():
 
 # --------------------------------------------------------------- configs ---
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + FAMILIES)
 @pytest.mark.parametrize("smoke", [False, True])
 def test_configs_match_reference(arch, smoke):
     mine = (configs.get_smoke if smoke else configs.get)(arch)
@@ -71,6 +72,7 @@ def test_configs_match_reference(arch, smoke):
             field.name
     assert mine.padded_vocab == theirs.padded_vocab
     assert mine.param_count() == theirs.param_count()
+    assert mine.active_param_count() == theirs.active_param_count()
     assert list(mine.layer_windows()) == [int(w) for w in
                                           theirs.layer_windows()]
     assert mine.attn_cfg._asdict() == theirs.attn_cfg._asdict()
@@ -211,8 +213,31 @@ def test_convert_raises_on_missing_unused_and_misshaped_leaves(smoke_models):
     with pytest.raises(ValueError, match="final_norm.g: reference shape"):
         convert.from_reference_params(bad, cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        transformer.init(dataclasses.replace(cfg, family="moe"), None,
+        transformer.init(dataclasses.replace(cfg, family="encdec"), None,
                          device="meta")
+
+
+def test_convert_raises_on_a_hybrid_tree_missing_a_shared_leaf():
+    """zamba2's tree holds the unstacked ``shared`` block beside the
+    stacked ``blocks``: a missing shared leaf, or blocks cut to the wrong
+    number of layers, raises."""
+    jcfg = jget_smoke("zamba2_1p2b")
+    params, _ = japi.init(jax.random.PRNGKey(0), jcfg)
+    tree = jax.tree.map(np.asarray, params)
+    cfg = configs.get_smoke("zamba2_1p2b")
+    model = convert.from_reference_params(tree, cfg, device="cpu")
+    np.testing.assert_array_equal(model.shared.attn.wq.w.numpy(),
+                                  tree["shared"]["attn"]["wq"]["w"])
+    np.testing.assert_array_equal(model.blocks[3].mixer.conv_w.numpy(),
+                                  tree["blocks"]["mixer"]["conv_w"][3])
+    shared = {k: v for k, v in tree["shared"].items() if k != "mlp"}
+    with pytest.raises(ValueError, match=r"missing \['shared.mlp.down.w'"):
+        convert.from_reference_params(dict(tree, shared=shared), cfg,
+                                      device="cpu")
+    cut = jax.tree.map(lambda a: a[:2], tree["blocks"])
+    with pytest.raises(ValueError, match="is not the 4 layers"):
+        convert.from_reference_params(dict(tree, blocks=cut), cfg,
+                                      device="cpu")
 
 
 # ------------------------------------------------------------- attention ---
