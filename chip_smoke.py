@@ -109,7 +109,25 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    tokens) twice: the tokens must be identical and every logit finite.
    One prefill and one decode step of each (Zamba2: a step) run once more
    under ``torch.profiler``: host wall time, device time and the ATen
-   ops and hand kernels that take the most device time.
+   ops and hand kernels that take the most device time;
+12. the paper's own protocol beside the card's backends, on the host's
+   CPU (its model and thread count printed beside every ``blas`` figure):
+   (a) every algorithm of ``aatb`` at (1200, 800, 400) and of ``abcd`` at
+   (400, 1200, 400, 1200, 400) on ``blas`` and ``numpy`` (float64, the
+   host), ``torch`` on the card in float64 and bfloat16 and ``cuda``
+   (float32), on the same seeded operands, each held against ``blas``
+   (:data:`PROTOCOL_F64_TOL`, phase 5's limit for ``cuda``,
+   :data:`PROTOCOL_BF16_TOL`); (b) ``sweep --compare-backends blas,cuda``
+   over phase 4's ``aatb`` and ``abcd`` grids with the cache flush on,
+   into a fresh atlas directory (the ``cuda`` launches must equal phase
+   4's; the two fingerprints must differ); (c) ``calibrate --backend
+   blas`` and ``--backend torch --dtype bfloat16`` on ``aatb``'s calls
+   (host- and bfloat16-fingerprinted profiles), and ``--backend cuda
+   --dtype bfloat16`` must exit non-zero; (d) Experiment 1 on ``aatb`` in
+   [20, 600] (50 samples, seed 0) on ``blas`` serially and over two
+   worker processes, and on ``cuda`` through the devices engine: the same
+   50 points; then ``python -m repro_torch.benchmarks.experiment3`` at CI
+   scale on ``cuda``, its recall and precision printed.
 
 The compiler's report must show no spills in any SYRK or GEMM+SYRK
 instance. The last two lines are the card's ``nvidia-smi`` name/power
@@ -2394,6 +2412,272 @@ def print_ptxas_report(log: Path) -> dict:
     return spills
 
 
+#: Phase 12: the points at which every backend's results are held
+#: against the float64 BLAS ones, each on the same seeded operands.
+PROTOCOL_POINTS = (("aatb", (1200, 800, 400)),
+                   ("abcd", (400, 1200, 400, 1200, 400)))
+#: max|got - blas| <= limit·max|blas| for float64 (numpy, torch on the
+#: card), and for torch in bfloat16: inputs, each intermediate and the
+#: output are rounded to bf16 (2^-9 relative each) while the products
+#: accumulate in float32, so the largest error seen on the CPU was
+#: 5.1e-3·max|value| (PERF.md §2); 2^-6 leaves three times that.
+PROTOCOL_F64_TOL = 1e-10
+PROTOCOL_BF16_TOL = 2 ** -6
+#: Phase 12's sweeps: (family, axis values), phase 4's grids.
+PROTOCOL_SWEEPS = (("aatb", (400, 800, 1200)), ("abcd", (400, 1200)))
+#: Experiment 1 on every engine: the same 50 points (one more anomaly
+#: than samples, so no run stops early).
+PROTOCOL_EXPERIMENT1 = dict(box=(20, 600), n_anomalies=51, max_samples=50,
+                            seed=0)
+
+
+def host_cpu() -> str:
+    """The host's CPU, thread count and scipy's BLAS: where blas and numpy
+    run. A sandbox may report the model name as "unknown": then the
+    vendor, family and model numbers stand for it."""
+    fields = {}
+    try:
+        for line in Path("/proc/cpuinfo").read_text().splitlines():
+            key, _, value = line.partition(":")
+            fields.setdefault(key.strip(), value.strip())
+    except OSError:
+        pass
+    model = fields.get("model name", "unknown")
+    if model == "unknown":
+        model = " ".join(f"{k} {fields[k]}" for k in
+                         ("vendor_id", "cpu family", "model")
+                         if k in fields) or "unknown CPU"
+    import scipy
+
+    blas = scipy.show_config(mode="dicts")["Build Dependencies"]["blas"]
+    return (f"{model}, {os.cpu_count()} threads, {blas['name']} "
+            f"{blas['version']}")
+
+
+def _protocol_agreement(torch, np, host: str) -> None:
+    """Phase 12 (a): every algorithm at PROTOCOL_POINTS on blas and numpy
+    (float64, host), torch on the card in float64 and bfloat16, and cuda
+    (float32), on the same seeded operands, held against blas."""
+    from repro_torch.core.backends import get_backend
+    from repro_torch.core.expressions import get_spec
+
+    blas = get_backend("blas", reps=1, flush_cache=False, seed=SEED)
+    oracle = get_backend("numpy", reps=1, flush_cache=False, seed=SEED)
+    on_card = {"torch float64": get_backend("torch", dtype="float64",
+                                            seed=SEED),
+               "torch bfloat16": get_backend("torch", dtype="bfloat16",
+                                             seed=SEED),
+               "cuda float32": get_backend("cuda", seed=SEED)}
+
+    def limit(label, scale):
+        if label == "torch bfloat16":
+            return PROTOCOL_BF16_TOL * scale
+        if label == "cuda float32":
+            return 1e-3 + 1e-4 * scale
+        return PROTOCOL_F64_TOL * scale
+
+    for name, point in PROTOCOL_POINTS:
+        for alg in get_spec(name).algorithms(point):
+            t0 = time.perf_counter()
+            want = np.asarray(blas.execute(alg, blas.make_operands(alg)))
+            blas_s = time.perf_counter() - t0
+            scale = float(np.abs(want).max())
+            got = {"numpy float64": np.asarray(
+                oracle.execute(alg, oracle.make_operands(alg)))}
+            for label, backend in on_card.items():
+                out = backend.execute(alg, backend.make_operands(alg))
+                got[label] = out.double().cpu().numpy()
+            errs = {label: float(np.abs(g - want).max())
+                    for label, g in got.items()}
+            print(f"phase 12 agreement {name}{point} {alg.name}: max|value| "
+                  f"{scale:.4e}, blas {blas_s * 1e3:.1f} ms eager on the "
+                  f"host ({host}); max|d| vs blas " + ", ".join(
+                      f"{label} {e:.3e} (limit {limit(label, scale):.3e})"
+                      for label, e in errs.items()))
+            bad = [label for label, e in errs.items()
+                   if not e <= limit(label, scale)
+                   or got[label].shape != want.shape]
+            if bad:
+                raise AssertionError(f"{name}{point} {alg.name}: {bad} "
+                                     f"disagree with blas")
+
+
+def _protocol_compare(torch, atlas_dir: Path, phase4: dict,
+                      host: str) -> None:
+    """Phase 12 (b): ``sweep --compare-backends blas,cuda`` over phase 4's
+    aatb and abcd grids, flush on, into a fresh atlas directory (so the
+    cuda side measures, and launches exactly what phase 4 launched)."""
+    from repro_torch.core import sweep as sweep_mod
+    from repro_torch.kernels import ops
+
+    for name, axis in PROTOCOL_SWEEPS:
+        ops.reset_launch_counts()
+        text, _ = run_cli(sweep_mod.main, [
+            "--compare-backends", "blas,cuda", "--expr", name, "--grid",
+            ",".join(map(str, axis)), "--reps", str(REPS), "--seed",
+            str(SEED), "--atlas-dir", str(atlas_dir / f"compare-{name}"),
+            "--quiet"])
+        got = ops.launch_counts()
+        rows = dict(re.findall(r"\[(blas|cuda)\]: (points=.*)", text))
+        differs = re.search(r"fastest-differs=(\d+)", text)
+        paths = dict(re.findall(r"atlas\[(blas|cuda)\] written to (\S+)",
+                                text))
+        fps = {k: json.loads(Path(v).read_text().splitlines()[0])[
+            "fingerprint"] for k, v in paths.items()}
+        print(f"phase 12 compare {name} over {axis}: blas {rows.get('blas')} "
+              f"(host: {host}); cuda {rows.get('cuda')}; fastest-differs="
+              f"{differs and differs.group(1)}; fingerprints blas "
+              f"{fps.get('blas')}, cuda {fps.get('cuda')}")
+        want = {k: phase4[name].get(k, 0) for k in got}
+        print(f"phase 12 compare {name} cuda launches {got} (measured in a "
+              f"fresh atlas, not resumed: must equal phase 4's {want})")
+        if set(rows) != {"blas", "cuda"} or differs is None or \
+                len(fps) != 2 or fps["blas"] == fps["cuda"]:
+            raise AssertionError(f"compare blas,cuda on {name} printed "
+                                 f"{rows}, {fps}")
+        if any("measured=0 " in r for r in rows.values()):
+            raise AssertionError(f"compare {name} resumed an atlas")
+        if got != want:
+            raise AssertionError(f"compare {name}: cuda launched {got}, "
+                                 f"not {want}")
+
+
+def _protocol_calibrate(torch, profile_dir: Path, host: str) -> None:
+    """Phase 12 (c): calibrate blas (host) and torch in bfloat16 (card)
+    on aatb's calls; cuda in bfloat16 must exit non-zero."""
+    import platform
+
+    from repro_torch.core import calibrate as cal
+
+    os.environ["REPRO_PROFILE_DIR"] = str(profile_dir)
+    grid = ",".join(map(str, PROTOCOL_SWEEPS[0][1]))
+    want = {"blas": {"backend": "blas", "device": platform.machine(),
+                     "dtype": "float64"},
+            "torch": {"backend": "torch",
+                      "device": torch.cuda.get_device_name(0),
+                      "dtype": "bfloat16"}}
+    for backend, extra in (("blas", []), ("torch", ["--dtype", "bfloat16"])):
+        text, _ = run_cli(cal.main, ["--backend", backend, "--expr", "aatb",
+                                     "--grid", grid, "--reps", str(REPS),
+                                     "--seed", str(SEED), "--quiet"] + extra)
+        path = re.search(r"profile written to (\S+)", text).group(1)
+        fp = json.loads(Path(path).read_text())["fingerprint"]
+        print(f"phase 12 calibrate {backend}: fingerprint {fp}"
+              + (f" (host: {host})" if backend == "blas" else ""))
+        if fp != want[backend]:
+            raise AssertionError(f"calibrate {backend} wrote {fp}, not "
+                                 f"{want[backend]}")
+    try:
+        rc = cal.main(["--backend", "cuda", "--dtype", "bfloat16", "--expr",
+                       "aatb", "--grid", grid])
+    except SystemExit as e:
+        rc = e.code
+    print(f"phase 12 calibrate --backend cuda --dtype bfloat16: exit {rc}")
+    if not rc:
+        raise AssertionError("calibrate --backend cuda --dtype bfloat16 "
+                             "did not refuse")
+
+
+def _protocol_experiments(torch, atlas_dir: Path, profile_dir: Path,
+                          host: str) -> None:
+    """Phase 12 (d): Experiment 1 on blas (serial, and two worker
+    processes) and on cuda (the devices engine): the same 50 points;
+    then the Experiment 3 driver at CI scale on cuda."""
+    import functools
+
+    from repro_torch.core.backends import make_backend
+    from repro_torch.core.experiments import experiment1_random_search
+    from repro_torch.core.expressions import get_spec
+    from repro_torch.core.profile_store import current_fingerprint
+    from repro_torch.core.sweep import AnomalyAtlas, atlas_path
+
+    spec = get_spec("aatb")
+    # One repetition on blas: this part checks that the engines draw the
+    # same points; (b) measures the map at REPS.
+    runs = (
+        ("blas serial", "blas",
+         dict(runner=make_backend("blas", reps=1, seed=SEED))),
+        ("blas process x2", "blas",
+         dict(backend="process", shards=2, runner_factory=functools.partial(
+             make_backend, "blas", reps=1, seed=SEED))),
+        ("cuda devices", "cuda",
+         dict(backend="devices", exec_backend="cuda", device="cuda")))
+    drawn, samples = {}, {}
+    for label, backend, kw in runs:
+        fp = current_fingerprint(backend, "float64" if backend == "blas"
+                                 else "float32")
+        directory = atlas_dir / label.replace(" ", "-")
+        with AnomalyAtlas(atlas_path(spec.name, fp, 0.10, directory), fp,
+                          spec.name, 0.10) as atlas:
+            t0 = time.perf_counter()
+            res = experiment1_random_search(spec, atlas=atlas,
+                                            **PROTOCOL_EXPERIMENT1, **kw)
+            wall = time.perf_counter() - t0
+            drawn[label] = sorted(r.point for r in atlas.records())
+        samples[label] = res.samples
+        print(f"phase 12 experiment 1 {label}: samples={res.samples} "
+              f"anomalies={len(res.anomalies)} in {wall:.1f}s"
+              + (f" (host: {host})" if backend == "blas" else ""))
+    if len({tuple(p) for p in drawn.values()}) != 1 or \
+            set(samples.values()) != {PROTOCOL_EXPERIMENT1["max_samples"]}:
+        raise AssertionError(f"the three engines drew different points: "
+                             f"samples {samples}")
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               REPRO_EXEC_BACKEND="cuda", REPRO_BENCH_SCALE="ci",
+               REPRO_ATLAS_DIR=str(atlas_dir / "experiment3"),
+               REPRO_PROFILE_DIR=str(profile_dir / "experiment3"))
+    t0 = time.perf_counter()
+    done = subprocess.run(
+        [sys.executable, "-m", "repro_torch.benchmarks.experiment3"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    row = re.search(r"^exp3_AATB_recall,([^,]+),(.*)$", done.stdout, re.M)
+    print(f"phase 12 experiment3 driver (cuda, CI scale): exit "
+          f"{done.returncode} in {wall:.1f}s; row "
+          f"{row and row.group(0)}")
+    print("\n".join(done.stderr.strip().splitlines()[-6:]))
+    if done.returncode or row is None:
+        raise AssertionError(f"the experiment3 driver failed: "
+                             f"{done.stderr[-2000:]}")
+    print(f"phase 12 experiment 3 recall {float(row.group(1)):.1f} %, "
+          f"{row.group(2)}")
+
+
+def paper_protocol(torch, np, phase4: dict) -> dict:
+    """Phase 12: the paper's float64 BLAS protocol beside the card's
+    backends. Returns the kernel launches of parts (b)-(d)."""
+    from repro_torch.core.backends import register_torch_backends
+    from repro_torch.kernels import ops
+
+    register_torch_backends()
+    host = host_cpu()
+    print(f"phase 12 host: {host}")
+    t0 = time.perf_counter()
+    _protocol_agreement(torch, np, host)
+    print(f"phase 12 (a) agreement: {time.perf_counter() - t0:.1f}s")
+    launches = dict.fromkeys(ops.launch_counts(), 0)
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-protocol-") as d:
+        root = Path(d)
+        for part, fn, args in (
+                ("(b) compare", _protocol_compare, (root / "atlas", phase4)),
+                ("(c) calibrate", _protocol_calibrate, (root / "profiles",)),
+                ("(d) experiments", _protocol_experiments,
+                 (root / "atlas", root / "profiles"))):
+            t1 = time.perf_counter()
+            ops.reset_launch_counts()
+            fn(torch, *args, host)
+            launches = _add(launches, ops.launch_counts())
+            print(f"phase 12 {part}: {time.perf_counter() - t1:.1f}s")
+    print(f"phase 12 kernel launches: {launches}; phase 12 took "
+          f"{time.perf_counter() - t0:.1f}s")
+    idle = [k for k in ("gemm", "syrk", "symm", "chain_gemm")
+            if not launches[k]]
+    if idle:
+        raise AssertionError(f"phase 12 never launched {idle}")
+    return launches
+
+
 def memory_line(torch, phase: int) -> None:
     """The card's peak reserved memory since the start, after a phase."""
     print(f"device memory after phase {phase}: peak reserved "
@@ -2465,6 +2749,10 @@ def main() -> int:
     families = serve_families(torch, np)
     launches["flash_attention"] += \
         families["olmoe"]["launches"]["flash_attention"]
+    release(torch)
+    memory_line(torch, 11)
+    phase12 = paper_protocol(torch, np, by_family)
+    memory_line(torch, 12)
 
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
@@ -2481,7 +2769,8 @@ def main() -> int:
             "launches_phase10_by_part": {
                 part: counts.get(name, 0)
                 for part, counts in phase10["parts"].items()},
-            "launches_phase10_tune": phase10["tune_launches"].get(name, 0)})
+            "launches_phase10_tune": phase10["tune_launches"].get(name, 0),
+            "launches_phase12": phase12.get(name, 0)})
     flash = families["flash"]
     next(k for k in kernels if k["name"] == "flash_attention")["phase11"] = {
         "shape": flash["shape"], "max_abs_err": flash["max_abs_err"],

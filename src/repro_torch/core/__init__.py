@@ -3,6 +3,8 @@ anomaly classification, fingerprints, execution backends and the sweep;
 the planner (the paper's contribution as a runtime feature) and the
 launch tuner's search space and table."""
 
+from .backends import (BlasBackend, CacheFlusher, NumpyBackend,
+                       reference_execute)
 from .planner import (
     Plan,
     Planner,
@@ -29,10 +31,12 @@ from .tuning import (
 )
 
 __all__ = [
-    "ENV_NO_TUNING", "Plan", "Planner", "PruneReport", "RejectedCandidate",
+    "BlasBackend", "CacheFlusher", "ENV_NO_TUNING", "NumpyBackend",
+    "Plan", "Planner", "PruneReport", "RejectedCandidate",
     "TUNABLE_KINDS", "TUNING_SCHEMA_VERSION", "TunedEntry", "TuningTable",
     "candidate_configs", "config_key", "default_planner",
     "load_default_tuning_table", "load_tuning_table", "plan",
-    "prune_candidates", "reset_default_planner", "resolve_profile",
+    "prune_candidates", "reference_execute", "reset_default_planner",
+    "resolve_profile",
     "save_tuning_table", "tuning_path",
 ]

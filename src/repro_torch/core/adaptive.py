@@ -301,7 +301,7 @@ def adaptive_sweep(
     exec_backend: Optional[str] = None,
     reps: int = 3,
     device: str = "cuda",
-    dtype: str = "float32",
+    dtype: Optional[str] = None,
     chunk_size: int = 8,
     progress: Optional[Callable[[int, int, Instance], None]] = None,
     fastpath: Optional[bool] = None,

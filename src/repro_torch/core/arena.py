@@ -44,8 +44,6 @@ import dataclasses
 import weakref
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
-import numpy as np
-
 from .algorithms import Algorithm, Leaf
 
 Point = Tuple[int, ...]
@@ -229,14 +227,17 @@ class OperandArena:
 
 class _HostLeaves:
     """A runner's host synthesis, seen as a runner: ``make_leaf_operand``
-    returns the leaf as float32 numpy, rounded exactly as the runner's
-    ``_asarray`` rounds it."""
+    returns the leaf as numpy in the runner's ``host_dtype`` (float32 for
+    a float32 or narrower ``torch``/``cuda`` runner, float64 for the rest),
+    rounded exactly as the runner's ``_asarray`` rounds it."""
 
     def __init__(self, runner: object) -> None:
         self._runner = weakref.ref(runner)
 
     def make_leaf_operand(self, ref: Leaf) -> object:
-        return self._runner().synthesize_leaf(ref).astype(np.float32)
+        runner = self._runner()
+        return runner.synthesize_leaf(ref).astype(runner.host_dtype,
+                                                  copy=False)
 
 
 class PlacedArena:

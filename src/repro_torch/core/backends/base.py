@@ -19,8 +19,9 @@ interface:
   (``_asarray``), per-repetition setup (``_pre_rep``), device
   synchronisation (``_sync``) and what is timed (``_timed_callable``).
 * :func:`register_backend` / :func:`get_backend` / :func:`make_backend` /
-  :func:`registered_backends` — the registry the sweep resolves backends
-  through. The key doubles as the fingerprint ``backend`` string.
+  :func:`backend_on` / :func:`registered_backends` — the registry the
+  sweep resolves backends through. The key doubles as the fingerprint
+  ``backend`` string.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ import numpy as np
 import torch
 
 from ..algorithms import Algorithm, Leaf, Step
+from ..fingerprint import HardwareFingerprint, host_label
 from ..flops import KernelCall
 
 
@@ -265,12 +267,13 @@ def synthetic_fused_algorithm(kind: str, dims: Sequence[int]) -> Algorithm:
     return Algorithm(name=f"bench_{kind}", steps=(s1, s2))
 
 
-def operands_from_numpy(operands: Mapping[int, np.ndarray],
-                        device) -> Dict[int, torch.Tensor]:
+def operands_from_numpy(operands: Mapping[int, np.ndarray], device,
+                        dtype: torch.dtype = torch.float32
+                        ) -> Dict[int, torch.Tensor]:
     """Base-indexed numpy operands (e.g. the reference package's, via
-    ``np.asarray``) as float32 tensors on ``device``."""
-    return {base: torch.tensor(np.asarray(a), dtype=torch.float32,
-                               device=device)
+    ``np.asarray``) as tensors of ``dtype`` (float32 by default) on
+    ``device``."""
+    return {base: torch.tensor(np.asarray(a), dtype=dtype, device=device)
             for base, a in operands.items()}
 
 
@@ -295,6 +298,9 @@ class ExecutionBackend:
     #: Allowed dtype labels; ``None`` means any.
     dtypes: Optional[Tuple[str, ...]] = None
     shard_mode: str = "process"
+    #: The numpy dtype a synthesized leaf is held in on the host before
+    #: ``_asarray`` places it (the operand arena's host buffers).
+    host_dtype = np.float64
     #: Whether the kernels take launch configs ``calibrate --tune`` can
     #: search (``tuning_override`` / ``set_tuning`` / ``tuning_table``).
     supports_tuning: bool = False
@@ -341,6 +347,12 @@ class ExecutionBackend:
     def fingerprint_tags(self) -> Tuple[str, str]:
         """(backend, dtype) labels profiles and atlases are keyed by."""
         return (self.name, self.dtype)
+
+    def fingerprint(self) -> HardwareFingerprint:
+        """What this backend's measurements are valid for; here, on the
+        host, the host's ISA (device backends name their device)."""
+        backend, dtype = self.fingerprint_tags()
+        return HardwareFingerprint(backend, host_label(), dtype)
 
     def make_operands(self, alg: Algorithm) -> Dict[int, object]:
         """Fresh random inputs for every distinct leaf *base* of ``alg``."""
@@ -456,8 +468,9 @@ def make_backend(name: str, **options) -> ExecutionBackend:
 
     Generic front ends pass one option superset (``reps``,
     ``flush_cache``, ``dtype``, ``device``, ``seed``) and each backend
-    takes what its constructor declares: ``--no-flush`` reaches no device
-    backend, as in the reference. Module-level, so a
+    takes what its constructor declares: ``--no-flush`` reaches the host
+    backends ``blas`` and ``numpy`` and no device backend, and ``device``
+    reaches no host backend, as in the reference. Module-level, so a
     ``functools.partial`` of it pickles into worker processes.
     """
     cls = get_backend_class(name)
@@ -473,6 +486,15 @@ def make_backend(name: str, **options) -> ExecutionBackend:
 
 def registered_backends() -> List[str]:
     return sorted(_REGISTRY)
+
+
+def backend_on(name: str, device, **options) -> ExecutionBackend:
+    """Strict :func:`get_backend` of a backend on ``device``: a device
+    backend (``torch``, ``cuda``) is built there, a host backend
+    (``blas``, ``numpy``) runs on the host and takes no ``device``."""
+    if backend_shard_mode(name) == "device":
+        options["device"] = device
+    return get_backend(name, **options)
 
 
 def backend_default_dtype(name: str) -> str:

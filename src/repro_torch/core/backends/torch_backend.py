@@ -8,11 +8,22 @@ Counterpart of the reference package's ``core/backends/jax_backend.py``:
   ``gemm+gemm`` and ``gemm+syrk`` pairs through the hand-written kernels
   of :mod:`repro_torch.kernels.ops` — the counterpart of ``pallas``.
 
-Both measure under the ``float32`` label, so both switch TF32 off: a TF32
-product would be a different result under that label. The default device
-is ``cuda``; without a card, constructing a backend without
+``torch`` measures any dtype ATen runs these products in (float64,
+float32, bfloat16, float16; :data:`TORCH_DTYPES`), as the reference's
+``jax`` takes any dtype it can represent; an operand of another dtype
+raises and is never cast. ``cuda`` measures float32 only: its kernels
+are float32. Both switch TF32 off, since a TF32 product would be a
+different result under the float32 label, and both switch off cuBLAS's
+reduced-precision reductions
+(``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction``
+and its fp16 twin), so a bfloat16 or float16 product accumulates in
+float32 and is rounded once. Both settings are process-wide. The default
+device is ``cuda``; without a card, constructing a backend without
 ``device="cpu"`` raises rather than quietly measuring the CPU.
-Registration is the explicit call :func:`register_torch_backends`.
+Registration is the explicit call :func:`register_torch_backends`, which
+also registers the host backends ``blas`` and ``numpy``
+(:mod:`repro_torch.core.backends.blas`,
+:mod:`repro_torch.core.backends.numpy_backend`).
 
 The ``cuda`` backend runs each kernel under the launch a
 :class:`~repro_torch.core.tuning.TuningTable` names for its dims (auto-
@@ -45,8 +56,8 @@ from .. import tuning as _tuning
 from ..algorithms import Algorithm, Leaf
 from ..arena import algorithm_structural_key
 from ..fingerprint import HardwareFingerprint, device_label
-from .base import (ExecutionBackend, KernelOps, register_backend,
-                   registered_backends)
+from .base import (ExecutionBackend, KernelOps, backend_shard_mode,
+                   register_backend, registered_backends)
 
 #: Bound on the graphs one backend keeps, in count: the reference's
 #: executable memo cap (``EXEC_MEMO_MAX``).
@@ -60,11 +71,26 @@ GRAPH_MEMO_MAX = 512
 GRAPH_MEMO_BYTES = 8 << 30
 
 
-def timing_mode(device: str) -> str:
-    """What ``time_algorithm`` times on a device (a fingerprint's device
-    label): ``"graph"``, one captured CUDA graph replayed, on a card;
-    ``"eager"``, the walk itself, on the CPU."""
-    return "eager" if device == "cpu" else "graph"
+#: The dtype labels the ``torch`` backend measures, and their tensors'.
+TORCH_DTYPES = {"float64": torch.float64, "float32": torch.float32,
+                "bfloat16": torch.bfloat16, "float16": torch.float16}
+
+
+def timing_mode(device: str, backend: Optional[str] = None) -> str:
+    """What ``time_algorithm`` times for a fingerprint's device label and
+    backend: ``"eager"``, the walk itself, for a host backend (``blas``,
+    ``numpy``: the device label is then the host's ISA) and on the CPU;
+    ``"graph"``, one captured CUDA graph replayed, on a card."""
+    if device == "cpu":
+        return "eager"
+    if backend is not None:
+        register_torch_backends()
+        try:
+            if backend_shard_mode(backend) == "process":
+                return "eager"
+        except KeyError:  # an unregistered label: a device, as before
+            pass
+    return "graph"
 
 
 def fusion_enabled() -> bool:
@@ -185,7 +211,7 @@ class TorchBackend(ExecutionBackend):
 
     name = "torch"
     default_dtype = "float32"
-    dtypes = ("float32",)
+    dtypes = tuple(TORCH_DTYPES)
     shard_mode = "device"
 
     def __init__(self, device="cuda", reps: int = 3,
@@ -201,8 +227,18 @@ class TorchBackend(ExecutionBackend):
         if self.device.type not in ("cuda", "cpu"):
             raise ValueError(f"backend {self.name!r}: unsupported device "
                              f"{self.device}")
-        torch.backends.cuda.matmul.allow_tf32 = False
+        matmul = torch.backends.cuda.matmul
+        matmul.allow_tf32 = False
+        matmul.allow_bf16_reduced_precision_reduction = False
+        matmul.allow_fp16_reduced_precision_reduction = False
         torch.backends.cudnn.allow_tf32 = False
+        self.torch_dtype = TORCH_DTYPES[self.dtype]
+        #: What a synthesized float64 leaf is rounded to on the host before
+        #: it is placed: float64 stays, any other dtype goes through
+        #: float32 (as the reference's numpy rounding does), so the arena's
+        #: host buffers and a direct placement give the same bits.
+        self.host_dtype = np.float64 if self.dtype == "float64" \
+            else np.float32
         self.timing = timing_mode(device_label(self.device))
         # Graph memo: (structure, dims, inputs, generation) -> captured
         # walk, least recently used first.
@@ -217,8 +253,20 @@ class TorchBackend(ExecutionBackend):
         return TorchOps()
 
     def _asarray(self, a: np.ndarray) -> torch.Tensor:
-        # Round to float32 on the host, exactly as numpy/JAX do, then move.
-        return torch.from_numpy(a).to(torch.float32).to(self.device)
+        # Round on the host (see host_dtype), then move and convert.
+        host = torch.from_numpy(np.asarray(a).astype(self.host_dtype,
+                                                     copy=False))
+        return host.to(device=self.device, dtype=self.torch_dtype)
+
+    def execute(self, alg: Algorithm, operands: Dict[int, object]):
+        """The walk on ``operands``, each of which must be a tensor of the
+        backend's dtype: another dtype raises rather than being cast."""
+        for base, t in operands.items():
+            if isinstance(t, torch.Tensor) and t.dtype != self.torch_dtype:
+                raise ValueError(
+                    f"backend {self.name!r} measures {self.dtype}, but "
+                    f"operand {base} is {t.dtype}; it is not cast")
+        return super().execute(alg, operands)
 
     def _pre_rep(self) -> None:
         # The clock starts on an idle card.
@@ -352,6 +400,9 @@ class CudaBackend(TorchBackend):
     """
 
     name = "cuda"
+    #: The kernels are float32 only: any other label raises, and never
+    #: falls back to the ``torch`` backend.
+    dtypes = ("float32",)
     supports_tuning = True
 
     def __init__(self, device="cuda", reps: int = 3,
@@ -425,8 +476,12 @@ class CudaBackend(TorchBackend):
 
 
 def register_torch_backends() -> None:
-    """Register ``torch`` and ``cuda`` (idempotent)."""
+    """Register the port's four backends (idempotent): ``torch`` and
+    ``cuda`` on a device, ``blas`` and ``numpy`` on the host."""
+    from .blas import BlasBackend
+    from .numpy_backend import NumpyBackend
+
     known = registered_backends()
-    for cls in (TorchBackend, CudaBackend):
+    for cls in (TorchBackend, CudaBackend, BlasBackend, NumpyBackend):
         if cls.name not in known:
             register_backend(cls.name, cls)

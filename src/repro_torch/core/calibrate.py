@@ -6,9 +6,10 @@ performance models — needs those models to exist for *this* hardware.
 :func:`calibrate` times every kernel call of a grid in isolation
 (gemm/syrk/symm over a log-spaced dim grid, plus tri2full) on an
 execution backend — by default ``cuda``, the hand-written kernels on the
-card — builds a measured :class:`~repro_torch.core.perfmodel.TableProfile`
-and persists it via :mod:`repro_torch.core.profile_store`, keyed by the
-backend, the card's name and the dtype.
+card; ``blas`` is the paper's float64 BLAS protocol on the host — builds
+a measured :class:`~repro_torch.core.perfmodel.TableProfile` and persists
+it via :mod:`repro_torch.core.profile_store`, keyed by the backend, the
+card's name (the host's ISA for ``blas`` and ``numpy``) and the dtype.
 
 Each entry is ``ExecutionBackend.benchmark_call``: one synthetic one-step
 algorithm, a warm-up and ``reps`` timed runs, median of the host clock
@@ -20,6 +21,8 @@ CLI::
     PYTHONPATH=src python -m repro_torch.core.calibrate --grid small
     PYTHONPATH=src python -m repro_torch.core.calibrate --expr aatb --grid 400,800,1200
     PYTHONPATH=src python -m repro_torch.core.calibrate --backend torch --device cpu --grid tiny
+    PYTHONPATH=src python -m repro_torch.core.calibrate --backend blas --grid tiny
+    PYTHONPATH=src python -m repro_torch.core.calibrate --backend torch --dtype bfloat16 --device cpu --grid tiny
     PYTHONPATH=src python -m repro_torch.core.calibrate --tune --grid default --tune-budget 8
 
 ``--tune`` measures the kernels' launches instead of a profile
@@ -42,7 +45,8 @@ import time
 from pathlib import Path
 from typing import Iterable, List, Optional
 
-from .backends import get_backend, register_torch_backends, registered_backends
+from .backends import (backend_on, get_backend_class, register_torch_backends,
+                       registered_backends)
 from .flops import KernelCall, gemm, symm, syrk, tri2full
 from .perfmodel import TableProfile
 from .profile_store import (
@@ -177,9 +181,13 @@ def calibrate(
     values) rather than a calibration grid — and merges the new entries
     into the profile already saved for this fingerprint.
 
-    ``device`` is where the backend runs: ``cuda`` (the default; raises
-    without a card) or ``cpu``. ``seed`` pins operand synthesis: each
-    benchmark operand becomes a pure function of ``(seed, base, shape)``.
+    ``device`` is where a device backend runs: ``cuda`` (the default;
+    raises without a card) or ``cpu``; the host backends ``blas`` and
+    ``numpy`` ignore it. ``dtype`` labels what is measured: ``torch``
+    takes float64, float32, bfloat16 and float16, the other backends
+    their one dtype, and any other label raises ``ValueError``. ``seed``
+    pins operand synthesis: each benchmark operand becomes a pure
+    function of ``(seed, base, shape)``.
     """
     calls = None
     if expr is not None:
@@ -192,8 +200,7 @@ def calibrate(
         raise ValueError(
             f"unknown backend {backend!r}; registered: "
             f"{registered_backends()}")
-    runner = get_backend(backend, device=device, reps=reps, dtype=dtype,
-                         seed=seed)
+    runner = backend_on(backend, device, reps=reps, dtype=dtype, seed=seed)
     fp = runner.fingerprint()
     t0 = time.perf_counter()
     profile = sweep_kernels(runner, GRIDS.get(grid, ()), reps=reps,
@@ -261,8 +268,7 @@ def tune(
         raise ValueError(
             f"unknown backend {backend!r}; registered: "
             f"{registered_backends()}")
-    runner = get_backend(backend, device=device, reps=reps, dtype=dtype,
-                         seed=seed)
+    runner = backend_on(backend, device, reps=reps, dtype=dtype, seed=seed)
     if not getattr(runner, "supports_tuning", False):
         raise ValueError(
             f"backend {backend!r} has no tunable kernel parameters; "
@@ -302,7 +308,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                          "key is also the profile fingerprint key)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; fails without a card) or cpu, "
-                         "where the kernels' plain versions run")
+                         "where the kernels' plain versions run; blas and "
+                         "numpy run on the host and ignore it")
     ap.add_argument("--expr", default=None,
                     help="calibrate only the kernel calls of one registered "
                          "expression family (see `python -m "
@@ -319,8 +326,10 @@ def main(argv: Optional[List[str]] = None) -> int:
                          "or ~/.cache/repro/profiles, where the sweep's "
                          "predict and evaluate modes look)")
     ap.add_argument("--dtype", default=None,
-                    help="dtype label for the fingerprint (default: the "
-                         "backend's own, float32)")
+                    help="dtype to measure in, the fingerprint's label "
+                         "(default: the backend's own: float64 for blas "
+                         "and numpy, float32 for torch and cuda; torch "
+                         "also takes float64, bfloat16 and float16)")
     ap.add_argument("--tune", action="store_true",
                     help="autotune the kernels' launches instead of "
                          "measuring a kernel profile: prune each kernel's "
@@ -336,6 +345,13 @@ def main(argv: Optional[List[str]] = None) -> int:
                          "so repeat calibrations time identical inputs")
     ap.add_argument("--quiet", action="store_true")
     args = ap.parse_args(argv)
+    dtypes = get_backend_class(args.backend).dtypes
+    if args.dtype is not None and dtypes is not None \
+            and args.dtype not in dtypes:
+        # Before anything is built: a label the backend does not measure
+        # would stamp a fingerprint its measurements do not match.
+        ap.error(f"backend {args.backend!r} measures {'/'.join(dtypes)}; "
+                 f"got --dtype {args.dtype}")
 
     if args.tune:
         if args.expr is not None:

@@ -10,9 +10,14 @@ The port's counterpart of the reference package's ``core/experiments.py``:
 
 All measurement goes through :func:`repro_torch.core.sweep.sweep` and
 :func:`~repro_torch.core.sweep.measure_instance` — the one measurement
-path shared with grid sweeps — serially in this process, on an execution
-backend (by default ``cuda``, the hand-written kernels on the card; a
-registry name or an instance), and can stream into a persistent
+path shared with grid sweeps — on an execution backend (``exec_backend``,
+a registry name, by default ``cuda``, the hand-written kernels on the
+card; ``blas`` is the reference's default, the paper's float64 BLAS
+protocol on the host; or an instance as ``runner``). Experiment 1 runs
+on any engine of the sweep (``backend``): ``"serial"`` in this process,
+``"process"`` over one pool of spawned worker processes for the whole
+search (the fan-out of ``blas`` and ``numpy``), or ``"devices"``, one
+process per card. Every harness can stream into a persistent
 :class:`~repro_torch.core.sweep.AnomalyAtlas` (``atlas=``) so repeated
 runs resume instead of re-measure. Experiment 3's isolated kernel
 benchmarks are deduplicated and can start from a persisted profile
@@ -25,20 +30,26 @@ families run through Experiments 1–3 unchanged.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+import os
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
 from .anomaly import Classification, ConfusionMatrix, RegionScan, scan_line
-from .backends import ExecutionBackend, get_backend, register_torch_backends
+from .arena import arena_for
+from .backends import (ExecutionBackend, backend_on, backend_shard_mode,
+                       register_torch_backends)
 from .perfmodel import TableProfile
 from .sweep import (
-    DTYPE_BYTES,
     AnomalyAtlas,
     ExpressionSpec,
     Instance,
+    _spawn_pool,
     benchmark_unique_calls,
+    card_devices,
     collect_unique_calls,
+    element_bytes,
+    fastpath_enabled,
     measure_instance,
     sweep,
 )
@@ -54,10 +65,12 @@ Runner = Union[str, ExecutionBackend, None]
 
 def _runner(runner: Runner, device: str) -> ExecutionBackend:
     """A backend instance: the one given, or a registry name (default
-    ``cuda``) built on ``device`` — one instance for a whole experiment."""
+    ``cuda``) built with its defaults, a device backend on ``device`` and
+    a host backend on the host — one instance, so one flush buffer, for
+    a whole experiment."""
     if runner is None or isinstance(runner, str):
         register_torch_backends()
-        return get_backend(runner or "cuda", device=device)
+        return backend_on(runner or "cuda", device)
     return runner
 
 
@@ -84,42 +97,81 @@ def experiment1_random_search(
     verbose: bool = False,
     atlas: Optional[AnomalyAtlas] = None,
     backend: str = "serial",
+    shards: Optional[int] = None,
+    runner_factory: Optional[Callable[[], object]] = None,
     batch: int = 25,
+    exec_backend: Optional[str] = None,
     device: str = "cuda",
 ) -> Experiment1Result:
     """Paper §3.4.1: sample instances u.a.r. until n anomalies are found.
 
     Sampling draws from ``np.random.default_rng(seed)`` in batches of
-    ``batch`` points (the reference's sequence, point for point); the
-    search stops at the end of the batch that reaches ``n_anomalies`` (it
-    may slightly overshoot). Points already in ``atlas`` count as samples
-    but are served from disk.
+    ``batch`` points (the reference's sequence, point for point), so
+    every engine draws the same points; the search stops at the end of
+    the batch that reaches ``n_anomalies`` (it may slightly overshoot).
+    Points already in ``atlas`` count as samples but are served from
+    disk.
+
+    ``backend`` is the engine: ``"serial"`` measures in this process with
+    ``runner`` (an instance or a registry name), or one instance of
+    ``exec_backend`` (default ``cuda``) on ``device`` built for the whole
+    search; ``"process"`` shards each batch over one pool of ``shards``
+    spawned workers that serves the entire search, each worker building
+    its runner from ``runner_factory`` (picklable), or from
+    ``exec_backend``; ``"devices"`` gives each card a worker process of
+    its own, and on one card (or ``device="cpu"``) builds one
+    ``exec_backend`` instance here. ``runner`` configures only the
+    serial engine: with any other it raises, as in the reference.
     """
-    if backend != "serial":
-        raise ValueError(
-            f"backend={backend!r}: the port measures serially in this "
-            f"process (backend='serial'); a worker pool is not ported")
     rng = np.random.default_rng(seed)
-    runner = _runner(runner, device)
+    if runner is not None and backend != "serial":
+        # the guard sweep() enforces: a runner's protocol (reps, cache
+        # flushing) must not be silently swapped for worker defaults
+        raise ValueError(
+            f"runner= only configures the serial backend; backend="
+            f"{backend!r} builds workers from runner_factory")
+    if backend == "devices":
+        register_torch_backends()
+        if backend_shard_mode(exec_backend or "cuda") != "device":
+            raise ValueError(
+                f"backend='devices' fans a device backend out over cards; "
+                f"{exec_backend!r} runs on the host (backend='process')")
+        if len(card_devices(device, shards)) <= 1:
+            # One device: the devices engine is the serial path; one
+            # instance keeps its arena and graph memo for the search.
+            backend = "serial"
+    if backend == "serial" and runner_factory is None:
+        runner = _runner(runner if runner is not None else exec_backend,
+                         device)
+    executor = None
+    if backend == "process":
+        executor = _spawn_pool(shards or os.cpu_count() or 1)
     found: List[Instance] = []
     samples = 0
     wall = 0.0
-    while len(found) < n_anomalies and samples < max_samples:
-        n = min(batch, max_samples - samples)
-        pts = [tuple(int(x) for x in
-                     rng.integers(box[0], box[1] + 1, size=spec.ndims))
-               for _ in range(n)]
-        res = sweep(spec, pts, runner=runner, threshold=threshold,
-                    atlas=atlas)
-        samples += res.n_points
-        wall += res.wall_s
-        for inst in res.records:
-            if inst.cls.is_anomaly:
-                found.append(inst)
-                if verbose:
-                    print(f"  anomaly #{len(found)} at {inst.point} "
-                          f"ts={inst.cls.time_score:.1%} "
-                          f"fs={inst.cls.flop_score:.1%}")
+    try:
+        while len(found) < n_anomalies and samples < max_samples:
+            n = min(batch, max_samples - samples)
+            pts = [tuple(int(x) for x in
+                         rng.integers(box[0], box[1] + 1, size=spec.ndims))
+                   for _ in range(n)]
+            res = sweep(spec, pts, runner=runner,
+                        runner_factory=runner_factory, threshold=threshold,
+                        backend=backend, shards=shards, atlas=atlas,
+                        executor=executor, exec_backend=exec_backend,
+                        device=device)
+            samples += res.n_points
+            wall += res.wall_s
+            for inst in res.records:
+                if inst.cls.is_anomaly:
+                    found.append(inst)
+                    if verbose:
+                        print(f"  anomaly #{len(found)} at {inst.point} "
+                              f"ts={inst.cls.time_score:.1%} "
+                              f"fs={inst.cls.flop_score:.1%}")
+    finally:
+        if executor is not None:
+            executor.shutdown()
     return Experiment1Result(spec.name, samples, found, wall)
 
 
@@ -139,6 +191,7 @@ def experiment2_regions(
     step: int = 10,
     threshold: float = 0.05,
     atlas: Optional[AnomalyAtlas] = None,
+    exec_backend: Optional[str] = None,
     device: str = "cuda",
 ) -> Experiment2Result:
     """Paper §3.4.2: intersect regions with axis-aligned lines.
@@ -147,9 +200,10 @@ def experiment2_regions(
     so this harness probes point by point with the engine's measurement
     primitive; with an ``atlas`` every probe is served from / buffered
     into it (chunk-flushed by the atlas, once more on return), so repeat
-    traversals resume.
+    traversals resume. Without a ``runner`` the probes run on one
+    instance of ``exec_backend`` (default ``cuda``) on ``device``.
     """
-    runner = _runner(runner, device)
+    runner = _runner(runner if runner is not None else exec_backend, device)
     classified: Dict[Tuple[int, ...], Instance] = {}
 
     def classify_at(point: Tuple[int, ...]) -> Classification:
@@ -191,13 +245,17 @@ def experiment3_predict_from_benchmarks(
     threshold: float = 0.05,
     peak_flops: float = 1e11,
     profile: Optional[TableProfile] = None,
+    exec_backend: Optional[str] = None,
     device: str = "cuda",
 ) -> Experiment3Result:
     """Paper §3.4.3: benchmark each distinct kernel call in isolation, then
     predict each instance's fastest/cheapest sets from the additive model and
     compare against measured ground truth.
 
-    ``runner`` is an execution-backend instance or a registry name. The
+    ``runner`` is an execution-backend instance or a registry name; with
+    ``runner=None`` the calls are timed on ``exec_backend`` (default
+    ``cuda``) on ``device``. The model charges the measuring backend's
+    element size (8 bytes for float64, as the reference's ``blas``). The
     distinct-call set is collected across *all* instances up front and
     deduplicated (:func:`~repro_torch.core.sweep.benchmark_unique_calls`),
     so each (kind, dims) is timed at most once. Pass a persisted
@@ -216,15 +274,21 @@ def experiment3_predict_from_benchmarks(
     if profile is None:
         profile = TableProfile(peak_flops=peak_flops)
 
-    # 1. Benchmark the deduplicated call set (reusing the profile).
+    runner = _runner(runner if runner is not None else exec_backend, device)
+    # 1. Benchmark the deduplicated call set (reusing the profile), a
+    # backend's operands from its shape-keyed arena as --mode predict
+    # takes them (the fast path's; the same protocol either way).
     calls = collect_unique_calls(spec, classified)
+    arena = arena_for(runner) if isinstance(runner, ExecutionBackend) \
+        and fastpath_enabled() else None
     profile, n_meas, n_reused = benchmark_unique_calls(
-        _runner(runner, device), calls, profile=profile)
+        runner, calls, profile=profile, arena=arena)
 
     # 2. Score the additive model through the shared evaluation path.
     res = evaluate_discriminants(
         spec, list(classified.values()), ["perfmodel"],
-        profile=profile, threshold=threshold, dtype_bytes=DTYPE_BYTES)
+        profile=profile, threshold=threshold,
+        dtype_bytes=element_bytes(getattr(runner, "dtype", "float32")))
     cm = res.scores["perfmodel"].confusion
 
     return Experiment3Result(spec.name, cm, profile,

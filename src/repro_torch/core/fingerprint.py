@@ -1,17 +1,24 @@
 """What a measurement is valid for: backend × device × dtype.
 
 Counterpart of ``HardwareFingerprint`` and ``cache_base_dir`` in the
-reference package's ``core/profile_store.py``. The reference stamps
-backends that are not JAX's with the host ISA (``platform.machine()``),
-which would let a CPU run and an H100 run of the same backend share one
-atlas. Here the device is the card's name (``torch.cuda.get_device_name``)
-or ``"cpu"``, so the two can never mix.
+reference package's ``core/profile_store.py``. The device string has
+three cases:
+
+* a device backend (``torch``, ``cuda``) on a card: the card's name
+  (``torch.cuda.get_device_name``);
+* a device backend on the CPU: ``"cpu"``, so a CPU run and a card run of
+  one backend never share an atlas or a profile;
+* a host backend (``blas``, ``numpy``): the host's ISA
+  (``platform.machine()``, :func:`host_label`), as the reference stamps
+  it. Two hosts of one ISA then share a file name, by the reference's
+  design: keep each host's runs in a directory of its own.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import platform
 import re
 from pathlib import Path
 
@@ -22,9 +29,9 @@ import torch
 class HardwareFingerprint:
     """What a measurement is valid for: backend × device kind × dtype."""
 
-    backend: str   # registry key, e.g. "cuda" | "torch"
-    device: str    # e.g. "NVIDIA H100 80GB HBM3", "cpu"
-    dtype: str     # e.g. "float32"
+    backend: str   # registry key, e.g. "cuda" | "torch" | "blas"
+    device: str    # e.g. "NVIDIA H100 80GB HBM3", "cpu", "x86_64"
+    dtype: str     # e.g. "float32", "float64", "bfloat16"
 
     def slug(self) -> str:
         """Filesystem-safe identifier used in cache filenames."""
@@ -45,6 +52,12 @@ def device_label(device: torch.device) -> str:
     if device.type == "cuda":
         return torch.cuda.get_device_name(device)
     return device.type
+
+
+def host_label() -> str:
+    """A host backend's device string: the host's ISA, as the reference
+    names it."""
+    return platform.machine() or "unknown"
 
 
 def cache_base_dir() -> Path:

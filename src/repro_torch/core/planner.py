@@ -37,7 +37,7 @@ from pathlib import Path
 from typing import Callable, Dict, Optional, Tuple
 
 from .algorithms import Algorithm, enumerate_algorithms
-from .backends import get_backend, measure_seconds, register_torch_backends
+from .backends import backend_on, measure_seconds, register_torch_backends
 from .discriminants import as_hybrid, get_discriminant
 from .expr import Chain, bind_dims
 from .perfmodel import AnalyticalHopperProfile, KernelProfile, TableProfile
@@ -85,10 +85,13 @@ def resolve_profile(
 class Planner:
     """Thread-safe, memoising planner with optional online refinement.
 
-    ``backend`` is an execution-backend registry name (``cuda``: the
-    hand-written kernels; ``torch``: plain ATen) and ``device`` where it
-    runs (``cuda``, the default, raises without a card; ``cpu`` runs the
-    plain versions). The profile is resolved under ``(profile_backend,
+    ``backend`` is an execution-backend registry name (``cuda``, the
+    default: the hand-written kernels; ``torch``: plain ATen; ``blas`` and
+    ``numpy``: float64 on the host, the reference's default being
+    ``blas``) and ``device`` where a device backend runs (``cuda``, the
+    default, raises without a card; ``cpu`` runs the plain versions). A
+    host backend ignores ``device``; the profile it is resolved on still
+    reads it. The profile is resolved under ``(profile_backend,
     profile_dtype)``: by default the ``cuda``/``float32`` calibration
     ``python -m repro_torch.core.calibrate`` writes, and, when recording,
     the runner's own tags — the same key :meth:`save` writes under.
@@ -127,7 +130,7 @@ class Planner:
         register_torch_backends()
         self.backend = backend or "cuda"
         self.device = device
-        self.runner = get_backend(self.backend, device=device)
+        self.runner = backend_on(self.backend, device)
         run_tag, run_dtype = self.runner.fingerprint_tags()
         if profile_backend is None:
             profile_backend = run_tag if record else "cuda"

@@ -6,8 +6,10 @@ profile either package writes is read by the other. A
 :class:`~repro_torch.core.perfmodel.TableProfile` is serialized to
 versioned JSON together with a :class:`HardwareFingerprint` (backend,
 device, dtype) so a profile calibrated on one machine is never silently
-applied to another. The device is the card's name, or ``"cpu"``
-(:func:`repro_torch.core.fingerprint.device_label`), never the host ISA.
+applied to another. For a device backend the device is the card's name,
+or ``"cpu"`` (:func:`repro_torch.core.fingerprint.device_label`); for a
+host backend (``blas``, ``numpy``) it is the host's ISA, as in the
+reference (:func:`repro_torch.core.fingerprint.host_label`).
 
 Layout on disk (one file per fingerprint)::
 
@@ -32,7 +34,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from .fingerprint import HardwareFingerprint, cache_base_dir, device_label
+from .fingerprint import (HardwareFingerprint, cache_base_dir, device_label,
+                          host_label)
 from .perfmodel import TableProfile
 
 __all__ = [
@@ -64,7 +67,20 @@ def current_fingerprint(backend: str = "cuda", dtype: str = "float32",
                         device="cuda") -> HardwareFingerprint:
     """Fingerprint of a backend's measurements on ``device``: the card's
     name for ``cuda`` (raises without a card), ``"cpu"`` for the CPU —
-    the fingerprint :meth:`TorchBackend.fingerprint` stamps."""
+    the fingerprint :meth:`TorchBackend.fingerprint` stamps. A host
+    backend (``blas``, ``numpy``: registered with ``shard_mode``
+    ``"process"``) runs on the host whatever ``device`` says: its device
+    is the host's ISA, as in the reference, and it needs no card."""
+    from .backends import backend_shard_mode, register_torch_backends
+
+    register_torch_backends()
+    try:
+        on_host = backend_shard_mode(backend) == "process"
+    except KeyError:  # an unregistered label (tests, foreign caches)
+        on_host = False
+    if on_host:
+        return HardwareFingerprint(backend=backend, device=host_label(),
+                                   dtype=dtype)
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

@@ -75,7 +75,7 @@ def rank_by_measurement(
     """Ascending measured time on any registered execution backend.
 
     ``runner`` is an explicit backend instance; ``backend`` is a registry
-    name (``cuda``/``torch``). Passing both raises. Default: the
+    name (``cuda``/``torch``/``blas``/``numpy``). Passing both raises. Default: the
     process-shared ``cuda`` runner (the hand-written kernels, on the
     card). Kernel calls shared between algorithms are timed once
     (deduplicated unique-call benching) rather than per algorithm.

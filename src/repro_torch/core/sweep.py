@@ -18,8 +18,10 @@ read a port atlas unchanged.
 * :class:`AnomalyAtlas` — the resumable store; ``shard=(k, n)`` marks a
   host's shard file of a fanned-out adaptive sweep
   (:mod:`repro_torch.core.adaptive`).
-* :func:`compare_backends` — ``--compare-backends torch,cuda`` diffs two
-  backends' atlases: instances where the fastest algorithm differs.
+* :func:`compare_backends` — ``--compare-backends torch,cuda`` (or
+  ``blas,cuda``: the paper's library beside the hand-written kernels)
+  diffs two backends' atlases: instances where the fastest algorithm
+  differs.
 * ``--mode predict`` classifies from per-kernel times measured in
   isolation (:func:`benchmark_unique_calls`) through the additive model;
   ``--mode evaluate`` replays the atlas and scores the registered
@@ -32,6 +34,8 @@ CLI::
     PYTHONPATH=src python -m repro_torch.core.sweep --expr aatb --grid smoke  # resumes: measured=0
     PYTHONPATH=src python -m repro_torch.core.sweep --expr abcd --grid 400,1200 --seed 0
     PYTHONPATH=src python -m repro_torch.core.sweep --backend cuda --device cpu --grid smoke
+    PYTHONPATH=src python -m repro_torch.core.sweep --backend blas --grid smoke --reps 1
+    PYTHONPATH=src python -m repro_torch.core.sweep --compare-backends blas,torch --device cpu --grid smoke
     PYTHONPATH=src python -m repro_torch.core.sweep --expr abab --grid 400,800,1200 --no-fusion
     PYTHONPATH=src python -m repro_torch.core.sweep --expr aatb --grid 400,800,1200 --mode predict
     PYTHONPATH=src python -m repro_torch.core.sweep --expr aatb --grid 400,800,1200 --mode evaluate --discriminants flops,perfmodel,measured
@@ -66,9 +70,9 @@ from .anomaly import (Classification, ConfusionMatrix, Region, classify,
                       cluster_regions, region_summary)
 from .arena import (FastPathStats, OperandArena, arena_for, memo_counts,
                     order_points_for_locality)
-from .backends import (backend_default_dtype, fusion_enabled, make_backend,
-                       register_torch_backends, registered_backends,
-                       synthetic_algorithm, timing_mode)
+from .backends import (backend_default_dtype, backend_shard_mode,
+                       fusion_enabled, make_backend, register_torch_backends,
+                       registered_backends, synthetic_algorithm, timing_mode)
 from .expressions import (REGISTRY, SWEEP_GRIDS, ExpressionSpec, GridSpec, get_spec,
                           registered_names)
 from .fingerprint import HardwareFingerprint, cache_base_dir
@@ -232,11 +236,11 @@ class AnomalyAtlas:
     (:func:`repro_torch.kernels._build.source_hash`; None for the
     ``torch`` backend), ``fusion``, whether fused dispatch was on, and
     ``timing``, what each time is of (``"graph"``: one replayed CUDA graph
-    per algorithm, on a card; ``"eager"``: the walk, on the CPU; see
+    per algorithm, on a card; ``"eager"``: the walk, on the CPU and on the
+    host backends ``blas`` and ``numpy``; see
     :func:`repro_torch.core.backends.timing_mode`), and ``tuning``, the
     digest of the tuning table the ``cuda`` backend launches under (None
-    under ``REPRO_NO_TUNING``, without a table, or on the ``torch``
-    backend). It opens as the tuning state of ``runner`` when one is
+    under ``REPRO_NO_TUNING``, without a table, or on another backend). It opens as the tuning state of ``runner`` when one is
     given, else as the cached table's digest
     (:func:`repro_torch.core.tuning.atlas_tuning`), and :func:`sweep`
     binds it to the measuring runner's own table before the first timing
@@ -275,7 +279,8 @@ class AnomalyAtlas:
         cuda = fingerprint.backend == "cuda"
         self.program = {"kernels": _build.source_hash() if cuda else None,
                         "fusion": cuda and fusion_enabled(),
-                        "timing": timing_mode(fingerprint.device),
+                        "timing": timing_mode(fingerprint.device,
+                                              fingerprint.backend),
                         "tuning": (atlas_tuning(fingerprint)
                                    if runner is None
                                    else runner_tuning(runner))}
@@ -636,6 +641,11 @@ def _run_devices(spec, points, threshold, reps, exec_backend, dtype,
     devices run concurrently; instances stream to ``on_done`` as chunks
     finish. On one device this is the serial path in this process.
     """
+    if backend_shard_mode(exec_backend) != "device":
+        raise ValueError(
+            f"backend='devices' fans a device backend out over cards; "
+            f"{exec_backend!r} runs on the host (backend='process' fans it "
+            f"out over worker processes)")
     if len(devices) <= 1:
         runner = make_backend(exec_backend, device=devices[0], reps=reps,
                               dtype=dtype, seed=seed)
@@ -709,7 +719,7 @@ def sweep(
     reps: int = 3,
     exec_backend: Optional[str] = None,
     device: str = "cuda",
-    dtype: str = "float32",
+    dtype: Optional[str] = None,
     executor=None,
     progress: Optional[Callable[[int, int, Instance], None]] = None,
     fastpath: Optional[bool] = None,
@@ -725,7 +735,8 @@ def sweep(
       ``runner_factory()``, or ``exec_backend`` on ``device``;
     * ``backend="process"`` — ``shards`` spawned worker processes, each
       building its runner from ``runner_factory`` (a picklable zero-arg
-      callable), defaulting to ``exec_backend`` on ``device``;
+      callable), defaulting to ``exec_backend`` on ``device`` (the fan-out
+      of the host backends ``blas`` and ``numpy``);
     * ``backend="devices"`` — one spawned process per card
       (:func:`card_devices`; at most ``shards``), each with its own
       ``exec_backend`` instance; on one card, or ``device="cpu"``, the
@@ -741,6 +752,9 @@ def sweep(
     the ``process`` and ``devices`` workers auto-load the cached table
     the header names.
     ``executor`` (process backend) is a pool to reuse, left open.
+    ``dtype`` (default: the backend's own) and ``device`` configure the
+    runners the sweep builds; ``make_backend`` hands ``device`` to no host
+    backend (``blas``, ``numpy``: float64 on the host).
 
     ``fastpath`` controls the measurement fast path (operand arena, graph
     memo counters, locality order, pipelined preparation): ``None``
@@ -812,6 +826,7 @@ def sweep(
                 _run_serial(spec, todo, r, threshold, on_done)
         elif backend == "process":
             if runner_factory is None:
+                register_torch_backends()
                 runner_factory = functools.partial(
                     make_backend, exec_backend, device=device, reps=reps,
                     dtype=dtype, seed=seed)
@@ -873,8 +888,10 @@ def cluster_predictions(
 
 # --------------------------------------------- batched kernel measurement ---
 
-#: Bytes per element the models charge: both backends measure float32.
-DTYPE_BYTES = 4
+def element_bytes(dtype: str) -> int:
+    """Bytes per element the models charge for a measuring backend's
+    dtype, by the reference's rule: 8 for float64, else 4."""
+    return 8 if dtype == "float64" else 4
 
 
 def collect_unique_calls(
@@ -951,7 +968,7 @@ def predict_classifications(
     points: Iterable[Sequence[int]],
     profile: KernelProfile,
     threshold: float = 0.10,
-    dtype_bytes: int = DTYPE_BYTES,
+    dtype_bytes: int = 4,
 ) -> Dict[Tuple[int, ...], Classification]:
     """Classify every point from the additive per-kernel model (no timing).
 
@@ -959,7 +976,8 @@ def predict_classifications(
     point sets: with a calibrated profile it maps anomaly regions at grid
     scale in milliseconds. The model sums ``alg.calls``, one term per
     step, also where the ``cuda`` backend runs two steps as one fused
-    kernel.
+    kernel, and charges ``dtype_bytes`` an element (the measuring
+    backend's, :func:`element_bytes`).
     """
     out: Dict[Tuple[int, ...], Classification] = {}
     for p in points:
@@ -1155,24 +1173,30 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--backend", choices=registered_backends(),
                     default="cuda",
                     help="cuda: the hand-written kernels; torch: plain "
-                         "ATen; each gets its own fingerprint-keyed atlas")
+                         "ATen; blas: scipy BLAS in float64 on the host "
+                         "(the paper's protocol); numpy: the float64 "
+                         "oracle on the host; each gets its own "
+                         "fingerprint-keyed atlas")
     ap.add_argument("--compare-backends", default=None, metavar="A,B",
-                    help="sweep the grid on two backends (torch,cuda) and "
-                         "report instances where the fastest algorithm "
-                         "differs by backend (overrides --backend)")
+                    help="sweep the grid on two backends (e.g. torch,cuda "
+                         "or blas,cuda) and report instances where the "
+                         "fastest algorithm differs by backend (overrides "
+                         "--backend)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; fails without a card) or cpu, "
-                         "where the kernels' plain versions run")
+                         "where the kernels' plain versions run; blas and "
+                         "numpy run on the host and ignore it")
     ap.add_argument("--shards", type=int, default=1,
-                    help="cards to fan the sweep out over, one worker "
-                         "process each (0 = every card; on the CPU the "
-                         "sweep runs in this process)")
+                    help="torch and cuda: cards to fan the sweep out over, "
+                         "one worker process each (0 = every card; on the "
+                         "CPU the sweep runs in this process); blas and "
+                         "numpy: worker processes (1 = this process)")
     ap.add_argument("--threshold", type=float, default=0.10)
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--no-flush", action="store_true",
-                    help="skip a backend's per-repetition cache flush; "
-                         "the torch and cuda backends do not flush (L2 "
-                         "stays warm across repetitions, as in the "
+                    help="skip the per-repetition cache flush of blas and "
+                         "numpy; the torch and cuda backends do not flush "
+                         "(L2 stays warm across repetitions, as in the "
                          "reference's device backends), so it changes "
                          "nothing there")
     ap.add_argument("--no-fusion", action="store_true",
@@ -1309,13 +1333,26 @@ def _open_backend_atlas(spec, name, args,
 def _engine_config(name, args) -> dict:
     """Fan-out and runner settings for one registry backend, from the CLI.
 
-    Both of the port's backends are device-sharded: with one device to
-    measure on (the CPU, one card, or ``--shards 1``) one runner is built
-    here, so its arena and graph memo last across every ``sweep`` call of
-    the run (adaptive rounds included); with more, one worker process per
-    card. Shared by the dense sweep and the adaptive engine, so both
-    modes measure identically.
+    Follows the backend's ``shard_mode``. A host backend (``blas``,
+    ``numpy``) never sees ``--device``: with ``--shards N > 1`` it fans
+    out over N spawned worker processes, each building its own runner,
+    else one runner is built here (one flush buffer for the run). A
+    device backend (``torch``, ``cuda``): with one device to measure on
+    (the CPU, one card, or ``--shards 1``) one runner is built here, so
+    its arena and graph memo last across every ``sweep`` call of the run
+    (adaptive rounds included); with more, one worker process per card.
+    Shared by the dense sweep and the adaptive engine, so both modes
+    measure identically.
     """
+    if backend_shard_mode(name) == "process":
+        options = dict(reps=args.reps, flush_cache=not args.no_flush,
+                       seed=args.seed)
+        if args.shards > 1:
+            return dict(backend="process", shards=args.shards,
+                        runner_factory=functools.partial(
+                            make_backend, name, **options),
+                        reps=args.reps)
+        return dict(runner=make_backend(name, **options), reps=args.reps)
     if len(card_devices(args.device, args.shards or None)) > 1:
         return dict(backend="devices", exec_backend=name, device=args.device,
                     shards=args.shards or None, reps=args.reps,
@@ -1417,7 +1454,8 @@ def _main_compare(args, spec, grid, points) -> int:
         res = sweeps[n]
         print(f"sweep {spec.name}/{grid.name} [{n}]: points={res.n_points} "
               f"measured={res.n_measured} skipped={res.n_skipped} "
-              f"anomalies={len(res.anomalies)} ({res.anomaly_rate:.1%})")
+              f"anomalies={len(res.anomalies)} ({res.anomaly_rate:.1%}) "
+              f"in {res.wall_s:.2f}s")
     cmp = compare_backends(spec, points, sweeps)
     a, b = cmp.backends
     print(f"compare {spec.name}/{grid.name} [{a} vs {b}]: "
@@ -1460,7 +1498,7 @@ def _main_predict(args, spec, grid, atlas) -> int:
         _note(f"fastpath: {stats.summary()}", args.quiet)
     predicted = predict_classifications(
         spec, points, profile, threshold=args.threshold,
-        dtype_bytes=DTYPE_BYTES)
+        dtype_bytes=element_bytes(runner.dtype))
     n_anom = sum(1 for c in predicted.values() if c.is_anomaly)
     print(f"predict {spec.name}/{grid.name}: points={len(points)} "
           f"unique_kernels={len(calls)} measured={n_meas} "
@@ -1553,7 +1591,7 @@ def _main_evaluate(args, spec, grid) -> int:
     try:
         res = evaluate_discriminants(
             spec, records, [n.lower() for n in names], profile=profile,
-            threshold=args.threshold, dtype_bytes=DTYPE_BYTES)
+            threshold=args.threshold, dtype_bytes=element_bytes(dtype))
     except ValueError as e:
         # Record-level defect (atlas swept under a different enumeration):
         # every row would be wrong, so the evaluation itself fails.

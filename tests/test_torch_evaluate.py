@@ -584,9 +584,14 @@ def test_experiment1_visits_the_references_samples(monkeypatch):
     assert [a.point for a in mine.anomalies] == \
         [a.point for a in theirs.anomalies]
     assert len(mine.anomalies) >= 4 or mine.samples == 60
-    with pytest.raises(ValueError, match="serially"):
-        experiments.experiment1_random_search(get_spec("aatb"), mine_r,
-                                              backend="process")
+    # The reference's guard: a runner configures only the serial engine.
+    for engine in ("process", "devices"):
+        with pytest.raises(ValueError, match="only configures the serial"):
+            experiments.experiment1_random_search(get_spec("aatb"), mine_r,
+                                                  backend=engine)
+    with pytest.raises(ValueError, match="only configures the serial"):
+        ref_experiments.experiment1_random_search(ref_get_spec("aatb"),
+                                                  ref_r, backend="process")
 
 
 def test_experiment2_scans_as_the_reference():

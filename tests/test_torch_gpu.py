@@ -963,3 +963,72 @@ def test_warmup_and_decode_consult_share_the_cards_plan_service(cuda):
                 after["misses"] - before["misses"]) == (1, 0)
     finally:
         reset_default_plan_service()
+
+
+#: The ``torch`` backend on the card against ``blas`` (float64, the host),
+#: max|d| <= limit·max|value|: float64 at 1e-10; bfloat16 at 2^-6
+#: (PERF.md §2; inputs, intermediates and outputs rounded to bf16, the
+#: products accumulated in float32).
+PROTOCOL_TOL = {"float64": 1e-10, "bfloat16": 2 ** -6}
+
+
+@pytest.mark.parametrize("dtype", sorted(PROTOCOL_TOL))
+@pytest.mark.parametrize("name,point", [
+    ("aatb", (1200, 800, 400)), ("abcd", (400, 1200, 400, 1200, 400)),
+    ("aatb", (130, 70, 90))])
+def test_torch_backend_on_the_card_matches_blas(cuda, dtype, name, point):
+    from repro_torch.core.backends import get_backend, register_torch_backends
+    from repro_torch.core.expressions import get_spec
+
+    register_torch_backends()
+    blas = get_backend("blas", reps=1, flush_cache=False, seed=0)
+    card = get_backend("torch", dtype=dtype, seed=0)
+    for alg in get_spec(name).algorithms(point):
+        want = np.asarray(blas.execute(alg, blas.make_operands(alg)))
+        got = card.execute(alg, card.make_operands(alg))
+        assert got.is_cuda and got.dtype == card.torch_dtype
+        err = float(np.abs(got.double().cpu().numpy() - want).max())
+        assert err <= PROTOCOL_TOL[dtype] * float(np.abs(want).max()), \
+            alg.name
+
+
+def test_cuda_backend_refuses_bfloat16_on_the_card(cuda, capsys):
+    from repro_torch.core import calibrate
+    from repro_torch.core.backends import CudaBackend
+
+    with pytest.raises(ValueError, match="float32"):
+        CudaBackend(dtype="bfloat16")
+    with pytest.raises(SystemExit) as exc:
+        calibrate.main(["--backend", "cuda", "--dtype", "bfloat16",
+                        "--grid", "tiny"])
+    assert exc.value.code == 2
+    assert "measures float32" in capsys.readouterr().err
+
+
+def test_two_shard_blas_experiment1_on_the_cards_host(cuda, tmp_path):
+    """Experiment 1 on blas over two spawned workers on the card's host
+    draws the serial run's points."""
+    import functools
+
+    from repro_torch.core.backends import make_backend, register_torch_backends
+    from repro_torch.core.experiments import experiment1_random_search
+    from repro_torch.core.expressions import get_spec
+    from repro_torch.core.sweep import AnomalyAtlas, atlas_path
+
+    register_torch_backends()
+    spec = get_spec("aatb")
+    drawn = []
+    for label, kw in (
+            ("serial", dict(runner=make_backend("blas", reps=1, seed=0))),
+            ("pool", dict(backend="process", shards=2,
+                          runner_factory=functools.partial(
+                              make_backend, "blas", reps=1, seed=0)))):
+        fp = make_backend("blas", flush_cache=False).fingerprint()
+        with AnomalyAtlas(atlas_path(spec.name, fp, 0.10, tmp_path / label),
+                          fp, spec.name, 0.10) as atlas:
+            res = experiment1_random_search(
+                spec, box=(20, 200), n_anomalies=100, max_samples=20,
+                seed=0, atlas=atlas, **kw)
+            assert res.samples == 20
+            drawn.append(sorted(r.point for r in atlas.records()))
+    assert drawn[0] == drawn[1]

@@ -6,7 +6,8 @@ points, ``Planner(discriminant="flops")`` picks the same algorithm and
 ranks the same order as ``repro.core.planner.Planner`` on ``numpy``;
 ``Plan.fn`` on the port's CPU backends equals the reference's on the same
 seeded operands (float32 against float64, at tests/test_torch_zoo.py's
-tolerance, rtol 1e-4, atol 1e-2); ``perfmodel`` under one shared table
+tolerance, rtol 1e-4, atol 1e-2; the port's ``blas`` and ``numpy``
+within 1e-12·max|value|); ``perfmodel`` under one shared table
 of seeded times picks the same in both; and ``observe`` apportions a
 timing over a plan's calls the same way in both.
 """
@@ -17,10 +18,9 @@ import torch
 
 from repro.core import perfmodel as ref_perfmodel
 from repro.core import planner as ref_planner
-from repro.core.backends import get_backend as ref_get_backend
 from repro.core.expressions import get_spec as ref_get_spec
 from repro_torch.core import planner
-from repro_torch.core.backends import TorchBackend
+from repro_torch.core.backends import NumpyBackend, TorchBackend
 from repro_torch.core.discriminants import as_hybrid
 from repro_torch.core.expressions import get_spec, registered_names
 from repro_torch.core.flops import KernelCall
@@ -77,20 +77,29 @@ def test_flops_planner_picks_and_ranks_as_the_reference(name):
 
 
 @pytest.mark.parametrize("name", FAMILIES)
-@pytest.mark.parametrize("backend", ["torch", "cuda"])
+@pytest.mark.parametrize("backend", ["torch", "cuda", "blas", "numpy"])
 def test_plan_fn_equals_the_reference_plan_fn(name, backend):
     """``Plan.fn`` on the port's CPU backend (``cuda``: the kernels' plain
-    versions) against the reference's on ``numpy``, same operands."""
+    versions) against the reference's on ``numpy``, on the same seeded
+    operands (the port's ``numpy`` draws them). On ``blas`` and ``numpy``
+    both sides run float64 on the host: max|d| <= 1e-12·max|value|."""
     mine = planner.Planner(discriminant="flops", backend=backend,
                            device="cpu")
     theirs = ref_planner.Planner(discriminant="flops", backend="numpy")
-    ref_runner = ref_get_backend("numpy", seed=0)
+    host = backend in ("blas", "numpy")
     for point in _points(name):
         got_plan = mine.plan(get_spec(name).chain(point))
         want_plan = theirs.plan(ref_get_spec(name).chain(point))
-        operands = ref_runner.make_operands(want_plan.algorithm)
+        assert got_plan.algorithm.name == want_plan.algorithm.name
+        operands = NumpyBackend(seed=0, flush_cache=False).make_operands(
+            got_plan.algorithm)
         args = [operands.get(b) for b in range(max(operands) + 1)]
         want = np.asarray(want_plan.fn(*args))
+        if host:
+            got = np.asarray(got_plan.fn(*args))
+            assert np.abs(got - want).max() <= \
+                1e-12 * np.abs(want).max(), point
+            continue
         got = got_plan.fn(*[None if a is None else
                             torch.from_numpy(np.asarray(a, np.float32))
                             for a in args])
