@@ -127,7 +127,21 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    [20, 600] (50 samples, seed 0) on ``blas`` serially and over two
    worker processes, and on ``cuda`` through the devices engine: the same
    50 points; then ``python -m repro_torch.benchmarks.experiment3`` at CI
-   scale on ``cuda``, its recall and precision printed.
+   scale on ``cuda``, its recall and precision printed;
+13. the encdec and vlm families: the flash kernel against its plain
+   version at InternVL2-76B's prefill shape (GQA, 64 query heads over 8
+   KV heads of 128, S 2048, bf16, causal; the planted fault rejected);
+   InternVL2-76B at its published widths with its depth cut to 32 of 80
+   layers (:data:`INTERNVL_LAYERS`), bf16, random weights: ``api.prefill``
+   of 256 vision positions and 1792 tokens a request (flash once in each
+   layer), 128 greedy tokens with no kernel launch, held against a
+   re-prefill of 2176 positions as phase 7 holds Yi-9B's; whisper-tiny at
+   its full size: the encoder over 1500 frames, ``serve.decode.generate``
+   of a 64-token prompt fed token by token and 128 new tokens with the
+   frames, twice (identical tokens, finite logits, no kernel launch), and
+   its decode logits held against ``api.forward_train`` of the same
+   tokens at phase 7's limit. A prefill and a decode step of InternVL2 run
+   once more under ``torch.profiler``.
 
 The compiler's report must show no spills in any SYRK or GEMM+SYRK
 instance. The last two lines are the card's ``nvidia-smi`` name/power
@@ -200,7 +214,7 @@ EXECUTIONS = 2 + REPS
 SWEEP_STEPS = {"gemm": 914, "syrk": 162, "symm": 162, "chain_gemm": 290,
                "gemm_syrk": 27}
 #: Launches of each kernel in the sweep of phase 4. The served models
-#: (phases 7 and 11) run flash_attention.
+#: (phases 7, 11 and 13) run flash_attention.
 SWEEP_LAUNCHES = {k: n * EXECUTIONS for k, n in SWEEP_STEPS.items()}
 
 #: (rtol, atol). Element-wise |kernel - plain| <= atol + rtol·|plain|
@@ -845,9 +859,11 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 2, 2048, 128
 DECODE_LOGIT_TOL = 0.5
 
 
-def aten_calls_per_decode_step(torch, api, model, cfg, batch: int) -> int:
+def aten_calls_per_decode_step(torch, api, model, cfg, batch: int,
+                               batch_inputs=None) -> int:
     """ATen operator calls one decode step dispatches (views included),
-    counted on a scratch cache: the host-side work of an eager step."""
+    counted on a scratch cache (the encdec family's from
+    ``batch_inputs``): the host-side work of an eager step."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
     class Count(TorchDispatchMode):
@@ -857,17 +873,18 @@ def aten_calls_per_decode_step(torch, api, model, cfg, batch: int) -> int:
             self.n += 1
             return func(*args, **(kwargs or {}))
 
-    caches = api.init_caches(model, cfg, batch, 2)
+    caches = api.init_caches(model, cfg, batch, 2, batch_inputs=batch_inputs)
     tokens = torch.zeros((batch, 1), dtype=torch.long, device="cuda")
     with Count() as count:
         api.decode_step(model, cfg, tokens, caches)
     return count.n
 
 
-def timed_prefill(torch, api, model, cfg, tokens, caches):
-    """One ``api.prefill`` between CUDA events, each flash launch timed by
-    its own event pair → (logits, caches, prefill ms, flash ms, flash
-    launches)."""
+def timed_prefill(torch, api, model, cfg, tokens, caches, inputs=None):
+    """One ``api.prefill`` of ``tokens`` (and the stub frontend's
+    ``inputs``, such as ``vision_embeds``) between CUDA events, each flash
+    launch timed by its own event pair → (logits, caches, prefill ms,
+    flash ms, flash launches)."""
     from repro_torch.kernels import flash_attention as flash_mod
 
     flash_events = []
@@ -886,7 +903,9 @@ def timed_prefill(torch, api, model, cfg, tokens, caches):
     flash_mod.flash_attention_cuda = timed_launch
     try:
         start.record()
-        logits, caches = api.prefill(model, cfg, {"tokens": tokens}, caches)
+        logits, caches = api.prefill(model, cfg,
+                                     dict(inputs or {}, tokens=tokens),
+                                     caches)
         end.record()
         torch.cuda.synchronize()
     finally:
@@ -2014,10 +2033,11 @@ MOE_DISPATCH_TOL = 2 ** -6
 SSD_POINT = (MAMBA_PROMPT, 128, 64, 128, 32)
 
 
-def device_time_by_op(torch, label: str, fn, top: int = 6) -> dict:
-    """Phase 11: one call of ``fn`` under ``torch.profiler``; print the
-    host's wall time, the device's (the sum of its kernels' times) and
-    the ``top`` ATen ops and hand kernels by device time."""
+def device_time_by_op(torch, label: str, fn, top: int = 6,
+                      phase: int = 11) -> dict:
+    """Phases 11 and 13: one call of ``fn`` under ``torch.profiler``;
+    print the host's wall time, the device's (the sum of its kernels'
+    times) and the ``top`` ATen ops and hand kernels by device time."""
     from torch.profiler import ProfilerActivity, profile
 
     def device_us(e):
@@ -2037,7 +2057,7 @@ def device_time_by_op(torch, label: str, fn, top: int = 6) -> dict:
     kernels_ms = sum(device_us(e) for e in events
                      if not e.key.startswith("aten::")) / 1e3
     ranked = sorted(ops_, key=device_us, reverse=True)[:top]
-    print(f"phase 11 profile {label}: wall {wall_ms:.1f} ms, device "
+    print(f"phase {phase} profile {label}: wall {wall_ms:.1f} ms, device "
           f"{kernels_ms:.1f} ms ({kernels_ms / wall_ms:.0%}); by device "
           f"time: " + ", ".join(
               f"{e.key[:48]} {device_us(e) / 1e3:.2f} ms x{e.count}"
@@ -2359,6 +2379,223 @@ def serve_families(torch, np) -> dict:
         print(f"phase 11 {name}: peak reserved "
               f"{torch.cuda.max_memory_reserved() / 2 ** 30:.2f} GiB")
     return {"flash": flash, **served}
+
+
+#: Phase 13: the encdec and vlm families. InternVL2-76B at its published
+#: widths with its depth cut to INTERNVL_LAYERS of 80 (one layer is
+#: 855.64 M parameters, 1.711 GB in bf16; the embedding and untied head
+#: 2.10 B, 4.20 GB: 80 layers would be 141.1 GB, 32 are 59.0 GB of the
+#: card's 80), SERVE_BATCH requests of its 256 vision positions and
+#: INTERNVL_TEXT tokens (a 2048-position prefill through flash), then
+#: INTERNVL_NEW greedy tokens; whisper-tiny at its full size generates
+#: WHISPER_NEW tokens after a WHISPER_PROMPT-token prompt fed token by
+#: token (its max_seq of 448 caps prompt + new tokens).
+INTERNVL_LAYERS = 32
+INTERNVL_TEXT, INTERNVL_NEW = 1792, 128
+WHISPER_PROMPT, WHISPER_NEW = 64, 128
+#: One InternVL2-76B prefill layer: GQA, 64 query heads over 8 KV heads
+#: of 128, bf16, causal, 2048 positions.
+INTERNVL_FLASH_CASE = ("internvl2-76b prefill B2 H64/8 S2048 D128 bf16 "
+                       "causal", 2, 64, 8, 2048, 128, "bfloat16",
+                       dict(causal=True))
+
+
+def serve_internvl2(torch, np) -> dict:
+    """Phase 13 (b): InternVL2-76B at its published widths, its depth cut
+    to INTERNVL_LAYERS, bf16: prefill of the vision prefix and the prompt
+    (flash once a layer), greedy decode (no launch), and decode held
+    against a re-prefill of everything decode was fed."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import api
+
+    full = configs.get("internvl2_76b")
+    cfg = dataclasses.replace(full, n_layers=INTERNVL_LAYERS)
+    t0 = time.perf_counter()
+    model = api.init(cfg, seed=SEED, device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    print(f"phase 13 internvl2: {cfg.n_layers} of {full.n_layers} layers, "
+          f"init {time.perf_counter() - t0:.1f}s")
+    check_params(model, cfg)
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    b, p, s0, n_new = (SERVE_BATCH, cfg.vision_tokens, INTERNVL_TEXT,
+                       INTERNVL_NEW)
+    max_s = p + s0 + n_new
+    rng = np.random.default_rng(SEED)
+    vision = torch.from_numpy(rng.standard_normal(
+        (b, p, cfg.d_model))).to(torch.bfloat16).cuda()
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (b, s0))).cuda()
+    inputs = {"vision_embeds": vision}
+    api.prefill(model, cfg, dict(inputs, tokens=prompt),
+                api.init_caches(model, cfg, b, max_s))       # warm-up
+    profiled = {"prefill": device_time_by_op(
+        torch, f"internvl2 prefill {b}x({p}+{s0})", lambda: api.prefill(
+            model, cfg, dict(inputs, tokens=prompt),
+            api.init_caches(model, cfg, b, max_s)), phase=13)}
+
+    ops.reset_launch_counts()
+    logits, caches, prefill_ms, flash_ms, n_flash = timed_prefill(
+        torch, api, model, cfg, prompt, api.init_caches(model, cfg, b, max_s),
+        inputs)
+    launches = ops.launch_counts()
+    print(f"phase 13 internvl2 prefill {b}x({p}+{s0}): {prefill_ms:.1f} ms, "
+          f"flash_attention {flash_ms:.1f} ms in {n_flash} launches "
+          f"({flash_ms / prefill_ms:.1%} of prefill); launches {launches}")
+    if launches["flash_attention"] != cfg.n_layers or \
+            logits.shape != (b, p + s0, cfg.vocab) or \
+            not bool(torch.isfinite(logits).all()) or \
+            caches.kv.length != p + s0:
+        raise AssertionError("internvl2 prefill: flash not once per layer, "
+                             "or bad logits or cache length")
+    # A step on the prefill's cache, its result dropped: it writes K/V at
+    # position p + s0, which the first real step writes again.
+    api.decode_step(model, cfg, prompt[:, -1:], caches)     # warm-up
+    profiled["decode step"] = device_time_by_op(
+        torch, "internvl2 decode step", lambda: api.decode_step(
+            model, cfg, prompt[:, -1:], caches), phase=13)
+    dec, generated, caches, decode_ms = greedy_decode(
+        torch, api, model, cfg, logits, caches, n_new)
+    del logits
+    bound_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
+    aten = aten_calls_per_decode_step(torch, api, model, cfg, b)
+    print(f"phase 13 internvl2 decode {n_new} tokens x {b}: {decode_ms:.2f} "
+          f"ms/token (bound {bound_ms:.2f} ms: {weight_bytes / 1e9:.2f} GB "
+          f"of weights over {HBM_BYTES_PER_S / 1e12:.2f} TB/s; {aten} ATen "
+          f"calls a step); launches {ops.launch_counts()}")
+    if ops.launch_counts() != launches or caches.kv.length != max_s:
+        raise AssertionError("internvl2 decode launched a kernel or lost a "
+                             "token")
+    del caches
+
+    # Re-prefill of the prefix, the prompt and the tokens decode was fed:
+    # p + s0 + n_new = 2176 positions, a multiple of 128, so flash again.
+    seq = torch.cat([prompt, generated[:, :-1]], dim=1)
+    logits2, _, reprefill_ms, _, _ = timed_prefill(
+        torch, api, model, cfg, seq, api.init_caches(model, cfg, b, max_s),
+        inputs)
+    launches = ops.launch_counts()
+    print(f"phase 13 internvl2 re-prefill {b}x({p}+{s0 + n_new}): "
+          f"{reprefill_ms:.1f} ms; launches {launches}")
+    if launches["flash_attention"] != 2 * cfg.n_layers:
+        raise AssertionError("internvl2 re-prefill did not run flash once "
+                             "per layer")
+    if not decode_agrees(torch, dec, generated, logits2[:, p + s0 - 1:]):
+        raise AssertionError("internvl2 decode disagrees with the "
+                             "re-prefill")
+    del model, logits2
+    return {"prefill_ms": prefill_ms, "flash_ms": flash_ms,
+            "flash_launches_per_prefill": n_flash,
+            "decode_ms_per_token": decode_ms, "decode_bound_ms": bound_ms,
+            "aten_calls_a_step": aten, "reprefill_ms": reprefill_ms,
+            "launches": launches, "profile": profiled}
+
+
+def serve_whisper(torch, np) -> dict:
+    """Phase 13 (c): whisper-tiny at its full size, bf16: the encoder's
+    time, ``serve.decode.generate`` with the frames twice (identical
+    tokens, finite logits, no kernel launch), and the decode logits held
+    against the teacher-forced ``api.forward_train`` of the same tokens."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import api, encdec
+    from repro_torch.serve.decode import generate
+
+    cfg = configs.get("whisper_tiny")
+    model = api.init(cfg, seed=SEED, device="cuda", dtype=torch.bfloat16)
+    check_params(model, cfg)
+    b, s0, n_new = SERVE_BATCH, WHISPER_PROMPT, WHISPER_NEW
+    max_s = s0 + n_new + 1
+    rng = np.random.default_rng(SEED)
+    frames = torch.from_numpy(rng.standard_normal(
+        (b, cfg.encoder_seq, cfg.d_model))).to(torch.bfloat16).cuda()
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (b, s0))).cuda()
+    inputs = {"frames": frames}
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        encoder_ms = time_ms(torch, lambda: encdec.encode(model, cfg,
+                                                          frames), reps=5)
+    finite = torch.ones((), dtype=torch.bool, device="cuda")
+    step, runs = api.decode_step, []
+
+    def checked_step(*args, **kw):   # every step's logits finite, kept
+        logits, caches = step(*args, **kw)
+        finite.logical_and_(torch.isfinite(logits).all())
+        runs[-1]["logits"].append(logits[:, 0])
+        return logits, caches
+
+    api.decode_step = checked_step
+    try:
+        for _ in range(2):
+            runs.append({"logits": []})
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs[-1]["tokens"] = generate(model, cfg, prompt, max_new=n_new,
+                                          max_s=max_s, batch_inputs=inputs)
+            torch.cuda.synchronize()
+            runs[-1]["ms"] = ((time.perf_counter() - t0) * 1e3
+                              / (s0 - 1 + n_new))
+    finally:
+        api.decode_step = step
+    out, dec = runs[0]["tokens"], torch.stack(runs[0]["logits"], dim=1)
+    same = torch.equal(out, runs[1]["tokens"])
+    aten = aten_calls_per_decode_step(torch, api, model, cfg, b, inputs)
+    print(f"phase 13 whisper encoder {b}x{cfg.encoder_seq} frames: "
+          f"{encoder_ms:.3f} ms; generate {b}x{s0} prompt (teacher-forced) "
+          f"+ {n_new} tokens, twice: {runs[0]['ms']:.2f}, "
+          f"{runs[1]['ms']:.2f} ms/token over {s0 - 1 + n_new} steps, the "
+          f"encoder run once in init_caches ({aten} ATen calls a step); "
+          f"tokens identical: {same}; logits finite: {bool(finite)}; "
+          f"launches {ops.launch_counts()}")
+    if not same or not bool(finite) or out.shape != (b, s0 + n_new) or \
+            any(ops.launch_counts().values()):
+        raise AssertionError("whisper: the two generations differ, a logit "
+                             "is not finite, or a kernel launched")
+    # Decode against the teacher-forced forward of the 192 tokens: step i
+    # (fed token i) predicts position i + 1; greedy tokens from s0 on.
+    ref, _ = api.forward_train(model, cfg, {"tokens": out, **inputs})
+    v, n = cfg.vocab, dec.shape[1]
+    ref = ref[:, :n, :v]
+    prompt_err = float((dec[:, :s0 - 1, :v] - ref[:, :s0 - 1]).abs().max())
+    print(f"phase 13 whisper decode vs teacher-forced forward over the "
+          f"prompt's {s0 - 1} positions: max|d|={prompt_err:.4f} (tol "
+          f"{DECODE_LOGIT_TOL}); over the {n_new} generated:")
+    if prompt_err > DECODE_LOGIT_TOL or not decode_agrees(
+            torch, dec[:, s0 - 1:, :v], out[:, s0:], ref[:, s0 - 1:]):
+        raise AssertionError("whisper decode disagrees with the "
+                             "teacher-forced forward")
+    del model
+    return {"encoder_ms": encoder_ms,
+            "decode_ms_per_token": [r["ms"] for r in runs],
+            "aten_calls_a_step": aten, "prompt_max_abs_err": prompt_err}
+
+
+def serve_encdec_vlm(torch, np) -> dict:
+    """Phase 13: flash at InternVL2-76B's prefill shape, then InternVL2-76B
+    (published widths, depth cut) and whisper-tiny served on the card;
+    each model's peak reserved memory counted from its load."""
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    flash = check_flash(torch, np, cases=(INTERNVL_FLASH_CASE,))
+    flash["check_launches"] = ops.launch_counts()["flash_attention"]
+    release(torch)
+    served = {}
+    for name, serve in (("internvl2", serve_internvl2),
+                        ("whisper", serve_whisper)):
+        torch.cuda.reset_peak_memory_stats()
+        served[name] = serve(torch, np)
+        release(torch)
+        peak = torch.cuda.max_memory_reserved()
+        served[name]["peak_reserved_gb"] = peak / 1e9
+        print(f"phase 13 {name}: peak reserved {peak / 1e9:.2f} GB "
+              f"({peak / 2 ** 30:.2f} GiB)")
+    wall = time.perf_counter() - t0
+    print(f"phase 13 took {wall:.1f}s")
+    return {"flash": flash, "seconds": wall, **served}
 
 
 def _read_atlas(path: Path, shard=None) -> list:
@@ -2752,7 +2989,12 @@ def main() -> int:
     release(torch)
     memory_line(torch, 11)
     phase12 = paper_protocol(torch, np, by_family)
+    release(torch)
     memory_line(torch, 12)
+    phase13 = serve_encdec_vlm(torch, np)
+    launches["flash_attention"] += \
+        phase13["internvl2"]["launches"]["flash_attention"]
+    memory_line(torch, 13)
 
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
@@ -2779,6 +3021,17 @@ def main() -> int:
         "bound_ms": flash["bound_ms"], "bound_by": flash["bound_by"],
         "launches_olmoe_prefill":
             families["olmoe"]["launches"]["flash_attention"],
+        "launches_shape_check": flash["check_launches"]}
+    flash = phase13["flash"]
+    next(k for k in kernels if k["name"] == "flash_attention")["phase13"] = {
+        "shape": flash["shape"], "max_abs_err": flash["max_abs_err"],
+        "ms": flash["ms"], "ms_b2b": flash["ms_b2b"],
+        "plain_ms": flash["plain_ms"], "library_ms": flash["library_ms"],
+        "bound_ms": flash["bound_ms"], "bound_by": flash["bound_by"],
+        "launches_internvl2_prefill":
+            phase13["internvl2"]["flash_launches_per_prefill"],
+        "launches_internvl2": phase13["internvl2"]["launches"][
+            "flash_attention"],
         "launches_shape_check": flash["check_launches"]}
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,11 +1,10 @@
-"""Architecture configs of the port (the dense, moe, ssm and hybrid
-families) and the shape cells, copied from the reference package's
-``configs``."""
+"""Architecture configs of the port (all ten of the reference's: the
+dense, moe, ssm, hybrid, encdec and vlm families) and the shape cells,
+copied from the reference package's ``configs``."""
 
 from .base import (
     ALIASES,
     ARCH_IDS,
-    PORTED_ARCHS,
     SHAPES,
     ShapeSpec,
     get,
@@ -14,6 +13,6 @@ from .base import (
 )
 
 __all__ = [
-    "ALIASES", "ARCH_IDS", "PORTED_ARCHS", "SHAPES", "ShapeSpec", "get",
+    "ALIASES", "ARCH_IDS", "SHAPES", "ShapeSpec", "get",
     "get_smoke", "normalize",
 ]

@@ -3,9 +3,8 @@
 Own copy of the reference's ``configs/base.py``. Each ported architecture
 lives in ``configs/<id>.py`` exposing ``config()`` (the exact published
 configuration) and ``smoke()`` (a reduced same-family variant for CPU
-tests). The dense, moe, ssm and hybrid families are ported;
-``get``/``get_smoke`` of an encdec or vlm architecture raise
-:class:`NotImplementedError` naming the ROADMAP item that will port it.
+tests). All ten of the reference's architectures are ported: the
+dense, moe, ssm, hybrid, encdec and vlm families.
 
 Shape cells:
   train_4k     seq 4096,   global_batch 256  (train_step)
@@ -34,17 +33,6 @@ ARCH_IDS = (
     "olmoe_1b_7b",
     "zamba2_1p2b",
 )
-
-#: The architectures this package runs: the dense, moe, ssm and hybrid
-#: families.
-PORTED_ARCHS = ("gemma2_9b", "glm4_9b", "phi3_mini", "yi_9b", "arctic_480b",
-                "olmoe_1b_7b", "mamba2_370m", "zamba2_1p2b")
-
-#: Family of every architecture not ported yet; both wait for ROADMAP A7.
-_UNPORTED_FAMILY = {
-    "whisper_tiny": "encdec",
-    "internvl2_76b": "vlm",
-}
 
 # Assignment ids → module names (dashes/dots not importable).
 ALIASES = {
@@ -83,11 +71,7 @@ def normalize(name: str) -> str:
 
 def _module(name: str):
     arch = normalize(name)
-    if arch in _UNPORTED_FAMILY:
-        raise NotImplementedError(
-            f"{name}: the {_UNPORTED_FAMILY[arch]} family is not ported to "
-            f"PyTorch yet (ROADMAP A7); ported: {', '.join(PORTED_ARCHS)}")
-    if arch not in PORTED_ARCHS:
+    if arch not in ARCH_IDS:
         raise KeyError(f"unknown architecture {name!r}; known: "
                        f"{', '.join(ARCH_IDS)}")
     return importlib.import_module(f"repro_torch.configs.{arch}")

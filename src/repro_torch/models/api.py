@@ -1,22 +1,22 @@
 """Family-dispatching facade: one (init, train, prefill, decode) API.
 
-Counterpart of the reference's ``models/api.py``. The dense, moe and ssm
-families run through :mod:`.transformer`, the hybrid family through
-:mod:`.hybrid`; encdec and vlm raise :class:`NotImplementedError` naming
-ROADMAP A7. Every entry point runs without autograd. ``init`` builds the
-model on the card unless the caller passes ``device="cpu"``; without a
-card and without that argument it raises. The other entry points run
-where the model's parameters lie.
+Counterpart of the reference's ``models/api.py``. The dense, moe, ssm
+and vlm families run through :mod:`.transformer`, the hybrid family
+through :mod:`.hybrid`, the encdec family through :mod:`.encdec`. Every
+entry point runs without autograd. ``init`` builds the model on the card
+unless the caller passes ``device="cpu"``; without a card and without
+that argument it raises. The other entry points run where the model's
+parameters lie.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
-from . import hybrid, transformer
+from . import encdec, hybrid, transformer
 from .layers import resolve_device
 from .transformer import ModelConfig
 
@@ -24,7 +24,7 @@ from .transformer import ModelConfig
 def family_module(cfg: ModelConfig):
     """The module that assembles ``cfg``'s family (its ``init`` takes
     ``(cfg, generator, *, device, dtype)``)."""
-    return hybrid if cfg.family == "hybrid" else transformer
+    return {"hybrid": hybrid, "encdec": encdec}.get(cfg.family, transformer)
 
 
 @torch.no_grad()
@@ -46,16 +46,48 @@ def _tokens(model: nn.Module, tokens) -> torch.Tensor:
     return torch.as_tensor(tokens, device=_device(model)).long()
 
 
+def _embeds(model: nn.Module, x) -> Optional[torch.Tensor]:
+    """Stub frontend embeddings (frames, vision) on the model's device,
+    in the dtype they were given."""
+    return None if x is None else torch.as_tensor(x, device=_device(model))
+
+
+def _prefix(model: nn.Module, cfg: ModelConfig, batch: Dict[str, Any]):
+    """The vlm family's ``vision_embeds``; no prefix for other families."""
+    if cfg.family != "vlm":
+        return None
+    return _embeds(model, batch.get("vision_embeds"))
+
+
 @torch.no_grad()
 def forward_train(model: nn.Module, cfg: ModelConfig,
                   batch: Dict[str, Any]) -> Tuple[torch.Tensor, torch.Tensor]:
-    """batch → (logits fp32, aux_loss); batch["tokens"] is (B, S)."""
+    """batch → (logits fp32, aux_loss). batch["tokens"] is (B, S); encdec
+    adds "frames" (B, S_enc, d), vlm "vision_embeds" (B, P, d), whose
+    P positions lead the logits."""
     tokens = _tokens(model, batch["tokens"])
-    return family_module(cfg).apply_train(model, cfg, tokens)
+    if cfg.family == "encdec":
+        return encdec.apply_train(model, cfg, tokens,
+                                  _embeds(model, batch["frames"]))
+    if cfg.family == "hybrid":
+        return hybrid.apply_train(model, cfg, tokens)
+    return transformer.apply_train(model, cfg, tokens,
+                                   prefix_embeds=_prefix(model, cfg, batch))
 
 
+@torch.no_grad()
 def init_caches(model: nn.Module, cfg: ModelConfig, batch: int, max_s: int,
+                batch_inputs: Optional[Dict[str, Any]] = None,
                 dtype=torch.bfloat16):
+    """Zeroed caches of ``max_s`` positions for ``batch`` requests; the
+    encdec family runs its encoder over ``batch_inputs["frames"]`` here."""
+    if cfg.family == "encdec":
+        if batch_inputs is None or "frames" not in batch_inputs:
+            raise ValueError(f"{cfg.name}: init_caches of the encdec family "
+                             f"needs batch_inputs={{'frames': ...}}")
+        return encdec.init_caches(model, cfg,
+                                  _embeds(model, batch_inputs["frames"]),
+                                  max_s, dtype)
     return family_module(cfg).init_caches(cfg, batch, max_s, dtype,
                                           device=_device(model))
 
@@ -63,11 +95,20 @@ def init_caches(model: nn.Module, cfg: ModelConfig, batch: int, max_s: int,
 @torch.no_grad()
 def prefill(model: nn.Module, cfg: ModelConfig, batch: Dict[str, Any],
             caches) -> Tuple[torch.Tensor, Any]:
+    """Prompt logits and the caches filled with the prompt. The encdec
+    family returns the teacher-forced logits and ``caches`` unchanged, as
+    the reference does: its self caches fill token by token in
+    ``serve.decode.generate``."""
+    tokens = _tokens(model, batch["tokens"])
+    if cfg.family == "encdec":
+        logits, _ = encdec.apply_train(model, cfg, tokens,
+                                       _embeds(model, batch["frames"]))
+        return logits, caches
     if cfg.family == "hybrid":
         raise NotImplementedError(
             "hybrid prefill runs through serve.decode chunked path")
-    return transformer.apply_prefill(model, cfg,
-                                     _tokens(model, batch["tokens"]), caches)
+    return transformer.apply_prefill(model, cfg, tokens, caches,
+                                     prefix_embeds=_prefix(model, cfg, batch))
 
 
 @torch.no_grad()

@@ -10,6 +10,10 @@ Counterpart of the reference's ``models/attention.py`` for inference:
   (ROADMAP A8): a differentiable call that would take it raises.
 * ``apply_prefill`` — the same forward, writing K/V into the cache.
 * ``apply_decode`` — one new token against the cache.
+* ``apply_cross`` / ``project_kv`` — cross-attention against an encoder's
+  K/V (the encdec decoder): masked dense attention, neither causal nor
+  windowed, with no flash call and no planner consult, as in the
+  reference.
 
 Caches are updated in place (the reference returns new arrays): a
 serving loop owns its cache, and a functional update would copy all of
@@ -256,3 +260,23 @@ def apply_decode(p: Attention, cfg: AttnConfig, x: torch.Tensor,
     proj = pv_wo_output(p_attn, vals.to(q.dtype), p.wo, cfg.n_heads,
                         cfg.head_dim, x.dtype, right_first=cache.right_first)
     return proj, cache._replace(length=idx + 1)
+
+
+def apply_cross(p: Attention, cfg: AttnConfig, x: torch.Tensor,
+                enc_k: torch.Tensor, enc_v: torch.Tensor) -> torch.Tensor:
+    """Cross-attention of x (B, S, d) against precomputed encoder K/V
+    (B, S_enc, Hkv, Dh), every encoder position visible."""
+    b, s, _ = x.shape
+    q = dense(p.wq, x).view(b, s, cfg.n_heads, cfg.head_dim)
+    out = _dense_attention(cfg._replace(causal=False, window=0), q, enc_k,
+                           enc_v)
+    return dense(p.wo, out.reshape(b, s, cfg.n_heads * cfg.head_dim))
+
+
+def project_kv(p: Attention, cfg: AttnConfig, enc: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cross-attention K/V (B, S_enc, Hkv, Dh) of an encoder output."""
+    b, s, _ = enc.shape
+    k = dense(p.wk, enc).view(b, s, cfg.n_kv_heads, cfg.head_dim)
+    v = dense(p.wv, enc).view(b, s, cfg.n_kv_heads, cfg.head_dim)
+    return k, v

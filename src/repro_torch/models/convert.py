@@ -2,13 +2,16 @@
 
 ``from_reference_params(params, cfg)`` takes the reference's parameter
 pytree — nested dicts of arrays (numpy or anything ``numpy.asarray``
-reads, bfloat16 included), the blocks stacked on axis 0 — and returns the
-port's model of ``cfg``'s family holding the same values: the attention
-blocks' ``attn``/``mlp``/``moe`` leaves, the SSM blocks' ``mixer``
-leaves, and the hybrid family's unstacked ``shared`` block beside its
-stacked ``blocks``. Every leaf must land on exactly one parameter of the
-same shape: a missing, unused or mis-shaped leaf raises
-:class:`ValueError`. This module imports no JAX; callers hand it arrays.
+reads, bfloat16 included), each stack of layers on axis 0 — and returns
+the port's model of ``cfg``'s family holding the same values: the
+attention blocks' ``attn``/``mlp``/``moe`` leaves, the SSM blocks'
+``mixer`` leaves, the hybrid family's unstacked ``shared`` block beside
+its stacked ``blocks``, and the encdec family's ``encoder`` stack (of
+``encoder_layers``) and ``decoder`` stack (of ``n_layers``) beside its
+``embed``, ``enc_norm`` and ``final_norm``. Every leaf must land on
+exactly one parameter of the same shape: a missing, unused or
+mis-shaped leaf raises :class:`ValueError`. This module imports no JAX;
+callers hand it arrays.
 """
 
 from __future__ import annotations
@@ -35,22 +38,25 @@ def _flatten(tree: Mapping[str, Any], prefix: str,
 
 def _reference_state(params: Mapping[str, Any],
                     cfg: ModelConfig) -> Dict[str, np.ndarray]:
-    """The reference pytree as state-dict keys: ``blocks.<i>.<path>`` for
-    each layer ``i`` of a stacked block leaf, ``<path>`` otherwise."""
+    """The reference pytree as state-dict keys: ``<stack>.<i>.<path>`` for
+    each layer ``i`` of a stacked leaf (``blocks``, ``encoder``,
+    ``decoder``), ``<path>`` otherwise."""
+    depths = {"blocks": cfg.n_layers, "decoder": cfg.n_layers,
+              "encoder": cfg.encoder_layers}
     flat: Dict[str, np.ndarray] = {}
     for key, value in params.items():
-        if key != "blocks":
+        if key not in depths:
             _flatten({key: value}, "", flat)
             continue
+        depth = depths[key]
         stacked: Dict[str, np.ndarray] = {}
         _flatten(value, "", stacked)
         for path, arr in stacked.items():
-            if arr.ndim == 0 or arr.shape[0] != cfg.n_layers:
-                raise ValueError(f"blocks.{path}: leading axis of shape "
-                                 f"{arr.shape} is not the {cfg.n_layers} "
-                                 f"layers")
-            for i in range(cfg.n_layers):
-                flat[f"blocks.{i}.{path}"] = arr[i]
+            if arr.ndim == 0 or arr.shape[0] != depth:
+                raise ValueError(f"{key}.{path}: leading axis of shape "
+                                 f"{arr.shape} is not the {depth} layers")
+            for i in range(depth):
+                flat[f"{key}.{i}.{path}"] = arr[i]
     return flat
 
 

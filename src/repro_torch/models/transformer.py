@@ -1,7 +1,10 @@
-"""Decoder-LM assembly for the dense, MoE and SSM families.
+"""Decoder-LM assembly for the dense, MoE, SSM and vlm families.
 
 Counterpart of the reference's ``models/transformer.py`` (the hybrid
-family is :mod:`.hybrid`; encdec and vlm wait for ROADMAP A7). ``init``
+family is :mod:`.hybrid`, the encdec family :mod:`.encdec`). The vlm
+family is the decoder stack with a prefix: ``apply_train`` and
+``apply_prefill`` take ``prefix_embeds`` (B, P, d), precomputed vision
+embeddings placed before the token embeddings. ``init``
 builds an ``nn.Module`` tree whose state-dict keys are the reference's
 parameter paths; ``apply_train`` / ``apply_prefill`` / ``apply_decode``
 run it. The reference's ``lax.scan`` over stacked layers (its
@@ -27,7 +30,7 @@ from .ssm import SSMCache, SSMConfig
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                   # dense | moe | ssm | hybrid
+    family: str                   # dense | moe | ssm | hybrid | encdec | vlm
     n_layers: int
     d_model: int
     vocab: int
@@ -52,6 +55,11 @@ class ModelConfig:
     attn_every: int = 0
     shared_attn: bool = False
     shared_window: int = 0
+    # encdec
+    encoder_layers: int = 0
+    encoder_seq: int = 0
+    # vlm: precomputed vision embeddings before the tokens
+    vision_tokens: int = 0
     max_seq: int = 131072
 
     @property
@@ -80,16 +88,17 @@ class ModelConfig:
 
     def param_count(self) -> int:
         """The reference's analytic parameter count: embedding, attention,
-        MLP, MoE and SSM projections (norm gains, the SSM conv and its
+        MLP, MoE and SSM projections, and an encoder's blocks and the
+        decoder's cross-attention (norm gains, the SSM conv and its
         per-head vectors left out)."""
         d = self.d_model
         n = self.vocab * d * (1 if self.tied_embeddings else 2)
         L = self.n_layers
         attn = d * (self.n_heads + 2 * self.n_kv_heads) * self.head_dim \
             + self.n_heads * self.head_dim * d
-        if self.family in ("dense", "moe"):
+        if self.family in ("dense", "moe", "encdec", "vlm"):
             n += L * attn
-        if self.family == "dense":
+        if self.family in ("dense", "encdec", "vlm"):
             gates = 3 if self.activation_is_glu else 2
             n += L * gates * d * self.d_ff
         if self.moe is not None:
@@ -104,6 +113,11 @@ class ModelConfig:
             n += L * (d * proj + s.d_inner * d)
         if self.shared_attn:
             n += attn + 3 * d * self.d_ff
+        if self.encoder_layers:
+            # the encoder's blocks (plain 2-matrix MLP), then the
+            # decoder's cross-attention
+            n += self.encoder_layers * (attn + 2 * d * self.d_ff)
+            n += L * attn
         return n
 
     def active_param_count(self) -> int:
@@ -121,18 +135,19 @@ class ModelConfig:
         return self.activation in ("silu", "gelu_glu")
 
 
-#: The families this module assembles (hybrid is :mod:`.hybrid`).
-FAMILIES = ("dense", "moe", "ssm")
+#: The families this module assembles (hybrid is :mod:`.hybrid`, encdec
+#: :mod:`.encdec`; vlm is the decoder stack with a prefix).
+FAMILIES = ("dense", "moe", "ssm", "vlm")
+#: The families another module assembles.
+_ASSEMBLED_ELSEWHERE = {"hybrid": "models.hybrid", "encdec": "models.encdec"}
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family == "hybrid":
-        raise ValueError(f"{cfg.name}: the hybrid family is assembled by "
-                         f"models.hybrid")
+    if cfg.family in _ASSEMBLED_ELSEWHERE:
+        raise ValueError(f"{cfg.name}: the {cfg.family} family is assembled "
+                         f"by {_ASSEMBLED_ELSEWHERE[cfg.family]}")
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported to PyTorch "
-            f"yet (ROADMAP A7)")
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
 
 
 # ------------------------------------------------------------------ init ---
@@ -232,11 +247,16 @@ def _ssm_block_apply(cfg: ModelConfig, bp: SSMBlock, x: torch.Tensor,
     return x + mix(h)
 
 
-def _embed(cfg: ModelConfig, model: DecoderLM,
-           tokens: torch.Tensor) -> torch.Tensor:
+def _embed(cfg: ModelConfig, model: DecoderLM, tokens: torch.Tensor,
+           prefix_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token embeddings (scaled where the config says so) after the
+    ``prefix_embeds`` (B, P, d), cast to the activation dtype and never
+    scaled: (B, P + S, d)."""
     x = layers.embed(model.embed, tokens)
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     return x
 
 
@@ -261,14 +281,16 @@ def _logits(cfg: ModelConfig, model: DecoderLM,
     return logits
 
 
-def apply_train(model: DecoderLM, cfg: ModelConfig, tokens: torch.Tensor
+def apply_train(model: DecoderLM, cfg: ModelConfig, tokens: torch.Tensor,
+                prefix_embeds: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens (B, S) → (logits (B, S, vocab) fp32, aux_loss summed over
-    the MoE layers). Forward only: attention runs as the reference's
+    """tokens (B, S) → (logits (B, P + S, vocab) fp32, aux_loss summed
+    over the MoE layers), P the length of ``prefix_embeds`` (B, P, d), 0
+    without. Forward only: attention runs as the reference's
     differentiable route does (dense below the chunked threshold), the
     SSM layers take ``ssm.ssd``'s selected algorithm."""
     _check_family(cfg)
-    x = _embed(cfg, model, tokens)
+    x = _embed(cfg, model, tokens, prefix_embeds)
     s = x.shape[1]
     rope = _rope_tables(cfg, s, x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -313,19 +335,23 @@ def init_caches(cfg: ModelConfig, batch: int, max_s: int,
 
 
 def plan_decode(cfg: ModelConfig, caches: LayerCaches) -> LayerCaches:
-    """``caches`` with decode's P·V·Wo association resolved: one consult
-    of the serving plan cache at the caches' capacity
-    (:func:`~repro_torch.models.attention.planned_pv_right_first`; the
-    ``REPRO_SERVE_PLANNER=0`` kill-switch, or a failure, gives left),
-    carried by every decode step of these caches. Caches without
-    attention (the SSM family) make no consult and are returned as
-    they are."""
-    kv = caches.kv
-    if kv is None:
+    """``caches`` with decode's P·V·Wo association resolved
+    (:func:`plan_kv`). Caches without attention (the SSM family) make no
+    consult and are returned as they are."""
+    if caches.kv is None:
         return caches
+    return caches._replace(kv=plan_kv(cfg, caches.kv))
+
+
+def plan_kv(cfg: ModelConfig, kv: KVCache) -> KVCache:
+    """Stacked KV caches ``kv`` (L, B, max_s, Hkv, Dh) with decode's
+    P·V·Wo association resolved: one consult of the serving plan cache at
+    their capacity (:func:`~repro_torch.models.attention.
+    planned_pv_right_first`; the ``REPRO_SERVE_PLANNER=0`` kill-switch,
+    or a failure, gives left), carried by every decode step of them."""
     right = attention.planned_pv_right_first(
         1, kv.k.shape[2], cfg.head_dim, cfg.d_model, device=kv.k.device)
-    return caches._replace(kv=kv._replace(right_first=right))
+    return kv._replace(right_first=right)
 
 
 def _layer_cache(caches: LayerCaches, i: int) -> KVCache:
@@ -339,14 +365,17 @@ def _layer_ssm_cache(caches: LayerCaches, i: int) -> SSMCache:
 
 
 def apply_prefill(model: DecoderLM, cfg: ModelConfig, tokens: torch.Tensor,
-                  caches: LayerCaches
+                  caches: LayerCaches,
+                  prefix_embeds: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, LayerCaches]:
     """Prefill: full-sequence forward that also fills the caches (in
-    place). Attention takes the flash kernel when S is a multiple of 128
-    and at least 256; the SSM family runs chunked SSD with the final
-    state handed to the cache (S a multiple of min(chunk, S))."""
+    place) → (logits (B, P + S, vocab), caches of length P + S), P the
+    length of ``prefix_embeds``. Attention takes the flash kernel when
+    P + S is a multiple of 128 and at least 256; the SSM family runs
+    chunked SSD with the final state handed to the cache (S a multiple
+    of min(chunk, S))."""
     _check_family(cfg)
-    x = _embed(cfg, model, tokens)
+    x = _embed(cfg, model, tokens, prefix_embeds)
     s = x.shape[1]
     if cfg.family == "ssm":
         for i, bp in enumerate(model.blocks):

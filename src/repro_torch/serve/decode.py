@@ -1,10 +1,11 @@
 """Serving steps: single-token decode (greedy/temperature) and generation.
 
 Counterpart of the reference's ``serve/decode.py``. ``serve_step`` is one
-new token for the whole batch against the caches (KV, SSM, or the hybrid
-family's SSM caches and shared ring-buffer KV); ``generate`` feeds a
-prompt token by token (teacher-forced; the only prefill the hybrid family
-has) and then decodes. The decode attention tail's association is a
+new token for the whole batch against the caches (KV, SSM, the hybrid
+family's SSM caches and shared ring-buffer KV, or the encdec family's
+self KV beside its cross K/V); ``generate`` feeds a prompt token by
+token (teacher-forced; the only prefill the hybrid and encdec families
+have) and then decodes. The decode attention tail's association is a
 consult of the serving plan cache, made once when the KV cache is set up
 (``transformer.plan_decode``, with the cache's capacity; caches without
 attention make none), so :func:`plan_warmup` plans a model's decode
@@ -18,7 +19,7 @@ from __future__ import annotations
 
 import functools
 import time
-from typing import Any, List, NamedTuple, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -80,21 +81,25 @@ def make_serve_step(cfg: ModelConfig, **kw):
 
 
 def generate(params: Any, cfg: ModelConfig, prompt, max_new: int,
-             max_s: Optional[int] = None, temperature: float = 0.0,
-             seed: int = 0,
+             max_s: Optional[int] = None,
+             batch_inputs: Optional[Dict[str, Any]] = None,
+             temperature: float = 0.0, seed: int = 0,
              monitor: Optional[StragglerMonitor] = None) -> torch.Tensor:
     """Greedy/temperature generation: prompt (B, S0) → (B, S0 + max_new).
 
     The prompt fills the caches token by token, as in the reference (its
-    predictions are ignored). Pass a ``monitor`` to feed decode step wall
-    times (synchronised with the card) into a straggler watchdog.
+    predictions are ignored). ``batch_inputs`` go to ``api.init_caches``
+    (the encdec family's ``frames``). Pass a ``monitor`` to feed decode
+    step wall times (synchronised with the card) into a straggler
+    watchdog.
     """
     device = params.embed.w.device
     prompt = torch.as_tensor(prompt, device=device).long()
     b, s0 = prompt.shape
     max_s = max_s or (s0 + max_new + 1)
     plan_warmup(cfg, max_s, device=device)
-    caches = api.init_caches(params, cfg, b, max_s)
+    caches = api.init_caches(params, cfg, b, max_s,
+                             batch_inputs=batch_inputs)
     state = ServeState(caches=caches, last_tokens=prompt[:, :1],
                        rng=torch.Generator(device=device).manual_seed(seed))
     step = make_serve_step(cfg, temperature=temperature)

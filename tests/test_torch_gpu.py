@@ -826,6 +826,64 @@ def test_zamba2_smoke_generate_on_card_matches_cpu(cuda, monkeypatch):
     assert torch.equal(got.cpu(), want)
 
 
+def test_whisper_smoke_decode_on_card_matches_cpu(cuda, monkeypatch):
+    """The encdec family on the card: cross K/V from the encoder, eight
+    decode steps and ``generate`` with frames equal the same weights on
+    the CPU (logits at rtol = atol = 1e-4, identical tokens), with no
+    kernel launch: cross-attention and the encoder's attention are
+    masked dense, as in the reference."""
+    from repro_torch.serve.decode import generate
+    monkeypatch.setenv("REPRO_SERVE_PLANNER", "0")
+    cfg, cpu, card, api = _card_and_cpu(cuda, "whisper_tiny")
+    rng = np.random.default_rng(4)
+    frames = {"frames": rng.standard_normal(
+        (2, cfg.encoder_seq, cfg.d_model)).astype(np.float32)}
+    toks = rng.integers(0, cfg.vocab, (2, 8))
+    ops.reset_launch_counts()
+    caches = api.init_caches(card, cfg, 2, 16, batch_inputs=frames)
+    cpu_caches = api.init_caches(cpu, cfg, 2, 16, batch_inputs=frames)
+    _close(caches.cross_k.float(), cpu_caches.cross_k.float(),
+           dict(rtol=2 ** -7, atol=1e-5))
+    for i in range(8):
+        step, caches = api.decode_step(card, cfg, toks[:, i:i + 1], caches)
+        ref_step, cpu_caches = api.decode_step(cpu, cfg, toks[:, i:i + 1],
+                                               cpu_caches)
+        _close(step, ref_step, dict(rtol=1e-4, atol=1e-4))
+    got = generate(card, cfg, toks, max_new=6, max_s=16, batch_inputs=frames)
+    assert not any(ops.launch_counts().values())
+    want = generate(cpu, cfg, toks, max_new=6, max_s=16, batch_inputs=frames)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_vlm_smoke_prefill_runs_flash_and_matches_the_dense_route(cuda):
+    """InternVL2's smoke model: a prefill of 8 vision positions and 248
+    tokens (P + S = 256) launches flash once per layer and agrees with
+    ``forward_train`` on the card (the dense route) and with the CPU at
+    rtol = atol = 1e-4, over all P + S positions."""
+    cfg, cpu, card, api = _card_and_cpu(cuda, "internvl2_76b")
+    rng = np.random.default_rng(5)
+    s = 256 - cfg.vision_tokens
+    batch = {"tokens": rng.integers(0, cfg.vocab, (2, s)),
+             "vision_embeds": rng.standard_normal(
+                 (2, cfg.vision_tokens, cfg.d_model)).astype(np.float32)}
+    ops.reset_launch_counts()
+    got, caches = api.prefill(card, cfg, batch,
+                              api.init_caches(card, cfg, 2, 260))
+    assert ops.launch_counts()["flash_attention"] == cfg.n_layers
+    assert got.shape == (2, 256, cfg.vocab) and caches.kv.length == 256
+    dense, _ = api.forward_train(card, cfg, batch)
+    assert ops.launch_counts()["flash_attention"] == cfg.n_layers
+    _close(got, dense, dict(rtol=1e-4, atol=1e-4))
+    want, _ = api.prefill(cpu, cfg, batch, api.init_caches(cpu, cfg, 2, 260))
+    _close(got, want, dict(rtol=1e-4, atol=1e-4))
+
+
+def test_flash_attention_bf16_at_internvl2_head_layout(cuda):
+    """InternVL2-76B's prefill case cut in length: 64 query heads over 8
+    KV heads of 128, bf16, causal."""
+    _attention_case(cuda, 1, 64, 8, 512, 128, dict(causal=True), 22)
+
+
 # ------------------------------------------------ tuned launches (slice 9) --
 
 #: (kind, dims) of the tuned-launch tests: ragged dims, each kind's

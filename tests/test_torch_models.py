@@ -32,10 +32,6 @@ from repro_torch.models import api, attention, convert, layers, transformer
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 CACHE_TOL = dict(rtol=2 ** -7, atol=1e-5)
-DENSE = ("yi_9b", "gemma2_9b", "glm4_9b", "phi3_mini")
-#: The moe, ssm and hybrid architectures (tests/test_torch_families.py).
-FAMILIES = ("olmoe_1b_7b", "arctic_480b", "mamba2_370m", "zamba2_1p2b")
-UNPORTED = ("whisper_tiny", "internvl2_76b")
 
 
 def _np(x):
@@ -62,7 +58,7 @@ def smoke_models():
 
 # --------------------------------------------------------------- configs ---
 
-@pytest.mark.parametrize("arch", DENSE + FAMILIES)
+@pytest.mark.parametrize("arch", configs.ARCH_IDS)
 @pytest.mark.parametrize("smoke", [False, True])
 def test_configs_match_reference(arch, smoke):
     mine = (configs.get_smoke if smoke else configs.get)(arch)
@@ -76,14 +72,6 @@ def test_configs_match_reference(arch, smoke):
     assert list(mine.layer_windows()) == [int(w) for w in
                                           theirs.layer_windows()]
     assert mine.attn_cfg._asdict() == theirs.attn_cfg._asdict()
-
-
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_unported_families_raise_naming_the_roadmap_item(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        configs.get(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        configs.get_smoke(arch)
 
 
 def test_config_aliases_and_shapes():
@@ -212,7 +200,7 @@ def test_convert_raises_on_missing_unused_and_misshaped_leaves(smoke_models):
     bad = dict(tree, final_norm={"g": np.zeros(cfg.d_model + 1)})
     with pytest.raises(ValueError, match="final_norm.g: reference shape"):
         convert.from_reference_params(bad, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+    with pytest.raises(ValueError, match="assembled by models.encdec"):
         transformer.init(dataclasses.replace(cfg, family="encdec"), None,
                          device="meta")
 
