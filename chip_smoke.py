@@ -141,7 +141,26 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    frames, twice (identical tokens, finite logits, no kernel launch), and
    its decode logits held against ``api.forward_train`` of the same
    tokens at phase 7's limit. A prefill and a decode step of InternVL2 run
-   once more under ``torch.profiler``.
+   once more under ``torch.profiler``;
+14. training, in bf16 on random weights from seed 0 and ``SyntheticLM``
+   data from seed 0, with no hand-kernel launch: (a) the chunked
+   attention with its own backward against autograd through the dense
+   attention at Zamba2's shared-block shape (B 1, 32 heads of 64, S 2048,
+   causal, window 4096), float32 and bf16, with both peaks of allocated
+   memory (the chunked one must be lower) and a planted fault (one key
+   block's dv dropped) rejected; (b) Mamba2-370M at full width and depth,
+   2 × 2048 tokens a step, 12 AdamW steps through ``train_loop.train``
+   (loss, lr, grad norm and ms per step, tokens/s, peak reserved memory,
+   ``select_ssd_mode``'s pick; every loss finite and the last below the
+   first) and one more step under ``torch.profiler``; (c) 6 Muon steps
+   (``plan_ns_mode``'s pick and FLOPs per matrix shape, Newton–Schulz ms
+   per step); (d) 8 steps saving every 4 (keep 1) with a crash at step 5
+   under a ``Supervisor`` allowing one restart: each save's seconds and
+   GB/s, the last save read back bit for bit, and the resumed steps'
+   losses and final ``final_norm.g`` against an uninterrupted run;
+   (e) Zamba2-1.2B at full width and depth, 1 × 2048 tokens, 4 AdamW
+   steps at the reference launcher's default peak lr (3e-4), its shared
+   block through the chunked attention at every application.
 
 The compiler's report must show no spills in any SYRK or GEMM+SYRK
 instance. The last two lines are the card's ``nvidia-smi`` name/power
@@ -2033,16 +2052,30 @@ MOE_DISPATCH_TOL = 2 ** -6
 SSD_POINT = (MAMBA_PROMPT, 128, 64, 128, 32)
 
 
+def _device_us(e) -> float:
+    return getattr(e, "self_device_time_total", None) \
+        or getattr(e, "self_cuda_time_total", 0)
+
+
+def device_busy_ms(events) -> float:
+    """The device's own time in a profile's ``key_averages()``: the sum
+    over the entries whose device type is CUDA (kernels, memcpy, memset),
+    user annotations left out. A host-side entry (an ATen op, a
+    ``record_function`` range, a runtime call) reports the device time of
+    the kernels it launched, and a ``record_function`` range's device-side
+    annotation spans them: those kernels' own entries already count it."""
+    return sum(_device_us(e) for e in events
+               if str(getattr(e, "device_type", "")).endswith("CUDA")
+               and not getattr(e, "is_user_annotation", False)) / 1e3
+
+
 def device_time_by_op(torch, label: str, fn, top: int = 6,
                       phase: int = 11) -> dict:
-    """Phases 11 and 13: one call of ``fn`` under ``torch.profiler``;
-    print the host's wall time, the device's (the sum of its kernels'
-    times) and the ``top`` ATen ops and hand kernels by device time."""
+    """Phases 11, 13 and 14: one call of ``fn`` under ``torch.profiler``;
+    print the host's wall time, the device's (:func:`device_busy_ms`) and
+    its share of the wall time, and the ``top`` ATen ops and hand kernels
+    by the device time of the kernels they launched."""
     from torch.profiler import ProfilerActivity, profile
-
-    def device_us(e):
-        return getattr(e, "self_device_time_total", None) \
-            or getattr(e, "self_cuda_time_total", 0)
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -2054,15 +2087,14 @@ def device_time_by_op(torch, label: str, fn, top: int = 6,
     events = prof.key_averages()
     ops_ = [e for e in events if e.key.startswith("aten::") or
             "repro_" in e.key]
-    kernels_ms = sum(device_us(e) for e in events
-                     if not e.key.startswith("aten::")) / 1e3
-    ranked = sorted(ops_, key=device_us, reverse=True)[:top]
+    device_ms = device_busy_ms(events)
+    ranked = sorted(ops_, key=_device_us, reverse=True)[:top]
     print(f"phase {phase} profile {label}: wall {wall_ms:.1f} ms, device "
-          f"{kernels_ms:.1f} ms ({kernels_ms / wall_ms:.0%}); by device "
+          f"{device_ms:.1f} ms ({device_ms / wall_ms:.0%}); by device "
           f"time: " + ", ".join(
-              f"{e.key[:48]} {device_us(e) / 1e3:.2f} ms x{e.count}"
+              f"{e.key[:48]} {_device_us(e) / 1e3:.2f} ms x{e.count}"
               for e in ranked))
-    return {"wall_ms": wall_ms, "device_ms": kernels_ms}
+    return {"wall_ms": wall_ms, "device_ms": device_ms}
 
 
 def check_params(model, cfg) -> None:
@@ -2915,6 +2947,438 @@ def paper_protocol(torch, np, phase4: dict) -> dict:
     return launches
 
 
+#: Phase 14: training on the card. The train step differentiates a bf16
+#: working copy (fp32 masters and moments), random weights from SEED,
+#: ``SyntheticLM`` data from SEED, peak lr TRAIN_LR after TRAIN_WARMUP
+#: warm-up steps, cosine to the run's last step. Mamba2-370M takes
+#: MAMBA_TRAIN_BATCH requests of TRAIN_SEQ tokens a step (AdamW, then
+#: Muon, then a crash at RESUME_FAIL_AT and a supervised resume from the
+#: save at RESUME_SAVE_EVERY), Zamba2-1.2B ZAMBA_TRAIN_BATCH.
+TRAIN_SEQ, TRAIN_LR, TRAIN_WARMUP = 2048, 1e-3, 2
+MAMBA_TRAIN_BATCH, MAMBA_TRAIN_STEPS, MUON_TRAIN_STEPS = 2, 12, 6
+RESUME_STEPS, RESUME_SAVE_EVERY, RESUME_FAIL_AT = 8, 4, 5
+ZAMBA_TRAIN_BATCH, ZAMBA_TRAIN_STEPS = 1, 4
+#: Zamba2-1.2B's peak lr. From random weights, Adam's first updates
+#: overshoot at 1e-4 and above (``train_probe.py`` on an H100, seeds 0–2:
+#: the loss rises by up to 6.2 nats, in float32 and through the dense
+#: attention alike, and is lowest an eighth to a half of the way along
+#: the update); at 3e-5 it falls from step 1 on, 10.76 → 9.12 on seed 0.
+ZAMBA_TRAIN_LR = 3e-5
+#: Mamba2-370M's per-block activation checkpointing (``ModelConfig.remat``)
+#: at 2 × 2048 tokens: without it a step's peak reserved memory is 64 GB
+#: on an H100, below the 70 GB past which phase 14 would take ``"full"``.
+MAMBA_REMAT = "none"
+#: Zamba2-1.2B's shared attention block at TRAIN_SEQ positions: B 1, 32
+#: heads of 64 (MHA), causal, window 4096 (wider than the sequence).
+CHUNKED_SHAPE = (1, 32, TRAIN_SEQ, 64, 4096)
+#: max|chunked − dense| ≤ limit · max|dense| for (out, dq, dk, dv): bf16
+#: at 2**-6, as flash is held; float32 out and dq at 1e-4. The float32
+#: backward rounds each key block's dk and dv to bf16, as the reference
+#: does (None here): those hold element by element within half a bf16
+#: ulp of the dense value, |chunked − dense| ≤ 2**-8·|dense| +
+#: CHUNKED_ATOL, 3× the largest excess measured on an H100 (dk, 3.80e-6).
+CHUNKED_TOL = {"float32": (1e-4, 1e-4, None, None),
+               "bfloat16": (2 ** -6,) * 4}
+CHUNKED_ATOL = 1.15e-5
+#: The resumed run's losses and final ``final_norm.g`` against an
+#: uninterrupted run: the reference's test tolerance.
+RESUME_TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+def check_chunked(torch, np) -> dict:
+    """Phase 14 (a): chunked attention with its own backward against
+    autograd through the dense attention at Zamba2's shared-block shape,
+    float32 and bf16; peak memory of each; a planted fault (one key
+    block's dv dropped) must be rejected."""
+    from repro_torch.models import attention
+
+    b, h, s, d, window = CHUNKED_SHAPE
+    cfg = attention.AttnConfig(d_model=h * d, n_heads=h, n_kv_heads=h,
+                               head_dim=d, window=window)
+    rng = np.random.default_rng(SEED)
+    result = {}
+    for dtype in ("float32", "bfloat16"):
+        q, k, v, g = (torch.from_numpy(rng.standard_normal((b, s, h, d))
+                                       * scale).to(getattr(torch, dtype))
+                      .cuda() for scale in (QK_SCALE, QK_SCALE, 1.0, 1.0))
+        runs = {}
+        for name, fn in (("chunked", attention.chunked_attention),
+                         ("dense", attention._dense_attention)):
+            def step(fn=fn):
+                qs, ks, vs = (t.detach().requires_grad_(True)
+                              for t in (q, k, v))
+                out = fn(cfg, qs, ks, vs)
+                out.backward(g)
+                return [t.detach().float()
+                        for t in (out, qs.grad, ks.grad, vs.grad)]
+            step()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            got = step()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            runs[name] = (got, peak, time_ms(torch, step, reps=3, warmup=1))
+        (got, peak, ms), (want, dense_peak, dense_ms) = runs["chunked"], \
+            runs["dense"]
+        planted = got[3].clone()
+        planted[:, 512:1024] = 0          # key block 1's dv dropped
+        errs, ok = _chunked_errors(dtype, got, want)
+        planted_err, planted_ok = _chunked_errors(dtype, got[:3] + [planted],
+                                                  want)
+        print(f"phase 14 (a) chunked attention {dtype} (B {b}, {h} heads of "
+              f"{d}, S {s}, causal, window {window}), forward + backward: "
+              f"{_chunked_report(dtype, errs)} {'ok' if ok else 'FAIL'}; "
+              f"planted dv block dropped: dv {planted_err[3]:.3e} "
+              f"{'ACCEPTED' if planted_ok else 'rejected'}; "
+              f"peak allocated chunked {peak / 2 ** 20:.0f} MiB, dense "
+              f"{dense_peak / 2 ** 20:.0f} MiB; {ms:.2f} ms, dense "
+              f"{dense_ms:.2f} ms")
+        if not ok or planted_ok or peak >= dense_peak:
+            raise AssertionError(f"chunked attention {dtype}: disagrees with "
+                                 f"the dense route, accepts the planted "
+                                 f"fault, or holds more memory")
+        result[dtype] = {"errors": errs, "planted_err": planted_err[3],
+                         "peak_bytes": peak, "dense_peak_bytes": dense_peak,
+                         "ms": ms, "dense_ms": dense_ms}
+    return result
+
+
+def _chunked_errors(dtype: str, got, want):
+    """(out, dq, dk, dv) of the chunked route against the dense one →
+    (errors, all within CHUNKED_TOL): max|d| / max|dense| where a limit
+    is given, else the largest excess of |d| over half a bf16 ulp of the
+    dense value (2**-8·|dense|), held at CHUNKED_ATOL."""
+    errs, ok = [], True
+    for a, w, lim in zip(got, want, CHUNKED_TOL[dtype]):
+        d = (a - w).abs()
+        if lim is None:
+            errs.append(float((d - 2 ** -8 * w.abs()).max()))
+            ok &= errs[-1] <= CHUNKED_ATOL
+        else:
+            errs.append(float(d.max() / w.abs().max()))
+            ok &= errs[-1] <= lim
+    return errs, ok
+
+
+def _chunked_report(dtype: str, errs) -> str:
+    parts = [f"{name} {e:.3e} (limit {lim:g} of max|dense|)"
+             if lim is not None else
+             f"{name} {e:.3e} (over half a bf16 ulp, limit {CHUNKED_ATOL:g})"
+             for name, e, lim in zip(("out", "dq", "dk", "dv"), errs,
+                                     CHUNKED_TOL[dtype])]
+    return "max|chunked - dense|: " + ", ".join(parts)
+
+
+def _train(torch, cfg, batch: int, steps: int, label: str,
+           after_step=None, lines=None, lr: float = TRAIN_LR, **kw):
+    """``train_loop.train`` on the card; prints each step (with what
+    ``after_step(row)`` adds to its row) and the loop's own lines
+    (restores, saves), which it appends to ``lines`` → (state, step
+    rows)."""
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.train import loop as train_loop
+
+    rows = []
+    lines = [] if lines is None else lines
+
+    def on_step(step, metrics, wall):
+        rows.append(dict(step=step, wall_ms=wall * 1e3, **metrics))
+        extra = after_step(rows[-1]) if after_step else ""
+        print(f"phase 14 {label} step {step}: loss {metrics['loss']:.4f} "
+              f"lr {metrics['lr']:.3e} grad_norm {metrics['grad_norm']:.4f} "
+              f"{wall * 1e3:.1f} ms{extra}")
+
+    def log(msg):
+        lines.append(msg)
+        if not msg.startswith("[train] step="):
+            print(f"phase 14 {label} {msg}")
+
+    source = SyntheticLM(cfg.vocab, TRAIN_SEQ, batch, seed=SEED)
+    state = train_loop.train(cfg, source, steps, peak_lr=lr,
+                             warmup=TRAIN_WARMUP, seed=SEED, device="cuda",
+                             log_every=steps, log_fn=log, on_step=on_step,
+                             **kw)
+    return state, rows
+
+
+def _falls(rows, label: str) -> None:
+    """Every loss and grad norm finite, and the last loss below the first."""
+    import math
+
+    values = [r[k] for r in rows for k in ("loss", "grad_norm")]
+    if not all(math.isfinite(x) for x in values) or \
+            rows[-1]["loss"] >= rows[0]["loss"]:
+        raise AssertionError(f"{label}: a loss or grad norm is not finite, "
+                             f"or the loss did not fall")
+
+
+def _tokens_per_s(rows, batch: int) -> float:
+    """Tokens a second over the steps after the first (which pays the
+    allocator's and cuBLAS's first calls): the median step."""
+    walls = sorted(r["wall_ms"] for r in rows[1:])
+    return batch * TRAIN_SEQ / (walls[len(walls) // 2] / 1e3)
+
+
+def _state_reckoning(cfg) -> str:
+    """The training state's bytes from the parameter count: fp32 masters,
+    two fp32 moments, and the bf16 working copy and its gradients."""
+    from repro_torch.models import api
+
+    n = sum(p.numel() for p in api.family_module(cfg).init(
+        cfg, None, device="meta").parameters())
+    return (f"{n / 1e6:.1f} M parameters: masters {4 * n / 1e9:.2f} GB + "
+            f"moments {8 * n / 1e9:.2f} GB + bf16 working copy and gradients "
+            f"{4 * n / 1e9:.2f} GB = {16 * n / 1e9:.2f} GB")
+
+
+def train_mamba2(torch, np) -> dict:
+    """Phase 14 (b): Mamba2-370M at full width and depth, AdamW, through
+    ``train_loop.train``; one more step under ``torch.profiler``."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import ssm
+    from repro_torch.train import train_step as ts
+
+    cfg = dataclasses.replace(configs.get("mamba2_370m"), remat=MAMBA_REMAT)
+    b = MAMBA_TRAIN_BATCH
+    pick = ssm.select_ssd_mode(TRAIN_SEQ, cfg.ssm.d_state, cfg.ssm.head_dim,
+                               cfg.ssm.chunk, heads=cfg.ssm.n_heads)
+    print(f"phase 14 (b) mamba2 {b} x {TRAIN_SEQ} tokens a step, remat "
+          f"{cfg.remat!r}; select_ssd_mode picks {pick}; state reckoned: "
+          f"{_state_reckoning(cfg)}")
+    torch.cuda.reset_peak_memory_stats()
+    state, rows = _train(torch, cfg, b, MAMBA_TRAIN_STEPS, "(b) mamba2")
+    _falls(rows, "mamba2 AdamW")
+    peak = torch.cuda.max_memory_reserved()
+    batch = {k: torch.from_numpy(v).cuda() for k, v in SyntheticLM(
+        cfg.vocab, TRAIN_SEQ, b, seed=SEED).batch_at(MAMBA_TRAIN_STEPS)
+        .items()}
+    t0 = time.perf_counter()
+    profiled = device_time_by_op(
+        torch, "mamba2 train step", lambda: ts.train_step(
+            state, batch, cfg=cfg, peak_lr=TRAIN_LR, warmup=TRAIN_WARMUP,
+            total_steps=MAMBA_TRAIN_STEPS + 1), top=8, phase=14)
+    tps = _tokens_per_s(rows, b)
+    step_ms = b * TRAIN_SEQ / tps * 1e3
+    profiled["share_of_step"] = profiled["device_ms"] / step_ms
+    print(f"phase 14 (b) mamba2: {tps:.0f} tokens/s (median step "
+          f"{step_ms:.1f} ms; the profiled step's device time is "
+          f"{profiled['share_of_step']:.0%} of it; profiling took "
+          f"{time.perf_counter() - t0:.1f}s); peak reserved "
+          f"{peak / 1e9:.2f} GB; loss {rows[0]['loss']:.4f} -> "
+          f"{rows[-1]['loss']:.4f}")
+    return {"rows": rows, "tokens_per_s": tps, "peak_reserved_gb": peak / 1e9,
+            "remat": cfg.remat, "ssd_mode": pick, "profile": profiled}
+
+
+def train_mamba2_muon(torch, np) -> dict:
+    """Phase 14 (c): Mamba2-370M with Muon; ``plan_ns_mode``'s pick and the
+    FLOPs of one Newton–Schulz (5 iterations) per distinct matrix shape,
+    and the Newton–Schulz ms of each step (CUDA events around each call)."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.core.perfmodel import AnalyticalTPUProfile
+    from repro_torch.models import api
+    from repro_torch.optim import leaves, muon
+
+    cfg = dataclasses.replace(configs.get("mamba2_370m"), remat=MAMBA_REMAT)
+    params = dict(api.family_module(cfg).init(cfg, None, device="meta")
+                  .named_parameters())
+    shapes = {}
+    for names in muon.matrices(params).values():
+        shape = leaves.reference_shape(names[0], params[names[0]],
+                                       len(names))
+        shapes.setdefault(tuple(sorted(shape)), []).append(names[0])
+    picks = {}
+    for (m, k), names in sorted(shapes.items()):
+        pick = muon.plan_ns_mode(m, k)
+        flops = muon.NS_STEPS * sum(c.flops for c in muon.ns_algorithm_calls(
+            pick, m, k))
+        picks[f"{m}x{k}"] = pick
+        print(f"phase 14 (c) muon NS on {m} x {k} ({len(names)} leaves, e.g. "
+              f"{leaves.reference_name(names[0])}): plan_ns_mode picks {pick} "
+              f"(flops: {muon.plan_ns_mode(m, k, 'flops')}, TPU model: "
+              f"{muon.plan_ns_mode(m, k, profile=AnalyticalTPUProfile())}); "
+              f"{flops / 1e9:.3f} GFLOP a step")
+    events, ns_ms = [], []
+    real = muon.newton_schulz
+
+    def timed(x, *args, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real(x, *args, **kw)
+        end.record()
+        events.append((start, end))
+        return out
+
+    def ns_time(row):
+        torch.cuda.synchronize()
+        row["ns_ms"] = sum(a.elapsed_time(b) for a, b in events)
+        events.clear()
+        return f" (Newton-Schulz {row['ns_ms']:.2f} ms)"
+
+    muon.newton_schulz = timed
+    try:
+        _, rows = _train(torch, cfg, MAMBA_TRAIN_BATCH, MUON_TRAIN_STEPS,
+                         "(c) mamba2 muon", after_step=ns_time,
+                         optimizer="muon")
+    finally:
+        muon.newton_schulz = real
+    _falls(rows, "mamba2 Muon")
+    return {"rows": rows, "ns_picks": picks,
+            "tokens_per_s": _tokens_per_s(rows, MAMBA_TRAIN_BATCH)}
+
+
+def _bits_equal(torch, a, b) -> bool:
+    if isinstance(a, torch.Tensor):
+        return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+            a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+    return a == b
+
+
+_SAVED = re.compile(r"saved step (\d+): ([\d.]+) GB, host copy ([\d.]+) s, "
+                    r"write ([\d.]+) s")
+
+
+def crash_and_resume(torch, np) -> dict:
+    """Phase 14 (d): Mamba2-370M, RESUME_STEPS steps saving every
+    RESUME_SAVE_EVERY (keep 1), a crash at RESUME_FAIL_AT under
+    ``Supervisor(RestartPolicy(max_restarts=1))``; the last save read back
+    bit for bit; the resumed steps' losses and the final ``final_norm.g``
+    against an uninterrupted run (RESUME_TOL)."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.checkpoint import store
+    from repro_torch.runtime.supervisor import RestartPolicy, Supervisor
+    from repro_torch.train import train_step as ts
+
+    cfg = dataclasses.replace(configs.get("mamba2_370m"), remat=MAMBA_REMAT)
+    b = MAMBA_TRAIN_BATCH
+    ref, ref_rows = _train(torch, cfg, b, RESUME_STEPS, "(d) uninterrupted")
+    ref_g = ref.params["final_norm.g"].detach().clone()
+    del ref
+    release(torch)
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-ckpt-") as d:
+        sup = Supervisor(RestartPolicy(max_restarts=1, backoff_s=0.0))
+        lines, resumed = [], []
+
+        def run(attempt):
+            state, rows = _train(
+                torch, cfg, b, RESUME_STEPS, f"(d) attempt {attempt}",
+                lines=lines, ckpt_dir=d, save_every=RESUME_SAVE_EVERY,
+                keep=1, fail_at_step=RESUME_FAIL_AT if attempt == 0 else None)
+            resumed.extend(rows)     # the crashed attempt raised: not here
+            return state
+
+        try:
+            state = sup.run(run)
+        finally:
+            print(f"phase 14 (d) supervisor: restarts {sup.restarts}, "
+                  f"failures {[str(e) for e in sup.failures]}")
+        like = ts.checkpoint_tree(state)
+        back = store.restore(d, RESUME_STEPS, like)
+        differ = [name for (name, x), (_, y) in zip(store.leaf_paths(like),
+                                                    store.leaf_paths(back))
+                  if not _bits_equal(torch, x, y)]
+        on_disk = sorted(os.listdir(d))
+    saves = [tuple(float(x) for x in m.groups())
+             for m in map(_SAVED.search, lines) if m]
+    ref_by_step = {r["step"]: r["loss"] for r in ref_rows}
+    loss_ok = all(np.isclose(r["loss"], ref_by_step[r["step"]], **RESUME_TOL)
+                  for r in resumed)
+    g = state.params["final_norm.g"].detach()
+    g_err = float((g - ref_g).abs().max())
+    g_ok = bool(torch.allclose(g, ref_g, **RESUME_TOL))
+    bitwise = all(r["loss"] == ref_by_step[r["step"]] for r in resumed) and \
+        torch.equal(g, ref_g)
+    for step, gb, copy_s, write_s in saves:
+        print(f"phase 14 (d) save of step {step:.0f}: {gb:.3f} GB, host copy "
+              f"{copy_s:.3f} s + write {write_s:.3f} s = "
+              f"{gb / (copy_s + write_s):.2f} GB/s")
+    print(f"phase 14 (d) resume: restarts {sup.restarts}; resumed steps "
+          f"{[r['step'] for r in resumed]} losses vs uninterrupted "
+          f"{[(round(r['loss'], 6), round(ref_by_step[r['step']], 6)) for r in resumed]}"
+          f" {'ok' if loss_ok else 'FAIL'}; final_norm.g max|d| {g_err:.3e} "
+          f"{'ok' if g_ok else 'FAIL'} (rtol {RESUME_TOL['rtol']:g}, atol "
+          f"{RESUME_TOL['atol']:g}); bitwise repeat: {bitwise}; the save of "
+          f"step {RESUME_STEPS} read back: {len(differ)} leaves differ; "
+          f"left on disk {on_disk}")
+    if sup.restarts != 1 or differ or not loss_ok or not g_ok or \
+            [r["step"] for r in resumed] != list(range(RESUME_SAVE_EVERY,
+                                                       RESUME_STEPS)):
+        raise AssertionError("crash and resume: wrong restarts, a leaf read "
+                             "back differs, or the resumed run diverges")
+    return {"restarts": sup.restarts, "saves": saves, "bitwise": bitwise,
+            "final_norm_g_max_abs_diff": g_err}
+
+
+def train_zamba2(torch, np) -> dict:
+    """Phase 14 (e): Zamba2-1.2B at full width and depth, AdamW; the shared
+    block's attention takes the chunked path at every application."""
+    from repro_torch import configs
+    from repro_torch.models import attention, hybrid
+
+    cfg = configs.get("zamba2_1p2b")
+    b = ZAMBA_TRAIN_BATCH
+    print(f"phase 14 (e) zamba2 {b} x {TRAIN_SEQ} tokens a step, peak lr "
+          f"{ZAMBA_TRAIN_LR:g}, remat {cfg.remat!r}; state reckoned: "
+          f"{_state_reckoning(cfg)}")
+    calls = []
+    real = attention.chunked_attention
+    attention.chunked_attention = \
+        lambda *args, **kw: calls.append(1) or real(*args, **kw)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        _, rows = _train(torch, cfg, b, ZAMBA_TRAIN_STEPS, "(e) zamba2",
+                         lr=ZAMBA_TRAIN_LR)
+    finally:
+        attention.chunked_attention = real
+    _falls(rows, "zamba2 AdamW")
+    peak = torch.cuda.max_memory_reserved()
+    want = ZAMBA_TRAIN_STEPS * hybrid.n_shared_applications(cfg)
+    print(f"phase 14 (e) zamba2: {_tokens_per_s(rows, b):.0f} tokens/s; "
+          f"peak reserved {peak / 1e9:.2f} GB; chunked attention calls "
+          f"{len(calls)} (want {want}); loss {rows[0]['loss']:.4f} -> "
+          f"{rows[-1]['loss']:.4f}")
+    if len(calls) != want:
+        raise AssertionError("zamba2: the shared block missed the chunked "
+                             "attention")
+    return {"rows": rows, "peak_reserved_gb": peak / 1e9,
+            "tokens_per_s": _tokens_per_s(rows, b), "chunked_calls": len(calls)}
+
+
+def train_phase(torch, np) -> dict:
+    """Phase 14: training on the card, (a)–(e); no hand-kernel launch."""
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    before = dict(ops.launch_counts())
+    out = {"chunked": check_chunked(torch, np)}
+    release(torch)
+    for key, part in (("mamba2", train_mamba2),
+                      ("muon", train_mamba2_muon),
+                      ("resume", crash_and_resume),
+                      ("zamba2", train_zamba2)):
+        t1 = time.perf_counter()
+        out[key] = part(torch, np)
+        release(torch)
+        print(f"phase 14 {key}: {time.perf_counter() - t1:.1f}s")
+    after = dict(ops.launch_counts())
+    print(f"phase 14 kernel launches: before {before}, after {after}")
+    if after != before:
+        raise AssertionError("phase 14 launched a hand kernel: the training "
+                             "path must not reach one")
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 14 took {out['seconds']:.1f}s")
+    return out
+
+
 def memory_line(torch, phase: int) -> None:
     """The card's peak reserved memory since the start, after a phase."""
     print(f"device memory after phase {phase}: peak reserved "
@@ -2994,7 +3458,10 @@ def main() -> int:
     phase13 = serve_encdec_vlm(torch, np)
     launches["flash_attention"] += \
         phase13["internvl2"]["launches"]["flash_attention"]
+    release(torch)
     memory_line(torch, 13)
+    train_phase(torch, np)
+    memory_line(torch, 14)
 
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():

@@ -2,11 +2,14 @@
 
 Counterpart of the reference's ``models/api.py``. The dense, moe, ssm
 and vlm families run through :mod:`.transformer`, the hybrid family
-through :mod:`.hybrid`, the encdec family through :mod:`.encdec`. Every
-entry point runs without autograd. ``init`` builds the model on the card
-unless the caller passes ``device="cpu"``; without a card and without
-that argument it raises. The other entry points run where the model's
-parameters lie.
+through :mod:`.hybrid`, the encdec family through :mod:`.encdec`. The
+serving entry points (``init``, ``init_caches``, ``prefill``,
+``decode_step``) run without autograd; ``forward_train`` and ``loss_fn``
+record a graph for whatever requires a gradient (the train step's
+working copy of the parameters; a model's own parameters never do), so
+they serve training. ``init`` builds the model on the card unless the
+caller passes ``device="cpu"``; without a card and without that argument
+it raises. The other entry points run where the model's parameters lie.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from . import encdec, hybrid, transformer
@@ -59,7 +63,6 @@ def _prefix(model: nn.Module, cfg: ModelConfig, batch: Dict[str, Any]):
     return _embeds(model, batch.get("vision_embeds"))
 
 
-@torch.no_grad()
 def forward_train(model: nn.Module, cfg: ModelConfig,
                   batch: Dict[str, Any]) -> Tuple[torch.Tensor, torch.Tensor]:
     """batch → (logits fp32, aux_loss). batch["tokens"] is (B, S); encdec
@@ -73,6 +76,27 @@ def forward_train(model: nn.Module, cfg: ModelConfig,
         return hybrid.apply_train(model, cfg, tokens)
     return transformer.apply_train(model, cfg, tokens,
                                    prefix_embeds=_prefix(model, cfg, batch))
+
+
+def loss_fn(model: nn.Module, cfg: ModelConfig, batch: Dict[str, Any],
+            aux_weight: float = 0.01
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token cross-entropy (+ ``aux_weight`` × the MoE aux loss) →
+    (total, {"loss": cross-entropy, "aux": aux}). ``batch["labels"]``
+    (B, S); an optional ``batch["loss_mask"]`` (B, S) weighs the
+    positions; the vlm prefix positions carry no labels and are cut."""
+    logits, aux = forward_train(model, cfg, batch)
+    labels = _tokens(model, batch["labels"])
+    if logits.shape[1] != labels.shape[1]:
+        logits = logits[:, logits.shape[1] - labels.shape[1]:]
+    nll = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                          labels.reshape(-1), reduction="none"
+                          ).view(labels.shape)
+    mask = batch.get("loss_mask")
+    mask = torch.ones_like(nll) if mask is None else \
+        torch.as_tensor(mask, device=nll.device).to(nll.dtype)
+    ce = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return ce + aux_weight * aux, {"loss": ce, "aux": aux}
 
 
 @torch.no_grad()

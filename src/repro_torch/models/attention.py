@@ -1,13 +1,16 @@
 """GQA attention with full / flash / sliding-window variants + KV cache.
 
-Counterpart of the reference's ``models/attention.py`` for inference:
+Counterpart of the reference's ``models/attention.py``:
 
 * ``apply_train`` — full sequence, causal (or bidirectional); with
   ``differentiable=False`` (prefill) it runs the hand-written flash
   kernel when the sequence is a multiple of 128 and at least 256, else
-  masked dense attention — the reference's routing exactly. The chunked
-  attention with its custom VJP is the training path and is not ported
-  (ROADMAP A8): a differentiable call that would take it raises.
+  masked dense attention — the reference's routing exactly. A
+  differentiable call (training) takes :func:`chunked_attention`, the
+  blockwise scan with its own backward (``_ChunkedCore``), from
+  ``CHUNKED_THRESHOLD`` positions on (a multiple of 512), and masked
+  dense attention below. The flash kernel has no backward and is never on
+  the training path.
 * ``apply_prefill`` — the same forward, writing K/V into the cache.
 * ``apply_decode`` — one new token against the cache.
 * ``apply_cross`` / ``project_kv`` — cross-attention against an encoder's
@@ -103,6 +106,121 @@ def _dense_attention(cfg: AttnConfig, q, k, v) -> torch.Tensor:
     return torch.einsum("bhqk,bkhd->bqhd", p, vq)
 
 
+def _attn_mask(sq: int, block: int, start: int, causal: bool, window: int,
+               device) -> torch.Tensor:
+    """(Sq, block) visibility of keys start..start+block-1."""
+    qpos = torch.arange(sq, device=device)[:, None]
+    kpos = start + torch.arange(block, device=device)[None, :]
+    mask = torch.ones((sq, block), dtype=torch.bool, device=device)
+    if causal:
+        mask &= qpos >= kpos
+    if window > 0:
+        mask &= qpos - kpos < window
+    return mask
+
+
+def _chunked_forward(q, kq, vq, scale: float, causal: bool, window: int,
+                     logit_softcap: float, block: int):
+    """The online-softmax scan over key blocks: q (B,Sq,H,Dh), kq/vq
+    (B,Sk,H,Dh) → (out (B,H,Sq,Dh) fp32, lse (B,H,Sq)). A row whose keys
+    so far are all masked accumulates exp(0) terms that the first visible
+    key's rescaling (alpha = 0) wipes, as in the reference's scan."""
+    b, sq, h, dh = q.shape
+    qf = q.float().transpose(1, 2)                   # (B,H,Sq,Dh)
+    acc = torch.zeros((b, h, sq, dh), dtype=torch.float32, device=q.device)
+    m = torch.full((b, h, sq), -1e30, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, h, sq), dtype=torch.float32, device=q.device)
+    for start in range(0, kq.shape[1], block):
+        kblk = kq[:, start:start + block].float()
+        vblk = vq[:, start:start + block].float()
+        s = torch.einsum("bhqd,bkhd->bhqk", qf, kblk) * scale
+        s = softcap(s, logit_softcap)
+        mask = _attn_mask(sq, block, start, causal, window, q.device)
+        s = s.masked_fill(~mask, -1e30)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bhqk,bkhd->bhqd", p,
+                                                    vblk)
+        m = m_new
+    l = torch.clamp(l, min=1e-30)
+    return acc / l[..., None], m + torch.log(l)
+
+
+class _ChunkedCore(torch.autograd.Function):
+    """Flash-style attention with a hand-written backward, the reference's
+    ``_chunked_core`` custom VJP: the backward recomputes P blockwise from
+    (q, k, v, out, lse) instead of saving the S×S probabilities, so both
+    directions hold O(S·block) of them. Inputs are (B, S, H, Dh) with the
+    keys' heads already repeated to H; the output is in q's dtype."""
+
+    @staticmethod
+    def forward(ctx, q, kq, vq, scale, causal, window, logit_softcap, block):
+        out, lse = _chunked_forward(q, kq, vq, scale, causal, window,
+                                    logit_softcap, block)
+        ctx.save_for_backward(q, kq, vq, out, lse)
+        ctx.args = (scale, causal, window, logit_softcap, block)
+        return out.transpose(1, 2).to(q.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, kq, vq, out, lse = ctx.saved_tensors
+        scale, causal, window, cap, block = ctx.args
+        sq = q.shape[1]
+        qf = q.float().transpose(1, 2)               # (B,H,Sq,Dh)
+        gf = g.float().transpose(1, 2)
+        # D_i = Σ_d dout_i · out_i  (flash backward identity)
+        delta = (gf * out).sum(dim=-1)               # (B,H,Sq)
+        dq = torch.zeros_like(qf)
+        dks, dvs = [], []
+        for start in range(0, kq.shape[1], block):
+            kf = kq[:, start:start + block].float()
+            vf = vq[:, start:start + block].float()
+            s = torch.einsum("bhqd,bkhd->bhqk", qf, kf) * scale
+            if cap > 0:
+                t = torch.tanh(s / cap)
+                s = cap * t
+            mask = _attn_mask(sq, block, start, causal, window, q.device)
+            s = s.masked_fill(~mask, -1e30)
+            p = torch.exp(s - lse[..., None])        # (B,H,Sq,block)
+            dv = torch.einsum("bhqk,bhqd->bkhd", p, gf)
+            dp = torch.einsum("bhqd,bkhd->bhqk", gf, vf)
+            ds = p * (dp - delta[..., None])         # ∂L/∂(capped logits)
+            if cap > 0:
+                ds = ds * (1.0 - t * t)              # soft-cap chain rule
+            ds = ds * scale
+            dq = dq + torch.einsum("bhqk,bkhd->bhqd", ds, kf)
+            dk = torch.einsum("bhqk,bhqd->bkhd", ds, qf)
+            # Per-block dk/dv rounded to bf16, as the reference does (its
+            # partial sums cross the model axis under sequence
+            # parallelism, at half the width).
+            dks.append(dk.to(torch.bfloat16))
+            dvs.append(dv.to(torch.bfloat16))
+        dq = dq.transpose(1, 2).to(q.dtype)
+        dk = torch.cat(dks, dim=1).to(kq.dtype)
+        dv = torch.cat(dvs, dim=1).to(vq.dtype)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def chunked_attention(cfg: AttnConfig, q, k, v, block: int = 512
+                      ) -> torch.Tensor:
+    """Flash-style attention with its own backward (O(S·block) memory
+    forward and backward): q (B,Sq,H,Dh), k/v (B,Sk,Hkv,Dh) →
+    (B,Sq,H,Dh). GQA keys are repeated to H heads before the core, so
+    their gradient sums back through the repeat."""
+    sk = k.shape[1]
+    if sk % block:
+        raise ValueError(f"chunked attention: {sk} keys are not a multiple "
+                         f"of the block {block}")
+    group = q.shape[2] // k.shape[2]
+    scale = cfg.query_pre_scale or q.shape[-1] ** -0.5
+    kq = k.repeat_interleave(group, dim=2)
+    vq = v.repeat_interleave(group, dim=2)
+    return _ChunkedCore.apply(q, kq, vq, scale, cfg.causal, cfg.window,
+                              cfg.logit_softcap, block)
+
+
 # Sequence length above which training uses the chunked (flash-style)
 # attention instead of materializing the S×S logits.
 CHUNKED_THRESHOLD = 2048
@@ -134,10 +252,7 @@ def apply_train(p: Attention, cfg: AttnConfig, x: torch.Tensor,
             logit_softcap=cfg.logit_softcap, window=cfg.window,
         ).transpose(1, 2)
     elif s >= CHUNKED_THRESHOLD and s % 512 == 0:
-        raise NotImplementedError(
-            f"differentiable attention at S={s} takes the chunked path with "
-            f"its custom VJP, which comes with the training slice (ROADMAP "
-            f"A8); inference prefill passes differentiable=False")
+        out = chunked_attention(cfg, q, k, v)
     else:
         out = _dense_attention(cfg, q, k, v)
     out = out.reshape(b, s, cfg.n_heads * cfg.head_dim)

@@ -23,7 +23,7 @@ from torch import nn
 
 from . import attention, layers
 from .attention import KVCache
-from .transformer import ModelConfig, _logits, plan_kv
+from .transformer import ModelConfig, _logits, maybe_remat, plan_kv
 
 
 class EncDecCaches(NamedTuple):
@@ -124,16 +124,22 @@ def _decoder_block(bp: DecoderBlock, acfg, x: torch.Tensor, attend,
 def apply_train(model: EncDecLM, cfg: ModelConfig, tokens: torch.Tensor,
                 frames: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Teacher-forced forward: tokens (B, S_dec), frames (B, S_enc, d) →
-    (logits (B, S_dec, vocab) fp32, aux_loss = 0)."""
+    (logits (B, S_dec, vocab) fp32, aux_loss = 0). The decoder blocks are
+    checkpointed as ``cfg.remat`` says (the encoder is not, as in the
+    reference)."""
     enc = encode(model, cfg, frames)
     x = layers.embed(model.embed, tokens)
     rope = layers.rope_frequencies(cfg.head_dim, x.shape[1], cfg.rope_theta,
                                    device=x.device)
     acfg = cfg.attn_cfg
-    for bp in model.decoder:
+
+    def block(x, bp):
         ek, ev = attention.project_kv(bp.cross, acfg, enc)
-        x = _decoder_block(bp, acfg, x, lambda h, bp=bp: attention.apply_train(
+        return _decoder_block(bp, acfg, x, lambda h: attention.apply_train(
             bp.attn, acfg, h, rope=rope), ek, ev)
+
+    for bp in model.decoder:
+        x = maybe_remat(lambda x, bp=bp: block(x, bp), cfg.remat)(x)
     return _logits(cfg, model, x), torch.zeros((), dtype=torch.float32,
                                                 device=x.device)
 

@@ -23,7 +23,8 @@ from torch import nn
 from . import attention, layers, ssm as ssm_lib
 from .attention import KVCache
 from .ssm import SSMCache
-from .transformer import ModelConfig, SSMBlock, _logits, _ssm_block_apply
+from .transformer import (ModelConfig, SSMBlock, _logits,
+                          _ssm_block_apply, maybe_remat)
 
 
 class HybridCaches(NamedTuple):
@@ -90,7 +91,11 @@ def _shared_block_train(cfg: ModelConfig, sp: SharedBlock, x: torch.Tensor,
 
 def apply_train(model: HybridLM, cfg: ModelConfig, tokens: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens (B, S) → (logits (B, S, vocab) fp32, aux_loss = 0)."""
+    """tokens (B, S) → (logits (B, S, vocab) fp32, aux_loss = 0). The
+    Mamba2 blocks are checkpointed as ``cfg.remat`` says (the shared block
+    is not, as in the reference); the shared block's attention takes the
+    differentiable route, :func:`~repro_torch.models.attention.
+    chunked_attention` from ``CHUNKED_THRESHOLD`` positions on."""
     x = layers.embed(model.embed, tokens)
     s = x.shape[1]
     rope = layers.rope_frequencies(cfg.head_dim, s, cfg.rope_theta,
@@ -98,8 +103,9 @@ def apply_train(model: HybridLM, cfg: ModelConfig, tokens: torch.Tensor
 
     def mamba(x, i):
         bp = model.blocks[i]
-        return _ssm_block_apply(cfg, bp, x, lambda h: ssm_lib.apply_train(
-            bp.mixer, cfg.ssm, h))
+        return maybe_remat(lambda x: _ssm_block_apply(
+            cfg, bp, x, lambda h: ssm_lib.apply_train(bp.mixer, cfg.ssm, h)),
+            cfg.remat)(x)
 
     groups, rest = _groups(cfg)
     for group in groups:

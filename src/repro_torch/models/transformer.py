@@ -16,10 +16,12 @@ gemma2 grouping walks its local/global pairs.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from . import attention, layers, moe as moe_lib, ssm as ssm_lib
 from .attention import AttnConfig, KVCache
@@ -61,6 +63,9 @@ class ModelConfig:
     # vlm: precomputed vision embeddings before the tokens
     vision_tokens: int = 0
     max_seq: int = 131072
+    # activation rematerialization of the training path, per block:
+    # none | dots | full (:func:`maybe_remat`)
+    remat: str = "none"
 
     @property
     def padded_vocab(self) -> int:
@@ -276,9 +281,46 @@ def _logits(cfg: ModelConfig, model: DecoderLM,
         logits = layers.dense(model.lm_head, x)
     logits = layers.softcap(logits.float(), cfg.final_softcap)
     if cfg.padded_vocab != cfg.vocab:
-        # pad columns carry no probability mass
-        logits[..., cfg.vocab:] = -1e30
+        # pad columns carry no probability mass; out of place, so that a
+        # backward through the soft-cap's tanh (which saves its output)
+        # still works
+        pad = torch.arange(cfg.padded_vocab, device=logits.device) \
+            >= cfg.vocab
+        logits = logits.masked_fill(pad, -1e30)
     return logits
+
+
+#: The matrix products that ``remat="dots"`` keeps: the ATen ops that
+#: ``@``, ``einsum`` and ``F.linear`` dispatch to.
+_DOTS = frozenset({
+    torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+    torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default})
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def maybe_remat(fn: Callable, remat: str) -> Callable:
+    """Per-block activation checkpointing of the training path, the
+    reference's ``_maybe_remat``: ``none`` saves what autograd saves;
+    ``full`` keeps only the block's inputs and runs the block again in the
+    backward pass (``torch.utils.checkpoint``, non-reentrant); ``dots``
+    approximates ``jax.checkpoint_policies.checkpoint_dots`` with
+    selective checkpointing that saves the outputs of the matrix products
+    (``mm``, ``bmm``, ``addmm``, ``baddbmm``) and recomputes every other
+    op. Without autograd (serving) ``fn`` runs as it is."""
+    if remat not in ("none", "dots", "full"):
+        raise ValueError(f"remat must be none, dots or full, not {remat!r}")
+    if remat == "none" or not torch.is_grad_enabled():
+        return fn
+    if remat == "full":
+        return lambda *args: ckpt.checkpoint(fn, *args, use_reentrant=False)
+    context = functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                _save_dots)
+    return lambda *args: ckpt.checkpoint(fn, *args, use_reentrant=False,
+                                         context_fn=context)
 
 
 def apply_train(model: DecoderLM, cfg: ModelConfig, tokens: torch.Tensor,
@@ -286,9 +328,11 @@ def apply_train(model: DecoderLM, cfg: ModelConfig, tokens: torch.Tensor,
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens (B, S) → (logits (B, P + S, vocab) fp32, aux_loss summed
     over the MoE layers), P the length of ``prefix_embeds`` (B, P, d), 0
-    without. Forward only: attention runs as the reference's
-    differentiable route does (dense below the chunked threshold), the
-    SSM layers take ``ssm.ssd``'s selected algorithm."""
+    without. Attention takes the differentiable route (dense below the
+    chunked threshold, :func:`~repro_torch.models.attention.
+    chunked_attention` from it on), the SSM layers ``ssm.ssd``'s
+    selected algorithm; each block is checkpointed as ``cfg.remat``
+    says."""
     _check_family(cfg)
     x = _embed(cfg, model, tokens, prefix_embeds)
     s = x.shape[1]
@@ -296,13 +340,15 @@ def apply_train(model: DecoderLM, cfg: ModelConfig, tokens: torch.Tensor,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for bp, window in zip(model.blocks, cfg.layer_windows()):
         if cfg.family == "ssm":
-            x = _ssm_block_apply(cfg, bp, x, lambda h, bp=bp:
-                                 ssm_lib.apply_train(bp.mixer, cfg.ssm, h))
+            x = maybe_remat(lambda x, bp=bp: _ssm_block_apply(
+                cfg, bp, x, lambda h: ssm_lib.apply_train(bp.mixer, cfg.ssm,
+                                                          h)), cfg.remat)(x)
             continue
         acfg = cfg.attn_cfg._replace(window=window)
-        x, a = _block_apply(cfg, bp, x, lambda h, bp=bp, acfg=acfg:
-                            attention.apply_train(bp.attn, acfg, h,
-                                                  rope=rope))
+        x, a = maybe_remat(lambda x, bp=bp, acfg=acfg: _block_apply(
+            cfg, bp, x, lambda h: attention.apply_train(bp.attn, acfg, h,
+                                                        rope=rope)),
+            cfg.remat)(x)
         if a is not None:
             aux = aux + a
     return _logits(cfg, model, x), aux

@@ -1,7 +1,10 @@
-"""Runtime supervision of the port: the straggler monitor that
-``serve.decode.generate`` feeds, and the drainable background worker of
-the serving plan cache's refinement."""
+"""Runtime supervision of the port: the train loop's restart supervisor,
+the straggler monitor that the train loop and ``serve.decode.generate``
+feed, the heartbeat, and the drainable background worker of the serving
+plan cache's refinement."""
 
-from .supervisor import BackgroundWorker, StragglerMonitor
+from .supervisor import (BackgroundWorker, Heartbeat, RestartPolicy,
+                         StragglerMonitor, Supervisor)
 
-__all__ = ["BackgroundWorker", "StragglerMonitor"]
+__all__ = ["BackgroundWorker", "Heartbeat", "RestartPolicy",
+           "StragglerMonitor", "Supervisor"]

@@ -1,16 +1,72 @@
-"""Step-time watchdog and drainable background workers.
+"""Run supervision: bounded restarts, stragglers, heartbeats, background
+workers.
 
-Own copies of ``StragglerMonitor`` and ``BackgroundWorker`` from the
-reference's ``runtime/supervisor.py``: decode-step latency feeds a
-:class:`StragglerMonitor`, and the serving plan cache's refinement worker
-(:mod:`repro_torch.serve.plan_cache`) is a :class:`BackgroundWorker`. The
-supervisor's restart loop and heartbeat are not ported (ROADMAP A8).
+The port's copy of the reference's ``runtime/supervisor.py``:
+
+  * :class:`Supervisor` — ``run(fn)`` with bounded restarts and
+    exponential backoff (:class:`RestartPolicy`); the train loop restores
+    from its latest checkpoint on each attempt, so a restart loses at most
+    the steps since the last save.
+  * :class:`BackgroundWorker` — drainable daemon loop around a ``step()``
+    callable: the serving plan cache's refinement worker
+    (:mod:`repro_torch.serve.plan_cache`).
+  * :class:`StragglerMonitor` — EMA of step wall time; decode-step latency
+    and the train loop's step times feed one.
+  * :class:`Heartbeat` — a thread that records liveness timestamps, so a
+    test can assert the failure-detection contract (N missed beats →
+    declared dead).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import threading
+import time
 from typing import Any, Callable, List, Optional
+
+
+@dataclasses.dataclass
+class RestartPolicy:
+    max_restarts: int = 5
+    backoff_s: float = 1.0
+    backoff_mult: float = 2.0
+    max_backoff_s: float = 60.0
+
+
+class Supervisor:
+    def __init__(self, policy: Optional[RestartPolicy] = None,
+                 sleep=time.sleep):
+        self.policy = policy or RestartPolicy()
+        self.restarts = 0
+        self.failures: List[BaseException] = []
+        self._sleep = sleep
+
+    def run(self, fn: Callable[[int], Any]) -> Any:
+        """Run ``fn(attempt)`` until success or restart budget exhausted.
+
+        ``fn`` is expected to restore from the latest checkpoint itself
+        (the train loop does), so supervisor restarts lose at most the
+        steps since the last save.
+        """
+        backoff = self.policy.backoff_s
+        attempt = 0
+        while True:
+            try:
+                return fn(attempt)
+            except KeyboardInterrupt:
+                raise
+            except BaseException as e:
+                self.failures.append(e)
+                self.restarts += 1
+                if self.restarts > self.policy.max_restarts:
+                    raise RuntimeError(
+                        f"restart budget exhausted after "
+                        f"{self.policy.max_restarts} restarts"
+                    ) from e
+                self._sleep(backoff)
+                backoff = min(backoff * self.policy.backoff_mult,
+                              self.policy.max_backoff_s)
+                attempt += 1
 
 
 class BackgroundWorker:
@@ -127,3 +183,33 @@ class StragglerMonitor:
             # stragglers don't poison the EMA
             self.ema = (1 - self.alpha) * self.ema + self.alpha * wall_s
         return is_slow
+
+
+class Heartbeat:
+    """Liveness publisher + failure detector (local, test-oriented)."""
+
+    def __init__(self, interval_s: float = 1.0, miss_limit: int = 3):
+        self.interval = interval_s
+        self.miss_limit = miss_limit
+        self.last_beat: Optional[float] = None
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    def start(self) -> None:
+        def run():
+            while not self._stop.is_set():
+                self.last_beat = time.monotonic()
+                self._stop.wait(self.interval)
+        self._thread = threading.Thread(target=run, daemon=True)
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread:
+            self._thread.join(timeout=2.0)
+
+    def is_alive(self, now: Optional[float] = None) -> bool:
+        if self.last_beat is None:
+            return False
+        now = now if now is not None else time.monotonic()
+        return (now - self.last_beat) < self.interval * self.miss_limit

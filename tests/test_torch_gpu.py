@@ -32,6 +32,10 @@ pytestmark = pytest.mark.gpu
 
 TOL = dict(rtol=1e-4, atol=1e-3)
 CHAIN_TOL = dict(rtol=1e-4, atol=1e-2)
+#: The chunked backward's dk, dv on the card: their excess over half a
+#: bf16 ulp of the dense route's values, 3× the largest measured on an
+#: H100 (5.94e-8).
+CHUNKED_CARD_ATOL = 1.8e-7
 #: The kernels the algorithm backends dispatch to (flash attention serves
 #: the models).
 SWEEP_KERNELS = ("gemm", "syrk", "symm", "chain_gemm", "gemm_syrk")
@@ -1090,3 +1094,89 @@ def test_two_shard_blas_experiment1_on_the_cards_host(cuda, tmp_path):
             assert res.samples == 20
             drawn.append(sorted(r.point for r in atlas.records()))
     assert drawn[0] == drawn[1]
+
+
+# ------------------------------------------------------------ training ---
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window,hkv", [(0, 4), (300, 2)])
+def test_chunked_core_on_the_card_matches_dense_autograd(cuda, dtype, window,
+                                                         hkv):
+    """``_ChunkedCore`` forward and backward on the card against autograd
+    through the dense attention (the plain version): float32 out and dq
+    at 1e-4 of the largest value, dk and dv (rounded to bf16 per key
+    block) element by element within half a bf16 ulp of the summed query
+    heads' dense values plus CHUNKED_CARD_ATOL; bf16 at 2**-6 of the
+    largest value, as the flash kernel is held; no kernel launch."""
+    from repro_torch.models import attention
+
+    cfg = attention.AttnConfig(d_model=256, n_heads=4, n_kv_heads=hkv,
+                               head_dim=64, window=window)
+    rng = np.random.default_rng(0)
+    shapes = ((1, 2048, 4, 64), (1, 2048, hkv, 64), (1, 2048, hkv, 64),
+              (1, 2048, 4, 64))
+    q, k, v, g = (torch.tensor(rng.standard_normal(s).astype(np.float32),
+                               device=cuda, dtype=getattr(torch, dtype))
+                  for s in shapes)
+    group = 4 // hkv
+    mha = cfg._replace(n_kv_heads=4)
+    ops.reset_launch_counts()
+    results = []
+    for fn, c, kv in (
+            (attention.chunked_attention, cfg, (k, v)),
+            (attention._dense_attention, cfg, (k, v)),
+            (attention._dense_attention, mha,
+             [t.repeat_interleave(group, dim=2) for t in (k, v)])):
+        qs, ks, vs = (t.detach().clone().requires_grad_(True)
+                      for t in (q, *kv))
+        out = fn(c, qs, ks, vs)
+        out.backward(g)
+        results.append([t.detach().float() for t in (out, qs.grad, ks.grad,
+                                            vs.grad)])
+    assert not any(ops.launch_counts().values())
+    got, want, heads = results
+    for i in range(4):
+        err = (got[i] - want[i]).abs()
+        if dtype == "bfloat16" or i < 2:
+            limit = 2 ** -6 if dtype == "bfloat16" else 1e-4
+            assert float(err.max()) <= limit * float(want[i].abs().max()), i
+            continue
+        magnitude = heads[i].abs().unflatten(2, (hkv, group)).sum(3)
+        excess = float((err - 2 ** -8 * magnitude).max())
+        print(f"chunked {dtype} window {window} hkv {hkv}: "
+              f"{'dk dv'.split()[i - 2]} over half a bf16 ulp {excess:.3e}")
+        assert excess <= CHUNKED_CARD_ATOL, (i, excess)
+
+
+def test_mamba2_smoke_train_step_on_the_card_matches_the_cpu(cuda):
+    """Three float32 train steps of the mamba2 smoke config (AdamW) from the
+    same weights on the card and on the CPU: the losses at rtol 1e-4 and
+    the masters' distance over their update at 1e-2 (Adam's first step
+    normalizes each gradient; the card sums in another order)."""
+    from repro_torch import configs
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.train import train_step as ts
+
+    cfg = configs.get_smoke("mamba2_370m")
+    src = SyntheticLM(cfg.vocab, 64, 4, seed=0)
+    runs = []
+    for device in ("cpu", cuda):
+        state = ts.make_train_state(cfg, seed=0, device="cpu")
+        state.model.to(device)
+        state = state._replace(params=dict(state.model.named_parameters()),
+                               opt=ts.adamw.init(
+                                   dict(state.model.named_parameters())))
+        start = {n: p.detach().cpu().clone() for n, p in state.params.items()}
+        losses = []
+        for step in range(3):
+            state, m = ts.train_step(state, src.batch_at(step), cfg=cfg,
+                                     peak_lr=1e-3, warmup=0, total_steps=10,
+                                     compute_dtype=torch.float32)
+            losses.append(float(m["loss"]))
+        runs.append((losses, {n: p.detach().cpu()
+                              for n, p in state.params.items()}))
+    (cpu_losses, cpu), (card_losses, card) = runs
+    np.testing.assert_allclose(card_losses, cpu_losses, rtol=1e-4)
+    num = sum(float((card[n] - cpu[n]).norm()) ** 2 for n in cpu)
+    den = sum(float((cpu[n] - start[n]).norm()) ** 2 for n in cpu)
+    assert (num / den) ** 0.5 <= 1e-2

@@ -262,13 +262,24 @@ def test_attention_apply_train_routes_like_reference(
     np.testing.assert_allclose(v.numpy(), _np(jv), **TOL)
 
 
-def test_differentiable_chunked_route_is_not_ported(smoke_models):
-    acfg, _, p, _, cfg = _attention_pair(smoke_models, "yi_9b", 0)
-    x = torch.zeros(1, 2048, cfg.d_model)
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        attention.apply_train(p, acfg, x)
-    assert attention.apply_train(p, acfg, x, differentiable=False).shape \
-        == x.shape
+def test_differentiable_chunked_route_is_not_ported(smoke_models,
+                                                   monkeypatch):
+    """Differentiable attention at S = 2048 takes the chunked route (no
+    flash call), as the reference does, and agrees with it; prefill still
+    takes flash. The name dates from when the route raised here (it had
+    not been ported); it is kept so that the test's history reads on."""
+    acfg, jacfg, p, jp, cfg = _attention_pair(smoke_models, "yi_9b", 0)
+    x = _rand(np.random.default_rng(7), 1, 2048, cfg.d_model)
+    calls = []
+    real = ops.flash_attention
+    monkeypatch.setattr(attention.kops, "flash_attention",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    got = attention.apply_train(p, acfg, torch.from_numpy(x))
+    want = jattention.apply_train(jp, jacfg, jnp.asarray(x))
+    assert calls == []
+    np.testing.assert_allclose(got.numpy(), _np(want), **TOL)
+    attention.apply_train(p, acfg, torch.from_numpy(x), differentiable=False)
+    assert calls == [1]
 
 
 def test_pv_wo_output_matches_reference_repeat(smoke_models):
