@@ -39,6 +39,14 @@ Each measurement is one JSON line holding the tree's ``label``:
   unfused ``ops.syrk(ops.gemm(A, B))``, and on a tree with
   ``gemm_syrk_config`` every chunk width and cluster size, back to back;
 * ``flash``: the bf16 kernel at one Yi-9B prefill layer beside SDPA;
+* ``models`` (only when named): ``chip_smoke.py``'s phase 7 (Yi-9B
+  prefill ms and decode ms/token), phases 11 and 13 (each family's
+  decode ms/token) and phase 14 (b) (Mamba2-370M's AdamW steps, the
+  median step ms and tokens/s) on the tree's package: what a change to
+  the model code costs the unsharded paths;
+* ``encdec_vlm`` (only when named): phase 13 alone (InternVL2-76B's and
+  whisper-tiny's decode ms/token), short enough to alternate the trees
+  many times where those two vary from run to run;
 * ``algorithms``: every algorithm of ``aatb`` at every point of
   {400, 800, 1200}³ on the ``cuda`` backend (``chip_smoke.time_algorithms``):
   its eager time, its ``time_algorithm`` time (one replayed CUDA graph on
@@ -48,6 +56,8 @@ Each measurement is one JSON line holding the tree's ``label``:
 ``--sections`` names the sections to time (all by default)::
 
     python3 ab_bench.py --src src --label change --sections syrk gemm_syrk
+    python3 ab_bench.py --src src --label change --sections models
+    python3 ab_bench.py --src src --label change --sections encdec_vlm
 
 ``--symm-variant`` times instead the design ``csrc/symm.cu`` replaced,
 rebuilt from the tree's sources with :data:`RUNTIME_MODE_PATCH`, beside
@@ -89,7 +99,9 @@ SPLITS = (1, 2, 3, 4, 6, 8)
 HOST_CALLS = 200
 #: Sections of a timing run, in the order they run.
 SECTIONS = ("case", "gemm", "symm", "chain", "syrk", "gemm_syrk", "flash",
-            "algorithms")
+            "algorithms", "models", "encdec_vlm")
+#: The sections a run times unless ``--sections`` names others.
+DEFAULT_SECTIONS = SECTIONS[:-2]
 #: The chain's ``ms_b2b`` over its two GEMMs' above which a sweep shape
 #: counts as slow (the acceptance bound at the main-path shape).
 CHAIN_SLOW = 1.15
@@ -198,7 +210,8 @@ def main() -> int:
     ap.add_argument("--symm-variant", action="store_true",
                     help="time the tree's SYMM beside RUNTIME_MODE_PATCH's")
     ap.add_argument("--sections", nargs="+", choices=SECTIONS,
-                    default=list(SECTIONS), help="the sections to time")
+                    default=list(DEFAULT_SECTIONS),
+                    help="the sections to time")
     args = ap.parse_args()
     # The named tree's package, not the one beside chip_smoke.py.
     sys.path.insert(0, str(Path(args.src).resolve()))
@@ -260,6 +273,31 @@ def main() -> int:
                                                   label=f"[{label}] "):
                 print(json.dumps({"algorithms": "aatb", "label": label,
                                   **row}))
+    if "models" in sections:
+        served = chip_smoke.serve_model(torch, np)
+        chip_smoke.release(torch)
+        families = chip_smoke.serve_families(torch, np)
+        chip_smoke.release(torch)
+        encdec_vlm = chip_smoke.serve_encdec_vlm(torch, np)
+        chip_smoke.release(torch)
+        trained = chip_smoke.train_mamba2(torch, np)
+        walls = sorted(r["wall_ms"] for r in trained["rows"][1:])
+        print(json.dumps({
+            "models": "phases 7, 11, 13 serve, phase 14 (b) mamba2 train",
+            "label": label, "prefill_ms": served["prefill_ms"],
+            "decode_ms_per_token": served["decode_ms_per_token"],
+            **{f"{name}_decode_ms_per_token": part["decode_ms_per_token"]
+               for name, part in (*families.items(), *encdec_vlm.items())
+               if isinstance(part, dict) and "decode_ms_per_token" in part},
+            "mamba2_median_step_ms": walls[len(walls) // 2],
+            "mamba2_tokens_per_s": trained["tokens_per_s"]}))
+    if "encdec_vlm" in sections:
+        parts = chip_smoke.serve_encdec_vlm(torch, np)
+        print(json.dumps({
+            "encdec_vlm": "phase 13 serve", "label": label,
+            **{f"{name}_decode_ms_per_token": part["decode_ms_per_token"]
+               for name, part in parts.items()
+               if isinstance(part, dict) and "decode_ms_per_token" in part}}))
     return 0
 
 

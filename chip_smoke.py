@@ -160,7 +160,32 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    losses and final ``final_norm.g`` against an uninterrupted run;
    (e) Zamba2-1.2B at full width and depth, 1 × 2048 tokens, 4 AdamW
    steps at the reference launcher's default peak lr (3e-4), its shared
-   block through the chunked attention at every application.
+   block through the chunked attention at every application;
+15. distribution, on a mesh of this one card and on fake process groups:
+   (a) an NCCL world of one and ``make_host_mesh(model=1)``: Yi-9B at
+   full width and depth in bf16 (phase 7's weights) first unsharded, then
+   distributed by ``launch.specs.shard_model`` under
+   ``activation_sharding``: prefill 2 × 2048 (flash exactly 48 launches,
+   each on a rank's local heads) and 32 greedy tokens, the sharded tokens
+   identical to the unsharded ones and the logits within
+   :data:`DECODE_LOGIT_TOL`, prefill ms and ms/token both ways;
+   (b) Mamba2-370M at full width, 2 × 2048 tokens, 4 AdamW steps through
+   ``train_loop.train(mesh=...)``: the losses within
+   :data:`SHARDED_LOSS_RTOL` of phase 14 (b)'s first four, step ms beside
+   phase 14's, and the loop's checkpoint (specs and ``mesh_shape`` in its
+   manifest) read back bit for bit; then the group is destroyed;
+   (c) the dry-run, one process per cell on the host (started once (b)
+   has destroyed its group, so that no tracing loads the host while (a)
+   and (b) are timed): Yi-9B train_4k, prefill_32k and
+   decode_32k, OLMoE-1B-7B and Arctic-480B train_4k on the (16, 16) mesh
+   and Mamba2-370M train_4k on (2, 16, 16), each on a fake process group
+   of 256 or 512 ranks: per-device peak bytes, FLOPs, collective bytes by
+   kind, the roofline terms with the H100's figures, the bottleneck and
+   the roofline fraction; the state's local bytes must equal those the
+   specs give, and any cell's error fails the phase.
+
+Multi-card runs are not made: NCCL refuses two ranks on one card, so the
+layouts across ranks are checked by the gloo tests and the dry-run.
 
 The compiler's report must show no spills in any SYRK or GEMM+SYRK
 instance. The last two lines are the card's ``nvidia-smi`` name/power
@@ -2065,8 +2090,13 @@ def device_busy_ms(events) -> float:
     the kernels it launched, and a ``record_function`` range's device-side
     annotation spans them: those kernels' own entries already count it."""
     return sum(_device_us(e) for e in events
-               if str(getattr(e, "device_type", "")).endswith("CUDA")
+               if _on_device(e)
                and not getattr(e, "is_user_annotation", False)) / 1e3
+
+
+def _on_device(event) -> bool:
+    """Whether a profile entry is the device's own (a kernel, a memcpy)."""
+    return str(getattr(event, "device_type", "")).endswith("CUDA")
 
 
 def device_time_by_op(torch, label: str, fn, top: int = 6,
@@ -2085,8 +2115,10 @@ def device_time_by_op(torch, label: str, fn, top: int = 6,
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
+    # a hand kernel by its own entry (a custom operator's host entry
+    # would count the same kernel twice)
     ops_ = [e for e in events if e.key.startswith("aten::") or
-            "repro_" in e.key]
+            ("repro_" in e.key and _on_device(e))]
     device_ms = device_busy_ms(events)
     ranked = sorted(ops_, key=_device_us, reverse=True)[:top]
     print(f"phase {phase} profile {label}: wall {wall_ms:.1f} ms, device "
@@ -3071,7 +3103,8 @@ def _chunked_report(dtype: str, errs) -> str:
 
 
 def _train(torch, cfg, batch: int, steps: int, label: str,
-           after_step=None, lines=None, lr: float = TRAIN_LR, **kw):
+           after_step=None, lines=None, lr: float = TRAIN_LR,
+           phase: int = 14, **kw):
     """``train_loop.train`` on the card; prints each step (with what
     ``after_step(row)`` adds to its row) and the loop's own lines
     (restores, saves), which it appends to ``lines`` → (state, step
@@ -3085,14 +3118,15 @@ def _train(torch, cfg, batch: int, steps: int, label: str,
     def on_step(step, metrics, wall):
         rows.append(dict(step=step, wall_ms=wall * 1e3, **metrics))
         extra = after_step(rows[-1]) if after_step else ""
-        print(f"phase 14 {label} step {step}: loss {metrics['loss']:.4f} "
+        print(f"phase {phase} {label} step {step}: loss "
+              f"{metrics['loss']:.4f} "
               f"lr {metrics['lr']:.3e} grad_norm {metrics['grad_norm']:.4f} "
               f"{wall * 1e3:.1f} ms{extra}")
 
     def log(msg):
         lines.append(msg)
         if not msg.startswith("[train] step="):
-            print(f"phase 14 {label} {msg}")
+            print(f"phase {phase} {label} {msg}")
 
     source = SyntheticLM(cfg.vocab, TRAIN_SEQ, batch, seed=SEED)
     state = train_loop.train(cfg, source, steps, peak_lr=lr,
@@ -3379,6 +3413,243 @@ def train_phase(torch, np) -> dict:
     return out
 
 
+#: Phase 15: decode tokens of the sharded Yi-9B (a), AdamW steps of the
+#: sharded Mamba2-370M (b), whose losses must stay within
+#: SHARDED_LOSS_RTOL (2⁻⁶) of phase 14 (b)'s first four (the same
+#: weights, data and lr; bf16 products in another order), and the dry-run
+#: cells (c) with their time limit.
+SHARD_NEW = 32
+SHARD_TRAIN_STEPS = 4
+SHARDED_LOSS_RTOL = 2 ** -6
+DRYRUN_CELLS = (("yi_9b", "train_4k", False), ("yi_9b", "prefill_32k", False),
+                ("yi_9b", "decode_32k", False),
+                ("olmoe_1b_7b", "train_4k", False),
+                ("arctic_480b", "train_4k", False),
+                ("mamba2_370m", "train_4k", True))
+DRYRUN_TIMEOUT_S = 480
+
+
+def start_dryrun(out_dir: Path) -> list:
+    """Phase 15 (c): one dry-run process per cell, all started together,
+    each on its own fake process group; → [(cell, process, output
+    file)]."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    procs = []
+    for arch, shape, multi_pod in DRYRUN_CELLS:
+        out = out_dir / f"{arch}-{shape}-{int(multi_pod)}.json"
+        log = open(out.with_suffix(".log"), "w")
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+               "--arch", arch, "--shape", shape,
+               "--multi-pod", "on" if multi_pod else "off",
+               "--out", str(out)]
+        procs.append(((arch, shape, multi_pod), subprocess.Popen(
+            cmd, env=env, cwd=ROOT, stdout=log, stderr=subprocess.STDOUT),
+            out))
+    return procs
+
+
+def finish_dryrun(procs, smi: str) -> list:
+    """Wait for the dry-run cells (killing any still running at the time
+    limit), print each and gate: no error, the state's local bytes those
+    of the specs."""
+    deadline = time.perf_counter() + DRYRUN_TIMEOUT_S
+    cells, failed = [], []
+    for (arch, shape, multi_pod), proc, out in procs:
+        try:
+            rc = proc.wait(timeout=max(1.0, deadline - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            rc = "timeout"
+        tag = f"{arch} x {shape} x {'2x16x16' if multi_pod else '16x16'}"
+        if rc != 0 or not out.exists():
+            tail = out.with_suffix(".log").read_text()[-1500:]
+            print(f"phase 15 (c) dry-run {tag}: exit {rc}\n{tail}")
+            failed.append(tag)
+            continue
+        (r,) = json.loads(out.read_text())
+        b = r["bytes_per_device"]
+        coll = {k: r["collectives"]["bytes"][k]
+                for k in sorted(r["collectives"]["bytes"])}
+        print(f"phase 15 (c) dry-run {tag} ({smi}; traced on the host in "
+              f"{r['trace_s']} s, policy {r['policy']}): per device peak "
+              f"{b['peak_est'] / 2 ** 30:.2f} GiB (state "
+              f"{b['state'] / 2 ** 30:.2f}, inputs "
+              f"{b['inputs'] / 2 ** 30:.2f}, activations "
+              f"{b['activation_peak'] / 2 ** 30:.2f}), "
+              f"{r['flops_per_device']:.4e} FLOPs, "
+              f"{r['op_bytes_per_device']:.4e} op bytes (unfused), "
+              f"collective bytes {coll}; t_compute "
+              f"{r['t_compute'] * 1e3:.3f} ms, t_memory "
+              f"{r['t_memory'] * 1e3:.3f} ms, t_collective "
+              f"{r['t_collective'] * 1e3:.3f} ms (989e12 FLOP/s, 3.35e12 "
+              f"B/s, link {r['link_bw']:.3g} B/s) -> {r['bottleneck']}, "
+              f"roofline fraction {r['roofline_fraction']:.4%}, model "
+              f"flops ratio {r['model_flops_ratio']:.4f}")
+        if b["state"] != b["state_from_specs"]:
+            print(f"phase 15 (c) {tag}: state {b['state']} bytes, the "
+                  f"specs give {b['state_from_specs']}")
+            failed.append(tag)
+        cells.append(r)
+    if failed:
+        raise AssertionError(f"phase 15 (c): dry-run cells failed: {failed}")
+    return cells
+
+
+def serve_sharded(torch, np) -> dict:
+    """Phase 15 (a): Yi-9B unsharded, then on the (1, 1) mesh of an NCCL
+    world of one; the same prompt, prefill and greedy tokens."""
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as flash_mod
+    from repro_torch.kernels import ops
+    from repro_torch.launch import specs
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import api
+    from repro_torch.sharding.context import activation_sharding, \
+        shard_batch
+
+    cfg = configs.get("yi_9b")
+    model = api.init(cfg, seed=SEED, device="cuda", dtype=torch.bfloat16)
+    b, s0, n_new = SERVE_BATCH, SERVE_PROMPT, SHARD_NEW
+    max_s = s0 + n_new
+    rng = np.random.default_rng(SEED)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (b, s0))).cuda()
+
+    def run(tokens):
+        api.prefill(model, cfg, {"tokens": tokens}, init())   # warm-up
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        logits, caches, prefill_ms, flash_ms, n_flash = timed_prefill(
+            torch, api, model, cfg, tokens, init())
+        launches = ops.launch_counts()["flash_attention"]
+        dec, generated, _, ms = greedy_decode(torch, api, model, cfg, logits,
+                                              caches, n_new)
+        return dec, generated, prefill_ms, ms, launches, n_flash
+
+    init = lambda: api.init_caches(model, cfg, b, max_s)    # noqa: E731
+    dec_u, gen_u, prefill_u, ms_u, flash_u, _ = run(prompt)
+
+    torch.distributed.init_process_group(
+        "nccl", store=torch.distributed.HashStore(), rank=0, world_size=1)
+    mesh = make_host_mesh(model=1)
+    specs.shard_model(model, cfg, mesh)
+    sharded_calls = []
+    entry = flash_mod.flash_attention_sharded
+
+    def counted(*args, **kw):
+        sharded_calls.append(1)
+        return entry(*args, **kw)
+
+    flash_mod.flash_attention_sharded = counted
+    try:
+        with activation_sharding(mesh):
+            init = lambda: specs.shard_caches(                # noqa: E731
+                cfg, api.init_caches(model, cfg, b, max_s), mesh)
+            sharded_calls.clear()
+            dec_s, gen_s, prefill_s, ms_s, flash_s, n_flash = run(
+                shard_batch(prompt))
+    finally:
+        flash_mod.flash_attention_sharded = entry
+    dec_s, gen_s = dec_s.full_tensor(), gen_s.full_tensor()
+    err = float((dec_s.float() - dec_u.float()).abs().max())
+    same = bool(torch.equal(gen_s, gen_u))
+    # the warm-up prefill took the sharded entry once a layer too
+    sharded = len(sharded_calls) - cfg.n_layers
+    print(f"phase 15 (a) yi-9b on mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))} "
+          f"(NCCL world of 1): prefill {b}x{s0} {prefill_s:.1f} ms sharded "
+          f"vs {prefill_u:.1f} ms unsharded; flash launches {flash_s} "
+          f"({sharded} through the sharded entry, on local shards; "
+          f"unsharded {flash_u}); decode {n_new} tokens {ms_s:.2f} vs "
+          f"{ms_u:.2f} ms/token (DTensor's host cost); tokens identical: "
+          f"{same}; decode logits max|d| {err:.4f} (tol {DECODE_LOGIT_TOL})")
+    if flash_s != cfg.n_layers or sharded != cfg.n_layers or \
+            n_flash != cfg.n_layers:
+        raise AssertionError("phase 15 (a): the sharded prefill did not "
+                             "launch flash once a layer on local shards")
+    if not same or not err <= DECODE_LOGIT_TOL or \
+            not bool(torch.isfinite(dec_s).all()):
+        raise AssertionError("phase 15 (a): sharded decode differs")
+    return {"mesh": mesh, "prefill_ms": prefill_s,
+            "prefill_ms_unsharded": prefill_u, "decode_ms": ms_s,
+            "decode_ms_unsharded": ms_u, "flash_launches": flash_s,
+            "max_abs_logit_diff": err}
+
+
+def train_sharded(torch, np, mesh, phase14: dict) -> dict:
+    """Phase 15 (b): Mamba2-370M, 4 AdamW steps on ``mesh`` through
+    ``train_loop.train``, against phase 14 (b)'s first four; its last
+    save read back bit for bit."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.checkpoint import store
+    from repro_torch.train.train_step import checkpoint_tree
+
+    cfg = dataclasses.replace(configs.get("mamba2_370m"), remat=MAMBA_REMAT)
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-sharded-") as d:
+        state, rows = _train(torch, cfg, MAMBA_TRAIN_BATCH,
+                             SHARD_TRAIN_STEPS, "(b) mamba2 sharded",
+                             phase=15, mesh=mesh, ckpt_dir=d,
+                             save_every=SHARD_TRAIN_STEPS)
+        manifest = json.loads((Path(d) / f"step_{SHARD_TRAIN_STEPS}" /
+                               "manifest.json").read_text())
+        tree = checkpoint_tree(state)
+        back = store.restore(d, SHARD_TRAIN_STEPS, tree, mesh=mesh)
+        same = all(
+            _bits_equal(torch, a.full_tensor(), b.full_tensor())
+            for (_, a), (_, b) in zip(store.leaf_paths(tree),
+                                      store.leaf_paths(back))
+            if isinstance(a, torch.Tensor))
+    specs = [e["spec"] for e in manifest["leaves"] if "spec" in e]
+    ref = phase14["mamba2"]["rows"][:SHARD_TRAIN_STEPS]
+    gaps = [abs(r["loss"] - q["loss"]) / abs(q["loss"])
+            for r, q in zip(rows, ref)]
+    walls = sorted(r["wall_ms"] for r in rows[1:])
+    ref_walls = sorted(r["wall_ms"] for r in phase14["mamba2"]["rows"][1:])
+    print(f"phase 15 (b) mamba2 sharded: losses "
+          f"{[round(r['loss'], 4) for r in rows]} vs phase 14 "
+          f"{[round(q['loss'], 4) for q in ref]} (largest relative gap "
+          f"{max(gaps):.3e}, limit {SHARDED_LOSS_RTOL:.3e}); median step "
+          f"{walls[len(walls) // 2]:.1f} ms vs phase 14's "
+          f"{ref_walls[len(ref_walls) // 2]:.1f} ms; checkpoint mesh_shape "
+          f"{manifest['mesh_shape']}, {sum(1 for x in specs if x is not None)}"
+          f" of {len(specs)} leaves with a spec, read back bit for bit: "
+          f"{same}")
+    if max(gaps) > SHARDED_LOSS_RTOL or not same or \
+            manifest["mesh_shape"] != {"data": 1, "model": 1} or \
+            not any(x is not None for x in specs):
+        raise AssertionError("phase 15 (b): sharded training differs")
+    return {"rows": rows, "gaps": gaps, "median_step_ms":
+            walls[len(walls) // 2]}
+
+
+def distribution_phase(torch, np, phase14: dict, smi: str) -> dict:
+    """Phase 15: (a) and (b) on the card's mesh of one, (c) on the host."""
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    try:
+        out = {"serve": serve_sharded(torch, np)}
+        launches = dict(ops.launch_counts())
+        release(torch)
+        out["train"] = train_sharded(torch, np, out["serve"]["mesh"],
+                                     phase14)
+        if ops.launch_counts() != launches:
+            raise AssertionError("phase 15 (b) launched a hand kernel")
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+        release(torch)
+    # (a) and (b) are host-bound: the dry-run's processes start after them
+    t1 = time.perf_counter()
+    out_dir = Path(tempfile.mkdtemp(prefix="chip-smoke-dryrun-"))
+    out["dryrun"] = finish_dryrun(start_dryrun(out_dir), smi)
+    print(f"phase 15 (c) took {time.perf_counter() - t1:.1f}s; phase 15 "
+          f"took {time.perf_counter() - t0:.1f}s")
+    return out
+
+
 def memory_line(torch, phase: int) -> None:
     """The card's peak reserved memory since the start, after a phase."""
     print(f"device memory after phase {phase}: peak reserved "
@@ -3460,8 +3731,11 @@ def main() -> int:
         phase13["internvl2"]["launches"]["flash_attention"]
     release(torch)
     memory_line(torch, 13)
-    train_phase(torch, np)
+    phase14 = train_phase(torch, np)
     memory_line(torch, 14)
+    phase15 = distribution_phase(torch, np, phase14, smi)
+    launches["flash_attention"] += phase15["serve"]["flash_launches"]
+    memory_line(torch, 15)
 
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
@@ -3500,6 +3774,10 @@ def main() -> int:
         "launches_internvl2": phase13["internvl2"]["launches"][
             "flash_attention"],
         "launches_shape_check": flash["check_launches"]}
+    next(k for k in kernels if k["name"] == "flash_attention")["phase15"] = {
+        "launches_yi9b_sharded_prefill": phase15["serve"]["flash_launches"],
+        "sharded_prefill_ms": phase15["serve"]["prefill_ms"],
+        "unsharded_prefill_ms": phase15["serve"]["prefill_ms_unsharded"]}
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

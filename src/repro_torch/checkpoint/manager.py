@@ -10,6 +10,10 @@ The reference's ``checkpoint/manager.py`` over :mod:`.store`:
     the host copy, seconds of the write).
   * **Retention** — keep the newest ``keep`` checkpoints (and, with
     ``keep_every``, every multiple of it forever).
+  * **Sharded state** — DTensor leaves are gathered on every rank, one
+    leaf at a time to the host, and rank 0 writes them with their specs
+    (:func:`.store.gather`); with a ``mesh`` ``wait()`` ends at a
+    barrier, so no rank reads a checkpoint before it is complete.
   * **Preemption** — ``install_sigterm_hook`` makes SIGTERM set
     ``preempted``; the train loop then saves and exits at the next step
     boundary, and puts the previous handler back when it returns.
@@ -25,22 +29,20 @@ import time
 from typing import Any, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from . import store
 
 
-def host_copy(tree: Any) -> Any:
-    """``tree`` with every tensor copied to the host (a CPU tensor too:
-    the caller goes on updating its own in place)."""
-    return store.map_leaves(
-        lambda _, x: x.detach().to("cpu", copy=True)
-        if isinstance(x, torch.Tensor) else x, tree)
+def _distributed() -> bool:
+    return dist.is_initialized() and dist.get_world_size() > 1
 
 
 class CheckpointManager:
     def __init__(self, directory: str, keep: int = 3,
-                 keep_every: Optional[int] = None):
+                 keep_every: Optional[int] = None, mesh=None):
         self.directory = directory
+        self.mesh = mesh
         self.keep = keep
         self.keep_every = keep_every
         self._thread: Optional[threading.Thread] = None
@@ -53,7 +55,9 @@ class CheckpointManager:
     def save(self, step: int, tree: Any, blocking: bool = False) -> None:
         self.wait()
         t0 = time.perf_counter()
-        host_tree = host_copy(tree)
+        host_tree, specs, mesh_shape = store.gather(tree, copy=True)
+        if _distributed() and dist.get_rank() != 0:
+            return          # rank 0 writes; wait() meets it at a barrier
         copy_s = time.perf_counter() - t0
         nbytes = sum(leaf.numel() * leaf.element_size()
                      for _, leaf in store.leaf_paths(host_tree)
@@ -62,7 +66,8 @@ class CheckpointManager:
         def work():
             try:
                 t1 = time.perf_counter()
-                store.save(self.directory, step, host_tree)
+                store.save(self.directory, step, host_tree, specs=specs,
+                           mesh_shape=mesh_shape)
                 self.saves.append((step, nbytes, copy_s,
                                    time.perf_counter() - t1))
                 self._retain()
@@ -90,6 +95,8 @@ class CheckpointManager:
             self._thread.join()
             self._thread = None
         self._raise_if_failed()
+        if self.mesh is not None and _distributed():
+            dist.barrier()   # the other ranks read what rank 0 wrote
 
     def _raise_if_failed(self):
         if self._error is not None:
@@ -100,14 +107,15 @@ class CheckpointManager:
     def latest_step(self) -> Optional[int]:
         return store.latest_step(self.directory)
 
-    def restore(self, like: Any, step: Optional[int] = None) -> Any:
+    def restore(self, like: Any, step: Optional[int] = None,
+                mesh=None) -> Any:
         self.wait()
         if step is None:
             step = self.latest_step()
         if step is None:
             raise FileNotFoundError(
                 f"no complete checkpoint under {self.directory}")
-        return store.restore(self.directory, step, like)
+        return store.restore(self.directory, step, like, mesh=mesh)
 
     # ------------------------------------------------------- preemption --
     def install_sigterm_hook(self):

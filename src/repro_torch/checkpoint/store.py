@@ -15,9 +15,20 @@ reference's on-disk layout (``checkpoint/store.py``).
 
 Trees are nested dicts, NamedTuples, lists and tuples of tensors (or
 numpy arrays), Python ints and ``None``; a path joins dict keys, field
-names and indices with ``/``, as ``jax.tree_util``'s key paths do. The
-mesh specs are written as ``null`` until the port distributes
-(ROADMAP A9).
+names and indices with ``/``, as ``jax.tree_util``'s key paths do.
+
+  * **Mesh metadata** — a DTensor leaf is gathered to its full array
+    one leaf at a time and copied to the host (every rank takes part;
+    rank 0 alone keeps and writes it, as the reference's single-process
+    store writes full arrays) and its spec goes into the manifest in the
+    reference's JSON form (``["data", null]``, a merged
+    entry as a list), beside the mesh's ``mesh_shape``; a plain leaf's
+    spec is ``null``.
+  * **Elastic restore** — ``restore(..., mesh=)`` lays every leaf out on
+    ``mesh`` by its saved spec, dropping axes the mesh no longer has (and
+    any that no longer divide), so a checkpoint of one topology restores
+    onto another; without a mesh a DTensor in ``like`` keeps its own
+    layout.
 """
 
 from __future__ import annotations
@@ -31,6 +42,10 @@ from typing import (Any, Callable, Dict, Iterator, List, Mapping,
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
+
+from repro_torch.sharding import rules
 
 MANIFEST = "manifest.json"
 _STEP_RE = re.compile(r"^step_(\d+)$")
@@ -90,10 +105,80 @@ def _to_numpy(leaf) -> Tuple[np.ndarray, str]:
     return arr, str(arr.dtype)
 
 
-def save(directory: str, step: int, tree: Any) -> str:
-    """Atomic checkpoint save; returns the final step directory."""
-    os.makedirs(directory, exist_ok=True)
+def _spec_to_json(spec) -> Optional[List]:
+    if spec is None:
+        return None
+    return [list(e) if isinstance(e, tuple) else e for e in spec]
+
+
+def _json_to_spec(entry, mesh, shape) -> rules.Spec:
+    """A saved spec on ``mesh``: entries naming an axis the mesh lacks, or
+    whose size no longer divides the dim, become ``None``."""
+    if entry is None:
+        return ()
+    sizes = rules.axis_sizes(mesh)
+    out = []
+    for e, dim in zip(entry, shape):
+        axes = tuple(e) if isinstance(e, list) else (e,) if e else ()
+        n = 1
+        for a in axes:
+            n *= sizes.get(a, 0)
+        keep = axes and all(a in sizes for a in axes) and dim % n == 0
+        out.append((axes if len(axes) > 1 else axes[0]) if keep else None)
+    return tuple(out)
+
+
+def _rank() -> int:
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def gather(tree: Any, copy: bool = False
+           ) -> Tuple[Any, Dict[str, Any], Dict[str, int]]:
+    """(``tree`` on the host, {path: spec} of its DTensor leaves, the mesh
+    shape). Every rank of the mesh must call it: the gathers are
+    collectives. One DTensor leaf at a time is gathered to its full tensor
+    on the device, copied to the host and freed before the next, so a save
+    needs one leaf's full size on the card beyond the state. Only rank 0
+    keeps host arrays (the writer's); the other ranks' tree holds ``None``
+    for every tensor. ``copy`` copies a CPU tensor too (for a caller that
+    goes on updating its own in place)."""
+    specs: Dict[str, Any] = {}
+    mesh_shape: Dict[str, int] = {}
+    keep = _rank() == 0
+
+    def host(name, leaf):
+        if isinstance(leaf, DTensor):
+            mesh = leaf.device_mesh
+            specs[name] = rules.spec_of(leaf.placements, mesh, leaf.ndim)
+            mesh_shape.update(rules.axis_sizes(mesh))
+            with torch.no_grad():
+                whole = leaf.full_tensor()
+            return whole.to("cpu", copy=True) if keep else None
+        if isinstance(leaf, torch.Tensor):
+            return leaf.detach().to("cpu", copy=copy) if keep else None
+        return leaf
+
+    return map_leaves(host, tree), specs, mesh_shape
+
+
+def save(directory: str, step: int, tree: Any,
+         specs: Optional[Mapping[str, Any]] = None,
+         mesh_shape: Optional[Mapping[str, int]] = None) -> str:
+    """Atomic checkpoint save; returns the final step directory. DTensor
+    leaves are gathered (on every rank, :func:`gather`) and rank 0
+    writes; ``specs`` ({path: spec}) and ``mesh_shape`` add to or replace
+    what the DTensors say."""
     final = os.path.join(directory, f"step_{step}")
+    tree, found, shape = gather(tree)
+    # the ranks that gathered meet again once rank 0 has written
+    meet = bool(found) and dist.is_initialized()
+    found.update(specs or {})
+    shape.update(mesh_shape or {})
+    if _rank() != 0:
+        if meet:
+            dist.barrier()
+        return final
+    os.makedirs(directory, exist_ok=True)
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
@@ -108,14 +193,16 @@ def save(directory: str, step: int, tree: Any) -> str:
         np.save(os.path.join(tmp, fn), arr)
         entries.append({"name": name, "file": fn, "dtype": dtype,
                         "shape": list(arr.shape), "bytes": int(arr.nbytes),
-                        "spec": None})
-    manifest = {"step": step, "mesh_shape": {}, "leaves": entries,
+                        "spec": _spec_to_json(found.get(name))})
+    manifest = {"step": step, "mesh_shape": dict(shape), "leaves": entries,
                 "format": 1}
     with open(os.path.join(tmp, MANIFEST), "w") as f:
         json.dump(manifest, f)
     if os.path.exists(final):
         shutil.rmtree(final)
     os.rename(tmp, final)
+    if meet:
+        dist.barrier()
     return final
 
 
@@ -152,10 +239,19 @@ def _load(d: str, e: Dict[str, Any]) -> torch.Tensor:
     return t
 
 
-def restore(directory: str, step: int, like: Any) -> Any:
+def _mesh_device(mesh) -> torch.device:
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+def restore(directory: str, step: int, like: Any, mesh=None) -> Any:
     """The checkpoint of ``step`` in the structure of ``like``: each leaf
     on the device of ``like``'s tensor there (else the CPU), a Python int
-    where ``like`` holds one, ``None`` where the checkpoint holds none."""
+    where ``like`` holds one, ``None`` where the checkpoint holds none.
+    With ``mesh`` every tensor leaf becomes a DTensor on it, laid out by
+    its saved spec (elastic re-mesh); a DTensor of ``like`` without a
+    mesh keeps its layout."""
     d = os.path.join(directory, f"step_{step}")
     with open(os.path.join(d, MANIFEST)) as f:
         manifest = json.load(f)
@@ -176,6 +272,14 @@ def restore(directory: str, step: int, like: Any) -> Any:
             raise ValueError(f"shape mismatch restoring {name}: checkpoint "
                              f"{tuple(t.shape)} vs target "
                              f"{tuple(node.shape)}")
+        if mesh is not None:
+            spec = _json_to_spec(e.get("spec"), mesh, t.shape)
+            return distribute_tensor(t.to(_mesh_device(mesh)), mesh,
+                                     rules.placements_for(spec, mesh),
+                                     src_data_rank=None)
+        if isinstance(node, DTensor):
+            return distribute_tensor(t.to(node.device), node.device_mesh,
+                                     node.placements, src_data_rank=None)
         if isinstance(node, torch.Tensor):
             return t.to(node.device)
         return t

@@ -10,9 +10,10 @@ from .base import (
     get,
     get_smoke,
     normalize,
+    shape_applicable,
 )
 
 __all__ = [
     "ALIASES", "ARCH_IDS", "SHAPES", "ShapeSpec", "get",
-    "get_smoke", "normalize",
+    "get_smoke", "normalize", "shape_applicable",
 ]

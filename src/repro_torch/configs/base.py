@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Dict
+from typing import Dict, Tuple
 
 from repro_torch.models.transformer import ModelConfig
 
@@ -63,6 +63,14 @@ SHAPES: Dict[str, ShapeSpec] = {
     "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
     "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
 }
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeSpec) -> Tuple[bool, str]:
+    """Assignment skip rules. Returns (run?, reason-if-skipped)."""
+    if shape.name == "long_500k" and cfg.family not in ("ssm", "hybrid"):
+        return False, ("pure full-attention arch: 524288-token dense decode "
+                       "requires sub-quadratic attention (DESIGN.md §6)")
+    return True, ""
 
 
 def normalize(name: str) -> str:

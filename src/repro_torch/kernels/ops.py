@@ -14,8 +14,12 @@ kernel's own (a tuned one, from :mod:`repro_torch.core.tuning`), made in
 place of the one its launch rule picks. The plain version ignores it.
 
 ``flash_attention`` keeps the reference's (B, H, S, D) layout at its
-boundary. ``tri2full`` is data movement (the paper charges it no flops)
-and stays a plain tensor op on either device, as in the reference.
+boundary and goes through the custom operator
+``repro_torch::flash_attention``; given DTensors (a sharded prefill) it
+runs that operator on each rank's local heads
+(:func:`.flash_attention.flash_attention_sharded`). ``tri2full`` is data
+movement (the paper charges it no flops) and stays a plain tensor op on
+either device, as in the reference.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from __future__ import annotations
 from typing import Dict, Mapping, Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from . import chain_gemm as _chain_gemm
 from . import flash_attention as _flash
@@ -136,12 +141,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     tuple(_flash.DTYPES), q, k, v, window)
     if scale is None:
         scale = q.shape[3] ** -0.5
-    if _on_card("flash_attention", q):
-        return _flash.flash_attention_cuda(
+    if isinstance(q, DTensor):
+        return _flash.flash_attention_sharded(
             q, k, v, causal=causal, scale=scale,
             logit_softcap=logit_softcap, window=window)
-    return ref.flash_attention(q, k, v, causal=causal, scale=scale,
-                               logit_softcap=logit_softcap, window=window)
+    return torch.ops.repro_torch.flash_attention(
+        q, k, v, causal, float(scale), float(logit_softcap), int(window))
 
 
 def tri2full(t: torch.Tensor) -> torch.Tensor:

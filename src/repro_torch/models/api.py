@@ -14,11 +14,15 @@ it raises. The other entry points run where the model's parameters lie.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate, Shard
+
+from repro_torch.sharding.context import whole_within
 
 from . import encdec, hybrid, transformer
 from .layers import resolve_device
@@ -40,6 +44,24 @@ def init(cfg: ModelConfig, seed: int = 0, *, device=None,
     generator = torch.Generator(device=device).manual_seed(seed)
     return family_module(cfg).init(cfg, generator, device=device,
                                    dtype=dtype)
+
+
+def param_axes(model: nn.Module, cfg: ModelConfig
+               ) -> Dict[str, Tuple[str, ...]]:
+    """{state-dict name: logical axes} of every parameter of ``model``,
+    the reference's axes tree (``init``'s second result) without its
+    leading ``"layers"`` axis: the port keeps one leaf per layer. Each
+    module names its own in ``param_axes``; a parameter without axes
+    raises."""
+    out: Dict[str, Tuple[str, ...]] = {}
+    for prefix, module in model.named_modules():
+        for attr, axes in getattr(module, "param_axes", {}).items():
+            out[f"{prefix}.{attr}" if prefix else attr] = axes
+    missing = [n for n, _ in model.named_parameters() if n not in out]
+    if missing:
+        raise ValueError(f"{cfg.name}: parameters without logical axes: "
+                         f"{missing}")
+    return out
 
 
 def _device(model: nn.Module) -> torch.device:
@@ -78,6 +100,56 @@ def forward_train(model: nn.Module, cfg: ModelConfig,
                                    prefix_embeds=_prefix(model, cfg, batch))
 
 
+def _vocab_axis(logits):
+    """The mesh dim that shards the vocab of DTensor ``logits``, or None
+    (plain logits, no vocab shard, or a pending partial sum)."""
+    if not isinstance(logits, DTensor) or any(
+            p.is_partial() for p in logits.placements):
+        return None
+    dims = [i for i, p in enumerate(logits.placements)
+            if p.is_shard(logits.ndim - 1)]
+    return dims[0] if len(dims) == 1 else None
+
+
+def vocab_parallel(cfg: ModelConfig):
+    """DTensor's ``loss_parallel`` where ``shard_logits`` shards the vocab
+    (inside ``activation_sharding`` on a mesh whose ``model`` axis of more
+    than one device divides it): the cross-entropy's max and sum reduce
+    across the vocab shards instead of gathering the whole vocab on every
+    rank. It must hold over the loss's forward and backward (the train
+    step enters it around both); a null context otherwise."""
+    from repro_torch.sharding.context import active_mesh
+    mesh = active_mesh()
+    names = getattr(mesh, "mesh_dim_names", None) or ()
+    if "model" not in names:
+        return contextlib.nullcontext()
+    size = mesh.size(names.index("model"))
+    if size == 1 or cfg.padded_vocab % size:
+        return contextlib.nullcontext()
+    from torch.distributed.tensor.parallel import loss_parallel
+    return loss_parallel()
+
+
+def _cross_entropy(logits: torch.Tensor, labels: torch.Tensor):
+    """Per-row cross-entropy of (N, V) logits and (N,) labels. A DTensor
+    whose vocab is sharded runs it on the vocab's own one-dimensional
+    mesh (each rank's rows as they are; ``loss_parallel``'s rule takes
+    one mesh dim) and hands the rows back in the rows' layout."""
+    md = _vocab_axis(logits)
+    if md is None:
+        return F.cross_entropy(logits, labels, reduction="none")
+    mesh = logits.device_mesh
+    sub = mesh[mesh.mesh_dim_names[md]]
+    rows = [p if i != md else Replicate()
+            for i, p in enumerate(logits.placements)]
+    lg = DTensor.from_local(logits.to_local(), sub, [Shard(1)],
+                            run_check=False)
+    lb = DTensor.from_local(labels.redistribute(mesh, rows).to_local(), sub,
+                            [Replicate()], run_check=False)
+    nll = F.cross_entropy(lg, lb, reduction="none")
+    return DTensor.from_local(nll.to_local(), mesh, rows, run_check=False)
+
+
 def loss_fn(model: nn.Module, cfg: ModelConfig, batch: Dict[str, Any],
             aux_weight: float = 0.01
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -89,9 +161,9 @@ def loss_fn(model: nn.Module, cfg: ModelConfig, batch: Dict[str, Any],
     labels = _tokens(model, batch["labels"])
     if logits.shape[1] != labels.shape[1]:
         logits = logits[:, logits.shape[1] - labels.shape[1]:]
-    nll = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
-                          labels.reshape(-1), reduction="none"
-                          ).view(labels.shape)
+    nll = _cross_entropy(
+        whole_within(logits, 0, 1).reshape(-1, logits.shape[-1]),
+        whole_within(labels, 0, 1).reshape(-1)).view(labels.shape)
     mask = batch.get("loss_mask")
     mask = torch.ones_like(nll) if mask is None else \
         torch.as_tensor(mask, device=nll.device).to(nll.dtype)

@@ -20,8 +20,16 @@ Counterpart of the reference's ``models/attention.py``:
 
 Caches are updated in place (the reference returns new arrays): a
 serving loop owns its cache, and a functional update would copy all of
-it every token (~0.4 GB for Yi-9B serving 2 × 2176 tokens). The sharding hooks of the reference are
-identity outside a mesh and are left out.
+it every token (~0.4 GB for Yi-9B serving 2 × 2176 tokens).
+
+Inside :func:`repro_torch.sharding.context.activation_sharding` the
+projections take the reference's ``shard_heads`` layout (batch over
+the data axes, heads over ``model``, the full sequence), the flash
+kernel runs on each rank's local heads (:func:`repro_torch.kernels.ops.
+flash_attention`), and a DTensor KV cache (sequence over ``model``) is
+written shard by shard and read with a masked softmax over all its
+positions, the reference's sharded-KV decode. Outside it the hooks are
+the identity.
 """
 
 from __future__ import annotations
@@ -31,9 +39,13 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.kernels import ops as kops
 from repro_torch.serve.plan_cache import default_plan_service, planner_enabled
+from repro_torch.sharding.context import (attention_shards, grad_in_layout,
+                                          shard_heads, shard_offset,
+                                          whole_within)
 
 from .layers import Dense, apply_rope, dense, softcap
 
@@ -65,18 +77,41 @@ class Attention(nn.Module):
         super().__init__()
         kw = dict(generator=generator, device=device, dtype=dtype)
         hd = cfg.head_dim
-        self.wq = Dense(cfg.d_model, cfg.n_heads * hd, **kw)
-        self.wk = Dense(cfg.d_model, cfg.n_kv_heads * hd, **kw)
-        self.wv = Dense(cfg.d_model, cfg.n_kv_heads * hd, **kw)
-        self.wo = Dense(cfg.n_heads * hd, cfg.d_model, **kw)
+        self.wq = Dense(cfg.d_model, cfg.n_heads * hd, ("embed", "heads"),
+                        **kw)
+        self.wk = Dense(cfg.d_model, cfg.n_kv_heads * hd,
+                        ("embed", "kv_heads"), **kw)
+        self.wv = Dense(cfg.d_model, cfg.n_kv_heads * hd,
+                        ("embed", "kv_heads"), **kw)
+        self.wo = Dense(cfg.n_heads * hd, cfg.d_model, ("heads", "embed"),
+                        **kw)
+
+
+def _whole_parts(t: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+    """``t`` ready to have ``dim`` split into ``n`` parts: a DTensor that
+    shards ``dim`` over a mesh dim not dividing ``n`` is gathered on it
+    (Yi-9B's 4 KV heads on a 16-wide ``model`` axis)."""
+    if not isinstance(t, DTensor):
+        return t
+    mesh = t.device_mesh
+    pl = [Replicate() if isinstance(p, Shard) and p.dim == dim
+          and n % mesh.size(i) else p for i, p in enumerate(t.placements)]
+    return t if pl == list(t.placements) else t.redistribute(mesh, pl)
+
+
+def _split_heads(t: torch.Tensor, n: int, dh: int) -> torch.Tensor:
+    """(B, S, n·dh) → (B, S, n, dh)."""
+    b, s, _ = t.shape
+    return _whole_parts(t, 2, n).view(b, s, n, dh)
 
 
 def _project_qkv(p: Attention, cfg: AttnConfig, x: torch.Tensor,
                  positions: torch.Tensor, rope: Optional[Tuple]):
     b, s, _ = x.shape
-    q = dense(p.wq, x).view(b, s, cfg.n_heads, cfg.head_dim)
-    k = dense(p.wk, x).view(b, s, cfg.n_kv_heads, cfg.head_dim)
-    v = dense(p.wv, x).view(b, s, cfg.n_kv_heads, cfg.head_dim)
+    q = _split_heads(dense(p.wq, x), cfg.n_heads, cfg.head_dim)
+    k = _split_heads(dense(p.wk, x), cfg.n_kv_heads, cfg.head_dim)
+    v = _split_heads(dense(p.wv, x), cfg.n_kv_heads, cfg.head_dim)
+    q, k, v = shard_heads(q), shard_heads(k), shard_heads(v)
     if rope is not None:
         cos, sin = rope
         q = apply_rope(q, cos, sin, positions)
@@ -84,8 +119,23 @@ def _project_qkv(p: Attention, cfg: AttnConfig, x: torch.Tensor,
     return q, k, v
 
 
+def _per_rank(core, q, k, v) -> torch.Tensor:
+    """``core(q, k, v)`` (B, S, H, Dh) on each rank's batch rows and heads
+    with the whole sequence (:func:`~repro_torch.sharding.context.
+    attention_shards`) when q is a DTensor; as it is otherwise."""
+    if not isinstance(q, DTensor):
+        return core(q, k, v)
+    ql, kl, vl, qp = attention_shards(q, k, v)
+    return DTensor.from_local(core(ql, kl, vl), q.device_mesh, qp,
+                              run_check=False)
+
+
 def _dense_attention(cfg: AttnConfig, q, k, v) -> torch.Tensor:
     """Masked dense attention; q: (B,Sq,H,Dh), k/v: (B,Sk,Hkv,Dh)."""
+    return _per_rank(lambda q, k, v: _dense_core(cfg, q, k, v), q, k, v)
+
+
+def _dense_core(cfg: AttnConfig, q, k, v) -> torch.Tensor:
     b, sq, h, dh = q.shape
     sk = k.shape[1]
     group = h // k.shape[2]
@@ -213,12 +263,15 @@ def chunked_attention(cfg: AttnConfig, q, k, v, block: int = 512
     if sk % block:
         raise ValueError(f"chunked attention: {sk} keys are not a multiple "
                          f"of the block {block}")
-    group = q.shape[2] // k.shape[2]
     scale = cfg.query_pre_scale or q.shape[-1] ** -0.5
-    kq = k.repeat_interleave(group, dim=2)
-    vq = v.repeat_interleave(group, dim=2)
-    return _ChunkedCore.apply(q, kq, vq, scale, cfg.causal, cfg.window,
-                              cfg.logit_softcap, block)
+    args = (scale, cfg.causal, cfg.window, cfg.logit_softcap, block)
+
+    def core(q, k, v):
+        group = q.shape[2] // k.shape[2]
+        return _ChunkedCore.apply(q, k.repeat_interleave(group, dim=2),
+                                  v.repeat_interleave(group, dim=2), *args)
+
+    return _per_rank(core, q, k, v)
 
 
 # Sequence length above which training uses the chunked (flash-style)
@@ -255,7 +308,7 @@ def apply_train(p: Attention, cfg: AttnConfig, x: torch.Tensor,
         out = chunked_attention(cfg, q, k, v)
     else:
         out = _dense_attention(cfg, q, k, v)
-    out = out.reshape(b, s, cfg.n_heads * cfg.head_dim)
+    out = grad_in_layout(out.reshape(b, s, cfg.n_heads * cfg.head_dim))
     proj = dense(p.wo, out)
     if return_kv:
         return proj, (k, v)
@@ -269,9 +322,35 @@ def apply_prefill(p: Attention, cfg: AttnConfig, x: torch.Tensor,
     s = x.shape[1]
     proj, (k, v) = apply_train(p, cfg, x, rope=rope, return_kv=True,
                                differentiable=False)
-    cache.k[:, :s] = k
-    cache.v[:, :s] = v
+    write_positions(cache.k, k, 0)
+    write_positions(cache.v, v, 0)
     return proj, cache._replace(length=s)
+
+
+def write_positions(buf: torch.Tensor, new: torch.Tensor,
+                    start: int) -> None:
+    """``buf[:, start:start + n] = new`` for a cache ``buf`` (B, S, ...)
+    and ``new`` (B, n, ...), in place. A DTensor cache whose sequence is
+    sharded is written shard by shard: each rank stores the positions
+    that fall in its own shard (``new`` gathered to the cache's layout
+    with its positions whole)."""
+    n = new.shape[1]
+    if not isinstance(buf, DTensor):
+        buf[:, start:start + n] = new
+        return
+    mesh = buf.device_mesh
+    layout = [Replicate() if isinstance(pl, Shard) and pl.dim == 1 else pl
+              for pl in buf.placements]
+    if not isinstance(new, DTensor):
+        new = DTensor.from_local(new, mesh, [Replicate()] * mesh.ndim,
+                                 run_check=False)
+    new_l = new.redistribute(mesh, layout).to_local()
+    local = buf.to_local()
+    off = shard_offset(buf.shape, mesh, buf.placements, 1)
+    length = local.shape[1]
+    lo, hi = max(start, off), min(start + n, off + length)
+    if lo < hi:
+        local[:, lo - off:hi - off] = new_l[:, lo - start:hi - start]
 
 
 def planned_pv_right_first(t: int, s: int, head_dim: int, d_model: int,
@@ -326,7 +405,7 @@ def pv_wo_output(p_attn: torch.Tensor, v: torch.Tensor, wo: Dense,
     b, _, _, kk = p_attn.shape
     hkv = v.shape[2]
     group = n_heads // hkv
-    pg = p_attn.reshape(b, hkv, group, kk)
+    pg = _whole_parts(p_attn, 1, hkv).reshape(b, hkv, group, kk)
     d_model = wo.w.shape[1]
     if right_first:
         w4 = wo.w.to(p_attn.dtype).reshape(hkv, group, head_dim, d_model)
@@ -360,17 +439,29 @@ def apply_decode(p: Attention, cfg: AttnConfig, x: torch.Tensor,
                          f"{cache.k.shape[1]} positions")
     pos = torch.full((b, 1), idx, device=x.device, dtype=torch.long)
     q, k, v = _project_qkv(p, cfg, x, pos, rope)
-    cache.k[:, idx] = k[:, 0]
-    cache.v[:, idx] = v[:, 0]
     lo = max(0, idx + 1 - cfg.window) if cfg.window > 0 else 0
-    keys = cache.k[:, lo:idx + 1]             # (B, n, Hkv, Dh)
-    vals = cache.v[:, lo:idx + 1]
+    if isinstance(cache.k, DTensor):
+        write_positions(cache.k, k, idx)
+        write_positions(cache.v, v, idx)
+    else:
+        cache.k[:, idx] = k[:, 0]
+        cache.v[:, idx] = v[:, 0]
+    # a sequence split across ranks is read whole, the positions outside
+    # lo..idx masked (their softmax weights are exactly zero)
+    sharded = isinstance(cache.k, DTensor) and \
+        cache.k.to_local().shape[1] != cache.k.shape[1]
+    keys = cache.k if sharded else cache.k[:, lo:idx + 1]   # (B,n,Hkv,Dh)
+    vals = cache.v if sharded else cache.v[:, lo:idx + 1]
     hkv = cfg.n_kv_heads
     scale = cfg.query_pre_scale or cfg.head_dim ** -0.5
-    qg = q.reshape(b, hkv, cfg.n_heads // hkv, cfg.head_dim)
+    qg = whole_within(_whole_parts(q, 2, hkv).reshape(
+        b, hkv, cfg.n_heads // hkv, cfg.head_dim), 0, 1)  # einsum merges
     logits = torch.einsum("bhgd,bkhd->bhgk", qg.float(),
                           keys.to(q.dtype).float()) * scale
     logits = softcap(logits, cfg.logit_softcap)
+    if sharded:
+        kpos = torch.arange(keys.shape[1], device=x.device)
+        logits = logits.masked_fill((kpos < lo) | (kpos > idx), -1e30)
     p_attn = torch.softmax(logits, dim=-1).reshape(b, cfg.n_heads, 1, -1)
     proj = pv_wo_output(p_attn, vals.to(q.dtype), p.wo, cfg.n_heads,
                         cfg.head_dim, x.dtype, right_first=cache.right_first)
@@ -382,16 +473,16 @@ def apply_cross(p: Attention, cfg: AttnConfig, x: torch.Tensor,
     """Cross-attention of x (B, S, d) against precomputed encoder K/V
     (B, S_enc, Hkv, Dh), every encoder position visible."""
     b, s, _ = x.shape
-    q = dense(p.wq, x).view(b, s, cfg.n_heads, cfg.head_dim)
+    q = _split_heads(dense(p.wq, x), cfg.n_heads, cfg.head_dim)
     out = _dense_attention(cfg._replace(causal=False, window=0), q, enc_k,
                            enc_v)
-    return dense(p.wo, out.reshape(b, s, cfg.n_heads * cfg.head_dim))
+    return dense(p.wo, grad_in_layout(
+        out.reshape(b, s, cfg.n_heads * cfg.head_dim)))
 
 
 def project_kv(p: Attention, cfg: AttnConfig, enc: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Cross-attention K/V (B, S_enc, Hkv, Dh) of an encoder output."""
-    b, s, _ = enc.shape
-    k = dense(p.wk, enc).view(b, s, cfg.n_kv_heads, cfg.head_dim)
-    v = dense(p.wv, enc).view(b, s, cfg.n_kv_heads, cfg.head_dim)
+    k = _split_heads(dense(p.wk, enc), cfg.n_kv_heads, cfg.head_dim)
+    v = _split_heads(dense(p.wv, enc), cfg.n_kv_heads, cfg.head_dim)
     return k, v

@@ -21,6 +21,8 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 from torch import nn
 
+from repro_torch.sharding.context import shard_seq
+
 from . import attention, layers
 from .attention import KVCache
 from .transformer import ModelConfig, _logits, maybe_remat, plan_kv
@@ -106,7 +108,7 @@ def encode(model: EncDecLM, cfg: ModelConfig,
         h = layers.rmsnorm(bp.pre_attn_norm, x)
         x = x + attention.apply_train(bp.attn, acfg, h, rope=None)
         h = layers.rmsnorm(bp.pre_mlp_norm, x)
-        x = x + layers.mlp(bp.mlp, h)
+        x = shard_seq(x + layers.mlp(bp.mlp, h))
     return layers.rmsnorm(model.enc_norm, x)
 
 

@@ -20,6 +20,8 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 from torch import nn
 
+from repro_torch.sharding.context import shard_seq
+
 from . import attention, layers, ssm as ssm_lib
 from .attention import KVCache
 from .ssm import SSMCache
@@ -86,7 +88,7 @@ def _shared_block_train(cfg: ModelConfig, sp: SharedBlock, x: torch.Tensor,
     h = layers.rmsnorm(sp.pre_attn_norm, x)
     x = x + attention.apply_train(sp.attn, acfg, h, rope=rope)
     h = layers.rmsnorm(sp.pre_mlp_norm, x)
-    return x + layers.glu_mlp(sp.mlp, h)
+    return shard_seq(x + layers.glu_mlp(sp.mlp, h))
 
 
 def apply_train(model: HybridLM, cfg: ModelConfig, tokens: torch.Tensor
@@ -166,7 +168,8 @@ def _shared_block_decode(cfg: ModelConfig, sp: SharedBlock, x: torch.Tensor,
     hkv = acfg.n_kv_heads
     group = acfg.n_heads // hkv
     scale = acfg.head_dim ** -0.5
-    qg = q.to(kv.k.dtype).float().reshape(b, hkv, group, acfg.head_dim)
+    qg = attention._whole_parts(q, 2, hkv).to(kv.k.dtype).float() \
+        .reshape(b, hkv, group, acfg.head_dim)
     logits = torch.einsum("bhgd,bkhd->bhgk", qg, kv.k.float()) * scale
     # Ring-buffer positions: slot s holds absolute position
     # length - ((slot - s) mod size); valid if within [0, length].

@@ -5,7 +5,10 @@ there is an ``nn.Module`` here with the same attribute names (``w`` of a
 dense or embedding, ``g`` of a norm, ``gate``/``up``/``down`` of an MLP),
 so a state-dict key such as ``blocks.3.attn.wq.w`` names the reference
 leaf ``params["blocks"]["attn"]["wq"]["w"][3]``. Modules hold parameters
-only; the functions below apply them, as the reference's do. Weights are
+only; the functions below apply them, as the reference's do. Each module
+names its parameters' logical axes in ``param_axes`` ({attribute:
+axes}), the reference's axes tree (read by
+:func:`repro_torch.models.api.param_axes`). Weights are
 drawn from the reference's distributions with an explicit
 ``torch.Generator`` (the numbers differ from ``jax.random``'s; the tests
 carry the reference's weights across with :mod:`.convert`).
@@ -19,6 +22,11 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
+
+from repro_torch.sharding.context import (grad_in_layout, replicate,
+                                          shard_offset, whole_within)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -41,13 +49,16 @@ def _normal(generator: Optional[torch.Generator], shape: Tuple[int, ...],
 # ------------------------------------------------------------- modules ---
 
 class Dense(nn.Module):
-    """``w`` (d_in, d_out) ~ N(0, 1/d_in) unless ``scale`` is given."""
+    """``w`` (d_in, d_out) ~ N(0, 1/d_in) unless ``scale`` is given; a
+    model's dense layers name the logical ``axes`` of its two dims."""
 
-    def __init__(self, d_in: int, d_out: int, *, generator, device, dtype,
-                 scale: Optional[float] = None):
+    def __init__(self, d_in: int, d_out: int,
+                 axes: Optional[Tuple[str, str]] = None, *, generator,
+                 device, dtype, scale: Optional[float] = None):
         super().__init__()
         scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
         self.w = _normal(generator, (d_in, d_out), scale, device, dtype)
+        self.param_axes = {} if axes is None else {"w": tuple(axes)}
 
 
 class Embed(nn.Module):
@@ -56,6 +67,7 @@ class Embed(nn.Module):
     def __init__(self, vocab: int, d: int, *, generator, device, dtype):
         super().__init__()
         self.w = _normal(generator, (vocab, d), 0.02, device, dtype)
+        self.param_axes = {"w": ("vocab", "embed")}
 
 
 class RMSNorm(nn.Module):
@@ -65,15 +77,16 @@ class RMSNorm(nn.Module):
         super().__init__()
         self.g = nn.Parameter(torch.ones((d,), device=device, dtype=dtype),
                               requires_grad=False)
+        self.param_axes = {"g": ("embed",)}
 
 
 class GluMLP(nn.Module):
     def __init__(self, d: int, d_ff: int, *, generator, device, dtype):
         super().__init__()
         kw = dict(generator=generator, device=device, dtype=dtype)
-        self.gate = Dense(d, d_ff, **kw)
-        self.up = Dense(d, d_ff, **kw)
-        self.down = Dense(d_ff, d, **kw)
+        self.gate = Dense(d, d_ff, ("embed", "ffn"), **kw)
+        self.up = Dense(d, d_ff, ("embed", "ffn"), **kw)
+        self.down = Dense(d_ff, d, ("ffn", "embed"), **kw)
 
 
 class MLP(nn.Module):
@@ -82,8 +95,8 @@ class MLP(nn.Module):
     def __init__(self, d: int, d_ff: int, *, generator, device, dtype):
         super().__init__()
         kw = dict(generator=generator, device=device, dtype=dtype)
-        self.up = Dense(d, d_ff, **kw)
-        self.down = Dense(d_ff, d, **kw)
+        self.up = Dense(d, d_ff, ("embed", "ffn"), **kw)
+        self.down = Dense(d_ff, d, ("ffn", "embed"), **kw)
 
 
 # ----------------------------------------------------------- functions ---
@@ -102,11 +115,50 @@ def rmsnorm(p: RMSNorm, x: torch.Tensor, eps: float = 1e-6,
 
 
 def dense(p: Dense, x: torch.Tensor) -> torch.Tensor:
-    return x @ p.w.to(x.dtype)
+    # on a DTensor the product folds the leading dims into one, both ways
+    return grad_in_layout(whole_within(x, 0, x.ndim - 2) @ p.w.to(x.dtype))
 
 
 def embed(p: Embed, tokens: torch.Tensor) -> torch.Tensor:
+    if isinstance(p.w, DTensor):
+        return _embed_sharded(p.w, tokens)
     return p.w[tokens]
+
+
+def _embed_sharded(w: DTensor, tokens: torch.Tensor) -> DTensor:
+    """The lookup of a vocab-sharded table, the reference's partitioned
+    gather: each rank looks its ids up in its own rows of the vocabulary
+    (the FSDP-sharded ``embed`` dim gathered, as any FSDP weight is), the
+    ids outside them give zeros, and the partial sums over the vocab's
+    mesh dims are reduced into the residual stream's layout: the sequence
+    over them where they divide it (a reduce-scatter), else replicated."""
+    mesh = w.device_mesh
+    tokens = replicate(tokens, mesh)
+    vocab = [i for i, pl in enumerate(w.placements)
+             if isinstance(pl, Shard) and pl.dim == 0]
+    wp = [Shard(0) if i in vocab else Replicate() for i in range(mesh.ndim)]
+    tp = [Replicate() if i in vocab else pl
+          for i, pl in enumerate(tokens.placements)]
+    # rows gathered from other ranks' tokens add up over those mesh dims
+    gp = [Shard(0) if i in vocab else Partial() if isinstance(pl, Shard)
+          else Replicate() for i, pl in enumerate(tp)]
+    first = shard_offset(w.shape, mesh, wp, 0)
+
+    def lookup(w_local, ids):
+        ids = ids - first
+        inside = (ids >= 0) & (ids < w_local.shape[0])
+        rows = w_local[torch.where(inside, ids, 0)]
+        return rows * inside[..., None].to(rows.dtype)
+
+    out = local_map(lookup, out_placements=[
+        Partial() if i in vocab else pl for i, pl in enumerate(tp)],
+        in_placements=(wp, tp), in_grad_placements=(gp, tp),
+        device_mesh=mesh, redistribute_inputs=True)(w, tokens)
+    n = math.prod(mesh.size(i) for i in vocab)
+    seq = Shard(1) if out.ndim > 1 and out.shape[1] % n == 0 \
+        and out.shape[1] >= n else Replicate()
+    return out.redistribute(mesh, [seq if i in vocab else pl
+                                   for i, pl in enumerate(tp)])
 
 
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:

@@ -17,8 +17,11 @@ by either of two mathematically equivalent algorithms —
 ``profile`` is given. The reference carries the inter-chunk states with
 ``lax.associative_scan``; here a serial loop over the S/Q chunks computes
 the same recurrence, the incoming state ``h0`` folded in first as the
-reference does. The reference's ``shard_ssd_*`` hooks are the identity
-outside a mesh and are left out (ROADMAP A9).
+reference does. Inside :func:`repro_torch.sharding.context.
+activation_sharding` the chunk tensors run chunk-sharded over ``model``
+and the inter-chunk states heads-sharded (``shard_ssd_chunks``,
+``shard_ssd_states``), as in the reference, each stage on a rank's own
+data (``local_map``); outside it the hooks are the identity.
 
 Caches are updated in place, as the port's KV caches are.
 """
@@ -32,8 +35,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor.experimental import local_map
+
 from repro_torch.core.flops import gemm as gemm_call
 from repro_torch.core.perfmodel import AnalyticalHopperProfile, KernelProfile
+from repro_torch.sharding.context import (batch_axes, grad_in_layout,
+                                          placements_of, replicate,
+                                          shard_ssd_chunks, shard_ssd_states)
 
 from . import layers
 from .layers import Dense, _normal, dense
@@ -105,7 +114,20 @@ def _masked_decay(diff: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 def ssd_quadratic(x, dt, a_log, bmat, cmat) -> torch.Tensor:
     """Dense semiseparable form. x:(B,S,H,P) dt:(B,S,H) a_log:(H,)
-    bmat/cmat:(B,S,G,N). Returns (B,S,H,P)."""
+    bmat/cmat:(B,S,G,N). Returns (B,S,H,P). On DTensors each rank runs it
+    on its batch rows (``local_map``): it mixes positions only."""
+    if isinstance(x, DTensor):
+        mesh = x.device_mesh
+        rows = list(placements_of(mesh, x.shape[:1], (batch_axes(),)))
+        rep = [Replicate()] * mesh.ndim
+        return local_map(_ssd_quadratic, out_placements=rows,
+                         in_placements=(rows, rows, rep, rows, rows),
+                         device_mesh=mesh, redistribute_inputs=True)(
+            x, dt, a_log, bmat, cmat)
+    return _ssd_quadratic(x, dt, a_log, bmat, cmat)
+
+
+def _ssd_quadratic(x, dt, a_log, bmat, cmat) -> torch.Tensor:
     bsz, s, h, p = x.shape
     rep = h // bmat.shape[2]
     a = -torch.exp(a_log.float())                    # (H,) negative
@@ -125,34 +147,19 @@ def ssd_quadratic(x, dt, a_log, bmat, cmat) -> torch.Tensor:
     return y.to(x.dtype)
 
 
-def ssd_chunked(x, dt, a_log, bmat, cmat, chunk: int,
-                h0: Optional[torch.Tensor] = None,
-                return_state: bool = False):
-    """Chunked SSD. Shapes as ssd_quadratic; S % chunk == 0.
-
-    ``h0`` (B,H,N,P) optional incoming state; ``return_state`` also returns
-    the final state (for prefill→decode handoff).
-    """
-    bsz, s, h, p = x.shape
-    n = bmat.shape[3]
-    rep = h // bmat.shape[2]
-    q = chunk
-    nc = s // q
-    a = -torch.exp(a_log.float())
-    f32 = torch.float32
-
-    xc = x.to(f32).reshape(bsz, nc, q, h, p)
-    dtc = dt.to(f32).reshape(bsz, nc, q, h)
-    bc = bmat.repeat_interleave(rep, dim=2).to(f32).reshape(bsz, nc, q, h, n)
-    cc = cmat.repeat_interleave(rep, dim=2).to(f32).reshape(bsz, nc, q, h, n)
-
+def _intra_chunks(xc, dtc, bc, cc, a):
+    """Each chunk on its own: the within-chunk output, the state each
+    chunk emits, its decay and the within-chunk cumulative decay, from
+    (B,nc,Q,...) chunk tensors (B and C per group) and A (H,)."""
+    q = xc.shape[2]
+    bc, cc = _per_head(bc, xc), _per_head(cc, xc)
     da = dtc * a                                     # (B,nc,Q,H)
     cum = torch.cumsum(da, dim=2)                    # within-chunk cumsum
     total = cum[:, :, -1:, :]                        # (B,nc,1,H)
 
     # --- intra-chunk (quadratic within chunk) ---
     diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]   # (B,nc,Q,Q,H)
-    mask = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
+    mask = torch.tril(torch.ones((q, q), dtype=torch.bool, device=xc.device))
     L = _masked_decay(diff, mask[None, None, :, :, None])
     scores = torch.einsum("bcihn,bcjhn->bcijh", cc, bc)
     xdt = xc * dtc[..., None]
@@ -164,20 +171,92 @@ def ssd_chunked(x, dt, a_log, bmat, cmat, chunk: int,
     s_c = torch.einsum("bcqhn,bcqhp->bchnp",
                        bc * (decay_to_end * dtc)[..., None], xc)
     chunk_decay = torch.exp(total[:, :, 0, :])       # (B,nc,H)
+    return y_intra, s_c, chunk_decay, cum
 
-    # --- inter-chunk recurrence: H_c = d_c · H_{c-1} + S_c ---
-    # h_prev[:, c] is the state entering chunk c (h0, or zeros, first).
-    h_prev = torch.empty((bsz, nc, h, n, p), dtype=f32, device=x.device)
-    state = (h0.to(f32) if h0 is not None
-             else torch.zeros((bsz, h, n, p), dtype=f32, device=x.device))
-    for c in range(nc):
-        h_prev[:, c] = state
+
+def _inter_chunks(s_c, chunk_decay, h0=None):
+    """The recurrence H_c = d_c · H_{c-1} + S_c over the chunks → (the
+    state entering each chunk (B,nc,H,N,P): h0, or zeros, first; the
+    final state)."""
+    state = h0 if h0 is not None else torch.zeros_like(s_c[:, 0])
+    entering = []
+    for c in range(s_c.shape[1]):
+        entering.append(state)
         state = state * chunk_decay[:, c, :, None, None] + s_c[:, c]
+    return torch.stack(entering, dim=1), state
 
+
+def _per_head(g, xc):
+    """(B,nc,Q,G,N) group tensor → (B,nc,Q,H,N), each group's heads."""
+    return g.repeat_interleave(xc.shape[3] // g.shape[3], dim=3)
+
+
+def _chunk_outputs(y_intra, cc, cum, h_prev):
+    """The within-chunk output plus what the entering states contribute
+    (C per group)."""
+    cc = _per_head(cc, y_intra)
     y_inter = torch.einsum("bcqhn,bchnp->bcqhp",
                            cc * torch.exp(cum)[..., None], h_prev)
+    return y_intra + y_inter
 
-    y = (y_intra + y_inter).reshape(bsz, s, h, p).to(x.dtype)
+
+def _sharded_stages(xc, with_h0: bool):
+    """The three stages of :func:`ssd_chunked` on each rank's own data
+    (``local_map``): the chunk stages in the reference's
+    ``shard_ssd_chunks`` layout (batch over the data axes, chunks over
+    ``model``), the recurrence in its ``shard_ssd_states`` layout (heads
+    over ``model``, every chunk); DTensor moves the states between the
+    two."""
+    mesh, bax = xc.device_mesh, batch_axes()
+    b, nc, _, h = xc.shape[:4]
+    chunks = list(placements_of(mesh, (b, nc), (bax, "model")))
+    heads = list(placements_of(mesh, (b, 1, h), (bax, None, "model")))
+    state = list(placements_of(mesh, (b, h), (bax, "model")))
+    rep = [Replicate()] * mesh.ndim
+    intra = local_map(_intra_chunks, out_placements=(chunks,) * 4,
+                      in_placements=(chunks,) * 4 + (rep,),
+                      device_mesh=mesh, redistribute_inputs=True)
+    inter = local_map(_inter_chunks, out_placements=(heads, state),
+                      in_placements=(heads, heads,
+                                     state if with_h0 else None),
+                      device_mesh=mesh, redistribute_inputs=True)
+    outputs = local_map(_chunk_outputs, out_placements=chunks,
+                        in_placements=(chunks,) * 4, device_mesh=mesh,
+                        redistribute_inputs=True)
+    return intra, inter, outputs
+
+
+def ssd_chunked(x, dt, a_log, bmat, cmat, chunk: int,
+                h0: Optional[torch.Tensor] = None,
+                return_state: bool = False):
+    """Chunked SSD. Shapes as ssd_quadratic; S % chunk == 0.
+
+    ``h0`` (B,H,N,P) optional incoming state; ``return_state`` also returns
+    the final state (for prefill→decode handoff).
+    """
+    bsz, s, h, p = x.shape
+    g, n = bmat.shape[2:]
+    q = chunk
+    nc = s // q
+    a = -torch.exp(a_log.float())
+    f32 = torch.float32
+
+    xc = shard_ssd_chunks(x.to(f32).reshape(bsz, nc, q, h, p))
+    dtc = shard_ssd_chunks(dt.to(f32).reshape(bsz, nc, q, h))
+    # B and C stay per group here; each stage repeats them to the heads
+    bc = shard_ssd_chunks(bmat.to(f32).reshape(bsz, nc, q, g, n))
+    cc = shard_ssd_chunks(cmat.to(f32).reshape(bsz, nc, q, g, n))
+    intra, inter, outputs = _intra_chunks, _inter_chunks, _chunk_outputs
+    if isinstance(xc, DTensor):
+        intra, inter, outputs = _sharded_stages(xc, h0 is not None)
+        h0 = None if h0 is None else replicate(h0, xc.device_mesh)
+
+    y_intra, s_c, chunk_decay, cum = intra(xc, dtc, bc, cc, a)
+    s_c = shard_ssd_states(s_c, h_axis=2)
+    chunk_decay = shard_ssd_states(chunk_decay, h_axis=2)
+    h_prev, state = inter(s_c, chunk_decay,
+                          h0.to(f32) if h0 is not None else None)
+    y = outputs(y_intra, cc, cum, h_prev).reshape(bsz, s, h, p).to(x.dtype)
     if return_state:
         return y, state.to(x.dtype)
     return y
@@ -211,8 +290,9 @@ class Mamba2Mixer(nn.Module):
         d, di = cfg.d_model, cfg.d_inner
         gn = cfg.n_groups * cfg.d_state
         conv_ch = di + 2 * gn
-        self.in_proj = Dense(d, 2 * di + 2 * gn + cfg.n_heads, **kw)
-        self.out_proj = Dense(di, d, **kw)
+        self.in_proj = Dense(d, 2 * di + 2 * gn + cfg.n_heads,
+                             ("embed", "inner"), **kw)
+        self.out_proj = Dense(di, d, ("inner", "embed"), **kw)
         self.conv_w = _normal(generator, (cfg.conv_kernel, conv_ch),
                               cfg.conv_kernel ** -0.5, device, dtype)
         f32 = dict(device=device, dtype=torch.float32)
@@ -229,6 +309,9 @@ class Mamba2Mixer(nn.Module):
                                               dtype=dtype),
                                    requires_grad=False)
         self.norm = layers.RMSNorm(di, device=device, dtype=dtype)
+        self.param_axes = {"conv_w": ("conv_k", "inner"),
+                           "conv_b": ("inner",), "a_log": ("heads",),
+                           "dt_bias": ("heads",), "d_skip": ("heads",)}
 
 
 def _causal_conv(seq: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -239,7 +322,7 @@ def _causal_conv(seq: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     if prev is None:
         prev = seq.new_zeros((seq.shape[0], k - 1, seq.shape[2]))
     full = torch.cat([prev, seq], dim=1)
-    out = torch.zeros(seq.shape, dtype=torch.float32, device=seq.device)
+    out = torch.zeros_like(seq, dtype=torch.float32)
     for i in range(k):
         out = out + full[:, i:i + seq.shape[1], :].float() * w[i].float()
     return (out + b.float()).to(seq.dtype)
@@ -271,7 +354,7 @@ def _output(p: Mamba2Mixer, cfg: SSMConfig, y: torch.Tensor,
     """Skip connection, gated norm and the output projection."""
     bsz, s = y.shape[:2]
     y = y + x * p.d_skip.to(x.dtype)[None, None, :, None]
-    y = y.reshape(bsz, s, cfg.d_inner)
+    y = grad_in_layout(y.reshape(bsz, s, cfg.d_inner))
     y = layers.rmsnorm(p.norm, y * F.silu(z))
     return dense(p.out_proj, y)
 

@@ -23,6 +23,9 @@ import torch
 from torch import nn
 from torch.utils import checkpoint as ckpt
 
+from repro_torch.sharding.context import (grad_in_layout, shard_logits,
+                                          shard_seq, whole_within)
+
 from . import attention, layers, moe as moe_lib, ssm as ssm_lib
 from .attention import AttnConfig, KVCache
 from .moe import MoEConfig
@@ -203,7 +206,8 @@ class DecoderLM(nn.Module):
         self.final_norm = layers.RMSNorm(cfg.d_model, device=device,
                                          dtype=dtype)
         if not cfg.tied_embeddings:
-            self.lm_head = layers.Dense(cfg.d_model, cfg.padded_vocab, **kw)
+            self.lm_head = layers.Dense(cfg.d_model, cfg.padded_vocab,
+                                        ("embed", "vocab"), **kw)
 
 
 def init(cfg: ModelConfig, generator: Optional[torch.Generator], *,
@@ -241,7 +245,7 @@ def _block_apply(cfg: ModelConfig, bp: Block, x: torch.Tensor,
     if cfg.post_norms:
         mlp_out = layers.rmsnorm(bp.post_mlp_norm, mlp_out,
                                  plus_one=cfg.norm_plus_one)
-    return x + mlp_out, aux
+    return shard_seq(x + mlp_out), aux
 
 
 def _ssm_block_apply(cfg: ModelConfig, bp: SSMBlock, x: torch.Tensor,
@@ -249,7 +253,7 @@ def _ssm_block_apply(cfg: ModelConfig, bp: SSMBlock, x: torch.Tensor,
                      ) -> torch.Tensor:
     """One Mamba2 block around ``mix`` (normed input → mixer output)."""
     h = layers.rmsnorm(bp.pre_norm, x, plus_one=cfg.norm_plus_one)
-    return x + mix(h)
+    return shard_seq(x + mix(h))
 
 
 def _embed(cfg: ModelConfig, model: DecoderLM, tokens: torch.Tensor,
@@ -262,7 +266,7 @@ def _embed(cfg: ModelConfig, model: DecoderLM, tokens: torch.Tensor,
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
-    return x
+    return shard_seq(x)
 
 
 def _rope_tables(cfg: ModelConfig, max_pos: int, device):
@@ -276,9 +280,11 @@ def _logits(cfg: ModelConfig, model: DecoderLM,
             x: torch.Tensor) -> torch.Tensor:
     x = layers.rmsnorm(model.final_norm, x, plus_one=cfg.norm_plus_one)
     if cfg.tied_embeddings:
-        logits = x @ model.embed.w.to(x.dtype).T
+        logits = grad_in_layout(
+            whole_within(x, 0, 1) @ model.embed.w.to(x.dtype).T)
     else:
         logits = layers.dense(model.lm_head, x)
+    logits = shard_logits(logits)
     logits = layers.softcap(logits.float(), cfg.final_softcap)
     if cfg.padded_vocab != cfg.vocab:
         # pad columns carry no probability mass; out of place, so that a
@@ -395,6 +401,8 @@ def plan_kv(cfg: ModelConfig, kv: KVCache) -> KVCache:
     their capacity (:func:`~repro_torch.models.attention.
     planned_pv_right_first`; the ``REPRO_SERVE_PLANNER=0`` kill-switch,
     or a failure, gives left), carried by every decode step of them."""
+    if kv.k.device.type == "meta":       # an abstract cache: no consult
+        return kv
     right = attention.planned_pv_right_first(
         1, kv.k.shape[2], cfg.head_dim, cfg.d_model, device=kv.k.device)
     return kv._replace(right_first=right)

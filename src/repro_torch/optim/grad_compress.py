@@ -4,9 +4,9 @@
 Blockwise-symmetric int8 per 256-element block of the flattened leaf,
 fp32 scales; the residual of each quantization is added back before the
 next one (error feedback), so the quantization noise does not bias
-training. The reference compresses the cross-pod all-reduce; nothing on
-one card calls this module, and it waits for the port's distribution
-layer (ROADMAP A9). Trees are dicts of tensors keyed by name.
+training. It is meant for the cross-pod gradient all-reduce; as in the
+reference, no train step calls it. Trees are dicts of tensors keyed by
+name.
 """
 
 from __future__ import annotations

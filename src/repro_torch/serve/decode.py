@@ -27,6 +27,7 @@ from repro_torch.models import api
 from repro_torch.models.transformer import ModelConfig
 from repro_torch.runtime.supervisor import StragglerMonitor
 from repro_torch.serve.plan_cache import default_plan_service, planner_enabled
+from repro_torch.sharding.context import whole_within
 
 
 def plan_warmup(cfg: ModelConfig, max_s: int,
@@ -66,7 +67,8 @@ def serve_step(state: ServeState, params: Any, *, cfg: ModelConfig,
     """One decode step for the whole batch → (new state, next tokens)."""
     logits, caches = api.decode_step(params, cfg, state.last_tokens,
                                      state.caches)
-    logits = logits[:, -1, :]
+    # a sharded vocab is gathered: the pick reads every logit of a row
+    logits = whole_within(logits[:, -1, :], 0, 1)
     if temperature > 0:
         probs = torch.softmax(logits / temperature, dim=-1)
         nxt = torch.multinomial(probs, 1, generator=state.rng)[:, 0]

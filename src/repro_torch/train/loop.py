@@ -20,6 +20,7 @@ decode step (ROADMAP A6).
 
 from __future__ import annotations
 
+import contextlib
 import signal
 import time
 from typing import Callable, Dict, Optional
@@ -31,6 +32,8 @@ from repro_torch.data.pipeline import Prefetcher
 from repro_torch.models.layers import resolve_device
 from repro_torch.models.transformer import ModelConfig
 from repro_torch.runtime.supervisor import StragglerMonitor
+from repro_torch.sharding.context import (active_mesh, activation_sharding,
+                                          shard_batch)
 from repro_torch.train.train_step import (TrainState, checkpoint_tree,
                                           load_checkpoint_tree,
                                           make_train_state, train_step)
@@ -53,16 +56,21 @@ def train(
     log_fn: Callable[[str], None] = print,
     on_step: Optional[Callable[[int, Dict[str, float], float], None]] = None,
     device=None,
+    mesh=None,
 ) -> TrainState:
     """Train ``cfg`` from random weights (``seed``) or the latest
     checkpoint under ``ckpt_dir`` up to ``total_steps`` on ``device`` (the
-    card unless ``device="cpu"``); returns the final state. ``on_step``,
+    card unless ``device="cpu"``); returns the final state. With a
+    ``mesh`` the state is sharded over it, each rank takes its rows of
+    every batch, steps run under ``activation_sharding(mesh)`` (unless
+    the caller's context is active) and checkpoints carry the specs. ``on_step``,
     when given, receives each step's index, its metrics as floats and its
     wall seconds."""
     device = resolve_device(device)
     state = make_train_state(cfg, optimizer=optimizer, seed=seed,
-                             device=device)
-    mgr = CheckpointManager(ckpt_dir, keep=keep) if ckpt_dir else None
+                             device=device, mesh=mesh)
+    mgr = CheckpointManager(ckpt_dir, keep=keep, mesh=mesh) \
+        if ckpt_dir else None
     start_step = 0
     previous_handler = None
     if mgr is not None:
@@ -76,18 +84,23 @@ def train(
 
     monitor = StragglerMonitor()
     prefetch = Prefetcher(source, start_step=start_step)
+    # the hooks of an enclosing context stay as they are; a mesh alone
+    # activates its own, a step at a time
+    own = mesh is not None and active_mesh() is None
     try:
         for step in range(start_step, total_steps):
             bstep, np_batch = next(prefetch)
             if bstep != step:
                 raise RuntimeError(f"prefetcher at batch {bstep}, "
                                    f"loop at step {step}")
-            batch = {k: torch.from_numpy(v).to(device)
+            batch = {k: shard_batch(torch.from_numpy(v).to(device), mesh)
                      for k, v in np_batch.items()}
             t0 = time.perf_counter()
-            state, metrics = train_step(
-                state, batch, cfg=cfg, optimizer=optimizer, peak_lr=peak_lr,
-                warmup=warmup, total_steps=total_steps)
+            with activation_sharding(mesh) if own else \
+                    contextlib.nullcontext():
+                state, metrics = train_step(
+                    state, batch, cfg=cfg, optimizer=optimizer,
+                    peak_lr=peak_lr, warmup=warmup, total_steps=total_steps)
             metrics = {k: float(v) for k, v in metrics.items()}
             wall = time.perf_counter() - t0
             slow = monitor.observe(step, wall)

@@ -12,6 +12,12 @@ forward and backward passes (so a block that ``remat`` recomputes in the
 backward pass reads it too) and the masters are put back afterwards; the
 optimizer then updates the masters in place.
 
+On a mesh (:func:`make_train_state` with ``mesh=``) the masters, the
+working copy, the gradients and the moments are DTensors: the same code
+runs, DTensor inserting the collectives (gradient reductions onto the
+moments' FSDP layout, gathers onto the parameters'), and the returned
+metrics are plain replicated tensors.
+
 The step runs eagerly: the reference jit-compiles it, and a graph-captured
 step waits for the capture design of the decode step (ROADMAP A6).
 """
@@ -22,6 +28,7 @@ from typing import Any, Dict, Iterator, List, Mapping, NamedTuple, Tuple
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models import api
 from repro_torch.models.transformer import ModelConfig
@@ -37,10 +44,23 @@ class TrainState(NamedTuple):
 
 
 def make_train_state(cfg: ModelConfig, optimizer: str = "adamw",
-                     seed: int = 0, device=None) -> TrainState:
+                     seed: int = 0, device=None, mesh=None,
+                     policy: str = "auto") -> TrainState:
     """Random fp32 weights from ``seed`` (``api.init``) on ``device`` (the
-    card unless ``device="cpu"``) and a fresh optimizer state."""
+    card unless ``device="cpu"``) and a fresh optimizer state. On a
+    ``mesh`` every rank draws the same weights and keeps its shard: the
+    parameters become DTensors laid out by the rules of ``policy``
+    (fsdp | zero1 | auto) and the moments by the FSDP rules
+    (:mod:`repro_torch.launch.specs`)."""
     model = api.init(cfg, seed=seed, device=device, dtype=torch.float32)
+    if mesh is not None:
+        from repro_torch.launch import specs
+        specs.shard_model(model, cfg, mesh,
+                          specs.resolve_policy(cfg, mesh, policy))
+        params = dict(model.named_parameters())
+        return TrainState(params=params, step=0, model=model,
+                          opt=specs.init_optimizer(optimizer, params, cfg,
+                                                   mesh))
     params = dict(model.named_parameters())
     opt = muon.init(params) if optimizer == "muon" else adamw.init(params)
     return TrainState(params=params, opt=opt, step=0, model=model)
@@ -75,6 +95,9 @@ def _install(owners, tensors) -> None:
 
 
 def _micro_batches(batch: Mapping[str, Any], n: int) -> Iterator[Dict]:
+    if n == 1:
+        yield dict(batch)
+        return
     size = len(batch["tokens"]) // n
     for i in range(n):
         yield {k: v[i * size:(i + 1) * size] for k, v in batch.items()}
@@ -97,8 +120,9 @@ def _grads(cfg: ModelConfig, state: TrainState, batch: Mapping[str, Any],
     _install(owners, work)
     try:
         for mb in _micro_batches(batch, max(1, accum_steps)):
-            total, metrics = api.loss_fn(state.model, cfg, mb)
-            grads = torch.autograd.grad(total, work, allow_unused=True)
+            with api.vocab_parallel(cfg):
+                total, metrics = api.loss_fn(state.model, cfg, mb)
+                grads = torch.autograd.grad(total, work, allow_unused=True)
             grads = [torch.zeros_like(w) if g is None else g
                      for w, g in zip(work, grads)]
             if accum_steps <= 1:
@@ -138,4 +162,6 @@ def train_step(state: TrainState, batch: Mapping[str, Any], *,
                            weight_decay=weight_decay)
     out = {"lr": lr_t.to(metrics["loss"].device),
            "grad_norm": adamw.global_norm(grads.values()), **metrics}
+    out = {k: v.full_tensor() if isinstance(v, DTensor) else v
+           for k, v in out.items()}
     return state._replace(opt=opt, step=state.step + 1), out

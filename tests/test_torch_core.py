@@ -158,7 +158,7 @@ def test_port_sources_name_no_jax_and_no_reference_module():
         r"^\s*(import\s+(jax|repro)\b(?!_torch)|from\s+(jax|repro)\b(?!_torch))",
         re.MULTILINE)
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py", ROOT / "run_multipod_torch.py"]
     assert len(files) > 10
     offenders = [str(f) for f in files if pattern.search(f.read_text())]
     assert offenders == []

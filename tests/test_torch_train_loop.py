@@ -355,5 +355,7 @@ def test_launch_train_smoke_on_the_cpu(tmp_path, capsys):
             str(tmp_path)]
     assert launch_train.main(argv) == 0
     assert "[train] done at step 4; restarts=0" in capsys.readouterr().out
-    assert launch_train.main(argv[:-2] + ["--model-parallel", "2"]) == 2
-    assert "ROADMAP A9" in capsys.readouterr().err
+    # a world of one: the (1, 1) mesh of make_host_mesh(model=2)
+    assert launch_train.main(argv[:-2] + ["--model-parallel", "2"]) == 0
+    out = capsys.readouterr().out
+    assert "[train] done at step 4 on mesh {'data': 1, 'model': 1}" in out
