@@ -110,12 +110,12 @@ CHAIN_SLOW = 1.15
 #: operand's mode at run time. Source file -> (text, variant text) pairs.
 RUNTIME_MODE_PATCH = {
     "symm.cu": ((
-        "    if (seg == 1)   // the band: its own call site, its copier "
+        "      if (seg == 1)   // the band: its own call site, its copier "
         "fixed at kSymLower\n"
-        "      accumulate<BM, BN, true>(a, b, row0, col0, lo, hi, smem, acc);\n"
-        "    else\n"
-        "      accumulate<BM, BN>(a, b, row0, col0, lo, hi, smem, acc);\n",
-        "    accumulate<BM, BN, true>(a, b, row0, col0, lo, hi, smem, acc);\n"),),
+        "        accumulate<BM, BN, true>(a, bi, row0, col0, lo, hi, smem, acc);\n"
+        "      else\n"
+        "        accumulate<BM, BN>(a, bi, row0, col0, lo, hi, smem, acc);\n",
+        "      accumulate<BM, BN, true>(a, bi, row0, col0, lo, hi, smem, acc);\n"),),
     "sgemm.cuh": (("    if (SYM) {", "    if (SYM && mode == kSymLower) {"),),
 }
 
@@ -597,10 +597,11 @@ def time_symm_variant(torch, np, label: str, shapes) -> None:
                 ws = (torch.empty((cfg.split, m, n), device="cuda")
                       if cfg.split > 1 else None)
                 _build.check(variant(
-                    s.data_ptr(), s.stride(0), s.stride(1),
-                    b.data_ptr(), b.stride(0), b.stride(1), c.data_ptr(),
-                    None if ws is None else ws.data_ptr(), m, n, cfg.config,
-                    cfg.split, cfg.kchunk, _build.stream(0)), "symm variant")
+                    s.data_ptr(), 0, s.stride(0), s.stride(1),
+                    b.data_ptr(), 0, b.stride(0), b.stride(1), c.data_ptr(),
+                    None if ws is None else ws.data_ptr(), 1, m, n,
+                    cfg.config, cfg.split, cfg.kchunk, _build.stream(0)),
+                    "symm variant")
                 return c
             tree = lambda cfg=cfg: symm_mod.launch(s, b, cfg)
             times = [chip_smoke.time_ms(torch, fn, inner=10)

@@ -182,7 +182,22 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    of 256 or 512 ranks: per-device peak bytes, FLOPs, collective bytes by
    kind, the roofline terms with the H100's figures, the bottleneck and
    the roofline fraction; the state's local bytes must equal those the
-   specs give, and any cell's error fails the phase.
+   specs give, and any cell's error fails the phase;
+16. the batched path (the reference's vmap path): (a) each of the five
+   matrix kernels on a batch of :data:`BATCHED_KERNEL_BATCH` instances in
+   one launch, at phase 3's main-path shape and at a ragged shape with
+   transposed-view (batched) inputs, each instance against its plain
+   version at phase 3's tolerance, timed per launch and per instance (both
+   methods) beside one batched ATen call (``torch.bmm`` or its
+   expression) and the bound of the batch's work; (b) every algorithm of
+   aatb, abcd and abab at :data:`BATCHED_POINTS` (a ``small``-grid point
+   and the Experiment 1 points) on the ``cuda`` backend:
+   ``execute_batch`` per instance against ``execute`` (phase 5's
+   tolerance), and ``time_algorithm_batched`` (one replayed graph of the
+   batched walk) per instance against ``time_algorithm`` at batch 1, 32
+   and 256 (32 at the Experiment 1 points), each batched replay gated to
+   launch exactly the algorithm's kernel steps, whatever the batch; the
+   launches of (b) are counted from 0 (``launches_phase16``).
 
 Multi-card runs are not made: NCCL refuses two ranks on one card, so the
 layouts across ranks are checked by the gloo tests and the dry-run.
@@ -693,13 +708,15 @@ def run_sweeps(torch, atlas_dir: Path):
     return launches, by_family
 
 
-def _agree(torch, label: str, got, want) -> None:
-    """max|got - want| <= 1e-3 + 1e-4·max|want|, finite, same shape."""
+def _agree(torch, label: str, got, want, quiet: bool = False) -> None:
+    """max|got - want| <= 1e-3 + 1e-4·max|want|, finite, same shape;
+    printed unless ``quiet``."""
     torch.cuda.synchronize()
     scale = float(want.abs().max())
     err = float((got - want).abs().max())
-    print(f"algorithm {label}: max_abs_err={err:.3e} "
-          f"(max |value| {scale:.3e})")
+    if not quiet:
+        print(f"algorithm {label}: max_abs_err={err:.3e} "
+              f"(max |value| {scale:.3e})")
     if got.shape != want.shape or not bool(torch.isfinite(got).all()) \
             or err > 1e-3 + 1e-4 * scale:
         raise AssertionError(f"{label} disagrees with the plain torch backend")
@@ -2690,14 +2707,18 @@ def print_ptxas_report(log: Path) -> dict:
             tiled = re.search(r"(gemm|symm|chain)_kernelILi(\d+)ELi(\d+)E", fn)
             square = re.search(r"\d+syrk_kernelILi(\d+)E", fn)
             fused = re.search(r"gemm_syrk_kernelILi(\d+)E", fn)
+            # A matrix kernel's batched instance (its template flag
+            # BATCHED) is named "batched".
+            loop = "batched " if (tiled or square or fused) and "Lb1E" in fn \
+                else ""
             name = (f"flash_kernel<f32,{f32.group(1)}> " if f32 else
                     f"flash_tc_kernel<bf16,{tc.group(1)}> " if tc else
                     f"{tiled.group(1)}_kernel<{tiled.group(2)}x"
-                    f"{tiled.group(3)}> " if tiled else
-                    f"syrk_kernel<{square.group(1)}x{square.group(1)}> "
+                    f"{tiled.group(3)}> {loop}" if tiled else
+                    f"syrk_kernel<{square.group(1)}x{square.group(1)}> {loop}"
                     if square else
-                    f"gemm_syrk_kernel<bl{fused.group(1)}> " if fused else
-                    "split_sum_kernel " if "split_sum_kernel" in fn else
+                    f"gemm_syrk_kernel<bl{fused.group(1)}> {loop}" if fused
+                    else "split_sum_kernel " if "split_sum_kernel" in fn else
                     "tril_sum_kernel " if "tril_sum_kernel" in fn else "")
         if line.startswith("=="):
             name = ""
@@ -3650,6 +3671,265 @@ def distribution_phase(torch, np, phase14: dict, smi: str) -> dict:
     return out
 
 
+#: Phase 16: the batch of the kernel checks, the points of the batched
+#: path (one of the ``small`` grid's, and the Experiment 1 points), the
+#: batches each is timed at, and the timed replays per measurement.
+BATCHED_KERNEL_BATCH = 8
+BATCHED_POINTS = (
+    ("aatb", (96, 64, 128), (1, 32, 256)),
+    ("abcd", (96, 64, 128, 32, 96), (1, 32, 256)),
+    ("abab", (96, 64, 128), (1, 32, 256)),
+    ("aatb", (1200, 800, 400), (32,)),
+    ("abcd", (400, 1200, 400, 1200, 400), (32,)),
+    ("abab", (1200, 800, 400), (32,)))
+BATCHED_REPS = 10
+
+
+def batched_kernel_cases(torch, rng, batch: int):
+    """(kernel, label, kernel call, plain call, library call, flops,
+    bytes) of one instance, on ``batch`` instances: at phase 3's main-path
+    shape and at a ragged shape with transposed views. The library call is
+    one batched ATen call (``torch.bmm``) or expression."""
+    from repro_torch.kernels import ops, ref
+
+    def mats(r, c, view=False):
+        x = rng.standard_normal((batch, c, r) if view else (batch, r, c))
+        t = torch.from_numpy(x).float().to(DEVICE)
+        return t.mT if view else t
+
+    def sym_with_garbage(m):
+        s = mats(m, m)
+        return torch.tril(s + s.mT) + torch.triu(mats(m, m) * 1e3, 1)
+
+    def full(s):
+        return torch.tril(s) + torch.tril(s, -1).mT
+
+    f = 4
+    cases = []
+    for label, (m, k, n), view in (("1200x400x1200", (1200, 400, 1200), False),
+                                   ("1100x333x1037, A=Xᵀ views",
+                                    (1100, 333, 1037), True)):
+        A, B = mats(m, k, view), mats(k, n)
+        cases.append(("gemm", label, lambda A=A, B=B: ops.gemm(A, B),
+                      lambda A=A, B=B: ref.gemm(A, B),
+                      lambda A=A, B=B: torch.bmm(A, B),
+                      2 * m * n * k, f * (m * k + k * n + m * n)))
+    for label, (m, k), view in (("1200x800", (1200, 800), False),
+                                ("1100x333, A=Xᵀ views", (1100, 333), True)):
+        A = mats(m, k, view)
+        cases.append(("syrk", label, lambda A=A: ops.syrk(A),
+                      lambda A=A: ref.syrk(A),
+                      lambda A=A: torch.tril(torch.bmm(A, A.mT)),
+                      (m + 1) * m * k, f * (m * k + m * m)))
+    for label, (m, n), side_r in (
+            ("1200x400, garbage above diag", (1200, 400), False),
+            ("1100x333 side R, B=Yᵀ views, garbage above diag", (1100, 333),
+             True)):
+        S = sym_with_garbage(m)
+        if side_r:
+            Y = mats(n, m)
+            run = lambda S=S, Y=Y: ops.symm(S, Y.mT).mT
+            plain = lambda S=S, Y=Y: Y @ ref.tri2full(S)
+            library = lambda S=S, Y=Y: torch.bmm(Y, full(S))
+        else:
+            B = mats(m, n)
+            run = lambda S=S, B=B: ops.symm(S, B)
+            plain = lambda S=S, B=B: ref.symm(S, B)
+            library = lambda S=S, B=B: torch.bmm(full(S), B)
+        cases.append(("symm", label, run, plain, library, 2 * m * m * n,
+                      f * (m * (m + 1) // 2 + 2 * m * n)))
+    for label, (m, k, l, n), view in (
+            ("1200*800*1200*400", (1200, 800, 1200, 400), False),
+            ("1100*333*1037*555, C=Zᵀ views", (1100, 333, 1037, 555), True)):
+        A, B, C = mats(m, k), mats(k, l), mats(l, n, view)
+        cases.append(("chain_gemm", label,
+                      lambda A=A, B=B, C=C: ops.chain_gemm(A, B, C),
+                      lambda A=A, B=B, C=C: ref.chain_gemm(A, B, C),
+                      lambda A=A, B=B, C=C: torch.bmm(torch.bmm(A, B), C),
+                      2 * m * k * l + 2 * m * l * n,
+                      f * (m * k + k * l + l * n + m * n)))
+    for label, (m, k, l), view in (
+            ("1200·400·800", (1200, 400, 800), False),
+            ("1100·333·1037, A=Xᵀ views", (1100, 333, 1037), True)):
+        A, B = mats(m, k, view), mats(k, l)
+
+        def library(A=A, B=B):
+            m1 = torch.bmm(A, B)
+            return torch.tril(torch.bmm(m1, m1.mT))
+
+        cases.append(("gemm_syrk", label,
+                      lambda A=A, B=B: ops.gemm_syrk(A, B),
+                      lambda A=A, B=B: ref.gemm_syrk(A, B), library,
+                      2 * m * l * k + (m + 1) * m * l,
+                      f * (m * k + k * l + m * m)))
+    return cases
+
+
+def check_batched_kernels(torch, np) -> dict:
+    """Phase 16 (a): each of the five matrix kernels on a batch of
+    :data:`BATCHED_KERNEL_BATCH` instances in one launch, each instance
+    against its plain version at phase 3's tolerance, timed per launch
+    and per instance beside one batched ATen call and the bound of the
+    batch's work."""
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(SEED)
+    batch = BATCHED_KERNEL_BATCH
+    results = {}
+    for name, label, run, plain, library, flops, nbytes in \
+            batched_kernel_cases(torch, rng, batch):
+        before = ops.launch_counts()[name]
+        out = run()
+        launched = ops.launch_counts()[name] - before
+        expect = plain()
+        torch.cuda.synchronize()
+        if launched != 1:
+            raise AssertionError(f"batched {name} [{label}]: {launched} "
+                                 f"launches for one batch, not 1")
+        if out.shape != expect.shape or out.shape[0] != batch or \
+                not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"batched {name} [{label}]: bad output "
+                                 f"{tuple(out.shape)} vs "
+                                 f"{tuple(expect.shape)}")
+        rtol, atol = TOL[name]
+        diff = (out - expect).abs()
+        max_abs = float(diff.max())
+        if name == "gemm_syrk":   # per instance, as phase 3 holds one
+            scale = expect.abs().amax(dim=(1, 2))
+            ok = bool((diff.amax(dim=(1, 2)) <= atol + rtol * scale).all())
+        else:
+            ok = bool((diff <= atol + rtol * expect.abs()).all())
+        if name in ("syrk", "gemm_syrk") and \
+                bool((torch.triu(out, 1) != 0).any()):
+            raise AssertionError(f"batched {name} [{label}]: nonzero "
+                                 f"entries above the diagonal")
+        ms, plain_ms, lib_ms = (time_ms(torch, run), time_ms(torch, plain),
+                                time_ms(torch, library))
+        ms_b2b = time_ms(torch, run, inner=10)
+        lib_b2b = time_ms(torch, library, inner=10)
+        b_ms, b_by = bound(batch * flops, batch * nbytes)
+        print(f"phase 16 batched {name:10s} [{label}] x{batch}: "
+              f"max_abs_err={max_abs:.3e} {'ok' if ok else 'FAIL'}; "
+              f"ms={ms:.4f} ({ms / batch:.4f} an instance) "
+              f"ms_b2b={ms_b2b:.4f} ({ms_b2b / batch:.4f} an instance) "
+              f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+              f"(b2b {lib_b2b:.4f}) bound_ms={b_ms:.4f} ({b_by}) "
+              f"TFLOP/s={batch * flops / ms_b2b / 1e9:.2f} (b2b) "
+              f"bound_share={b_ms / ms_b2b:.1%} (b2b) "
+              f"b2b kernel/library={ms_b2b / lib_b2b:.3f}")
+        if not ok:
+            raise AssertionError(f"batched {name} [{label}] disagrees with "
+                                 f"its plain version beyond tolerance")
+        r = results.setdefault(name, {"batch": batch, "max_abs_err": 0.0})
+        r["max_abs_err"] = max(r["max_abs_err"], max_abs)
+        if "ms" not in r:   # the first case is phase 3's main-path shape
+            r.update(shape=label, ms=ms, ms_b2b=ms_b2b,
+                     ms_per_instance=ms / batch,
+                     ms_b2b_per_instance=ms_b2b / batch, plain_ms=plain_ms,
+                     library_ms=lib_ms, library_ms_b2b=lib_b2b,
+                     bound_ms=b_ms, bound_by=b_by)
+    return results
+
+
+def batched_path(torch) -> dict:
+    """Phase 16 (b): every algorithm of aatb, abcd and abab on the
+    ``cuda`` backend's batched path, at :data:`BATCHED_POINTS`:
+    ``execute_batch`` per instance against ``execute`` (phase 5's
+    tolerance), and ``time_algorithm_batched`` (one replayed graph of the
+    batched walk) per instance against ``time_algorithm`` at each batch,
+    with the launches of one batched replay gated to equal the
+    algorithm's kernel steps. Launches counted from 0 over the path."""
+    from repro_torch.core.backends import get_backend, register_torch_backends
+    from repro_torch.core.expressions import get_spec
+    from repro_torch.kernels import ops
+
+    register_torch_backends()
+    rows = []
+    ops.reset_launch_counts()
+    for family, point, batches in BATCHED_POINTS:
+        # A backend a point, so that its graphs' pools go with it.
+        runner = get_backend("cuda", reps=BATCHED_REPS, seed=SEED)
+        if runner.timing != "graph":
+            raise AssertionError("the cuda backend does not time CUDA graphs")
+        for alg in get_spec(family).algorithms(point):
+            operands = runner.make_operands(alg)
+            before = ops.launch_counts()
+            runner.execute(alg, operands)
+            after = ops.launch_counts()
+            steps = {k: after[k] - before[k] for k in after
+                     if after[k] != before[k]}
+            single_ms = runner.time_algorithm(alg, operands) * 1e3
+            row = {"family": family, "point": list(point),
+                   "algorithm": alg.name, "steps": steps,
+                   "time_algorithm_ms": single_ms, "batched": {}}
+            for batch in batches:
+                batched = runner.make_batched_operands(alg, batch)
+                if batch == max(batches):   # per instance vs execute
+                    got = runner.execute_batch(alg, batched)
+                    for i in range(batch):
+                        want = runner.execute(
+                            alg, {b: t[i] for b, t in batched.items()})
+                        _agree(torch, f"{family}{point} {alg.name} batch "
+                               f"{batch} instance {i}", got[i], want,
+                               quiet=True)
+                # A graph memo miss: the eager walk, a warm-up replay and
+                # the timed replays each launch every step once.
+                before = ops.launch_counts()
+                ms = runner.time_algorithm_batched(alg, operands=batched) * 1e3
+                after = ops.launch_counts()
+                counts = {k: after[k] - before[k] for k in after
+                          if after[k] != before[k]}
+                executions = 2 + BATCHED_REPS
+                if counts != {k: n * executions for k, n in steps.items()}:
+                    raise AssertionError(
+                        f"{family}{point} {alg.name} batch {batch}: "
+                        f"{counts} launches in {executions} executions, not "
+                        f"the algorithm's steps {steps} each")
+                row["batched"][batch] = {
+                    "ms": ms, "ms_per_instance": ms / batch,
+                    "per_instance_over_single": ms / batch / single_ms,
+                    "launches_per_replay": {k: n // executions
+                                            for k, n in counts.items()}}
+                del batched
+            print(f"phase 16 {family}{point} {alg.name}: time_algorithm "
+                  f"{single_ms:.4f} ms; batched per instance " + ", ".join(
+                      f"b{b} {r['ms_per_instance']:.4f} ms "
+                      f"({r['per_instance_over_single']:.3f}x)"
+                      for b, r in row["batched"].items()) +
+                  f"; launches a replay {steps}")
+            rows.append(row)
+        del runner
+        release(torch)
+    total = ops.launch_counts()
+    print(f"phase 16 kernel launches: {total}")
+    idle = [k for k in SWEEP_STEPS if not total[k]]
+    if idle:
+        raise AssertionError(f"phase 16 never launched {idle}")
+    return {"rows": rows, "launches": total}
+
+
+def batched_phase(torch, np) -> dict:
+    """Phase 16: the batched path, kernels (a) then algorithms (b)."""
+    t0 = time.perf_counter()
+    kernels = check_batched_kernels(torch, np)
+    path = batched_path(torch)
+    ratios = [r["per_instance_over_single"] for row in path["rows"]
+              for r in row["batched"].values()]
+    for family, point, batches in BATCHED_POINTS:
+        for b in batches:
+            rs = sorted(row["batched"][b]["per_instance_over_single"]
+                        for row in path["rows"]
+                        if row["family"] == family
+                        and row["point"] == list(point))
+            print(f"phase 16 {family}{point} batch {b}: per-instance time "
+                  f"over time_algorithm, median {rs[len(rs) // 2]:.4f} "
+                  f"(min {rs[0]:.4f}, max {rs[-1]:.4f}) over {len(rs)} "
+                  f"algorithms")
+    print(f"phase 16: {len(path['rows'])} algorithm points, "
+          f"{len(ratios)} batched timings, {time.perf_counter() - t0:.1f} s")
+    return {"kernels": kernels, **path}
+
+
 def memory_line(torch, phase: int) -> None:
     """The card's peak reserved memory since the start, after a phase."""
     print(f"device memory after phase {phase}: peak reserved "
@@ -3736,6 +4016,9 @@ def main() -> int:
     phase15 = distribution_phase(torch, np, phase14, smi)
     launches["flash_attention"] += phase15["serve"]["flash_launches"]
     memory_line(torch, 15)
+    release(torch)
+    phase16 = batched_phase(torch, np)
+    memory_line(torch, 16)
 
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
@@ -3753,7 +4036,10 @@ def main() -> int:
                 part: counts.get(name, 0)
                 for part, counts in phase10["parts"].items()},
             "launches_phase10_tune": phase10["tune_launches"].get(name, 0),
-            "launches_phase12": phase12.get(name, 0)})
+            "launches_phase12": phase12.get(name, 0),
+            "launches_phase16": phase16["launches"].get(name, 0)})
+        if name in phase16["kernels"]:
+            kernels[-1]["batched"] = phase16["kernels"][name]
     flash = families["flash"]
     next(k for k in kernels if k["name"] == "flash_attention")["phase11"] = {
         "shape": flash["shape"], "max_abs_err": flash["max_abs_err"],

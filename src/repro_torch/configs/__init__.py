@@ -7,6 +7,7 @@ from .base import (
     ARCH_IDS,
     SHAPES,
     ShapeSpec,
+    all_cells,
     get,
     get_smoke,
     normalize,
@@ -14,6 +15,6 @@ from .base import (
 )
 
 __all__ = [
-    "ALIASES", "ARCH_IDS", "SHAPES", "ShapeSpec", "get",
+    "ALIASES", "ARCH_IDS", "SHAPES", "ShapeSpec", "all_cells", "get",
     "get_smoke", "normalize", "shape_applicable",
 ]

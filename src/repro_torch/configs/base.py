@@ -92,3 +92,13 @@ def get(name: str) -> ModelConfig:
 def get_smoke(name: str) -> ModelConfig:
     return _module(name).smoke()
 
+
+def all_cells():
+    """Every (arch, shape) pair with its skip status — the 40-cell table."""
+    out = []
+    for arch in ARCH_IDS:
+        cfg = get(arch)
+        for sname, sspec in SHAPES.items():
+            run, why = shape_applicable(cfg, sspec)
+            out.append((arch, sname, run, why))
+    return out

@@ -354,34 +354,41 @@ class ExecutionBackend:
         backend, dtype = self.fingerprint_tags()
         return HardwareFingerprint(backend, host_label(), dtype)
 
-    def make_operands(self, alg: Algorithm) -> Dict[int, object]:
-        """Fresh random inputs for every distinct leaf *base* of ``alg``."""
+    def make_operands(self, alg: Algorithm,
+                      leading: Tuple[int, ...] = ()) -> Dict[int, object]:
+        """Fresh random inputs for every distinct leaf *base* of ``alg``.
+        ``leading`` prefixes every operand's shape (the batched path
+        passes ``(batch,)``), so batched and per-instance synthesis can
+        never diverge."""
         out: Dict[int, object] = {}
         for step in alg.steps:
             for ref in (step.lhs, step.rhs):
                 if isinstance(ref, Leaf) and ref.base not in out:
-                    out[ref.base] = self.make_leaf_operand(ref)
+                    out[ref.base] = self.make_leaf_operand(ref, leading)
         return out
 
-    def synthesize_leaf(self, ref: Leaf) -> np.ndarray:
+    def synthesize_leaf(self, ref: Leaf,
+                        leading: Tuple[int, ...] = ()) -> np.ndarray:
         """One leaf's operand on the host, before placement: float64
-        normals from ``default_rng((seed, base, r, c))`` (or the backend's
-        ``rng`` without a seed), symmetrized for symmetric leaves — bit
-        for bit what the reference package's backends draw. It touches no
-        device, so a helper thread may call it while the card is timed."""
+        normals of shape ``(*leading, r, c)`` from
+        ``default_rng((seed, base, r, c))`` (or the backend's ``rng``
+        without a seed), symmetrized for symmetric leaves — bit for bit
+        what the reference package's backends draw. It touches no device,
+        so a helper thread may call it while the card is timed."""
         r, c = (ref.cols, ref.rows) if ref.transposed else (
             ref.rows, ref.cols)
         rng = self.rng if self.seed is None else np.random.default_rng(
             (self.seed, ref.base, r, c))
-        a = rng.standard_normal((r, c))
+        a = rng.standard_normal((*leading, r, c))
         if ref.symmetric:
             a = (a + np.swapaxes(a, -1, -2)) / 2.0
         return a
 
-    def make_leaf_operand(self, ref: Leaf) -> object:
+    def make_leaf_operand(self, ref: Leaf,
+                          leading: Tuple[int, ...] = ()) -> object:
         """One leaf's operand buffer (untransposed, symmetrized, placed):
         :meth:`synthesize_leaf` handed to ``_asarray``."""
-        return self._asarray(self.synthesize_leaf(ref))
+        return self._asarray(self.synthesize_leaf(ref, leading))
 
     def execute(self, alg: Algorithm, operands: Dict[int, object]):
         """Evaluate ``alg`` on base-indexed operands via the one walker."""
@@ -427,6 +434,9 @@ class ExecutionBackend:
         — ``time_algorithm`` on :func:`synthetic_algorithm`, so the same
         protocol by construction."""
         return self.time_algorithm(synthetic_algorithm(call), reps=reps)
+
+    def num_inputs(self, alg: Algorithm) -> int:
+        return num_inputs(alg)
 
 
 # ---------------------------------------------------------------- registry --

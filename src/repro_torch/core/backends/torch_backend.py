@@ -36,6 +36,15 @@ one jitted program per algorithm (``JaxBackend._jitted``). The host's
 per-step work (the wrappers, the launch rules, allocation) stays out of
 the measured quantity, as the reference keeps its Python out of a jitted
 program. On the CPU the eager walk is timed.
+
+The batched path (:meth:`TorchBackend.build_batched`,
+:meth:`~TorchBackend.execute_batch`,
+:meth:`~TorchBackend.time_algorithm_batched`) is the reference's vmap
+path: one algorithm over a batch of operand sets stacked on one leading
+axis. The walk is the same; every kernel takes the batch as a grid axis
+of its own, so each step is one launch whatever the batch, and on a card
+``time_algorithm_batched`` replays one captured graph of the batched
+walk.
 """
 
 from __future__ import annotations
@@ -146,8 +155,10 @@ class CudaOps(TorchOps):
         self._lookup = config_lookup
 
     def _cfg(self, kind: str, dims: Tuple[int, ...], t: torch.Tensor):
-        """The tuned launch for ``(kind, dims)``, or None."""
-        if self._lookup is None:
+        """The tuned launch for ``(kind, dims)``, or None. A batched call
+        (``t`` 3-D) takes the wrapper's launch rule: the table's entries
+        were timed on one instance's grid."""
+        if self._lookup is None or t.dim() == 3:
             return None
         entry = self._lookup(kind, dims)
         if not entry:
@@ -204,6 +215,26 @@ class CapturedWalk:
     out: torch.Tensor
     launches: Mapping[str, int]
     nbytes: int
+
+
+def batch_size(backend: str, alg: Algorithm,
+               operands: Mapping[int, torch.Tensor]) -> int:
+    """The batch of batched operands: each must be one matrix per
+    instance on a single leading axis (the reference vmaps over one), and
+    all must share its size; anything else raises ``ValueError``."""
+    sizes = {}
+    for base, t in sorted(operands.items()):
+        if t.dim() != 3:
+            raise ValueError(
+                f"backend {backend!r} {alg.name}: operand {base} has shape "
+                f"{tuple(t.shape)}; the batched path takes one leading "
+                f"batch dim before the matrix dims")
+        sizes[base] = t.shape[0]
+    if len(set(sizes.values())) > 1:
+        detail = ", ".join(f"operand {b}: {n}" for b, n in sizes.items())
+        raise ValueError(f"backend {backend!r} {alg.name}: batch dim "
+                         f"mismatch: {detail}")
+    return next(iter(sizes.values()), 0)
 
 
 class TorchBackend(ExecutionBackend):
@@ -267,6 +298,50 @@ class TorchBackend(ExecutionBackend):
                     f"backend {self.name!r} measures {self.dtype}, but "
                     f"operand {base} is {t.dtype}; it is not cast")
         return super().execute(alg, operands)
+
+    # -- batched execution ---------------------------------------------------
+    def make_batched_operands(self, alg: Algorithm,
+                              batch: int) -> Dict[int, torch.Tensor]:
+        """``batch`` independent operand sets, stacked on a leading axis."""
+        return self.make_operands(alg, leading=(batch,))
+
+    def _args(self, alg: Algorithm, operands: Mapping[int, object]) -> list:
+        """Positional inputs of a built callable (chain leaf order); the
+        walk fetches base positions only, so the rest are any operand."""
+        some = next(iter(operands.values()))
+        return [operands.get(i, some) for i in range(self.num_inputs(alg))]
+
+    def build_batched(self, alg: Algorithm) -> Callable:
+        """A positional callable evaluating ``alg`` over a batch of
+        operand sets at once, each input (batch, rows, cols): the walk of
+        :meth:`build`, one launch a kernel step whatever the batch."""
+        fn = self.build(alg)
+        name = self.name
+
+        def batched(*inputs):
+            batch_size(name, alg, dict(enumerate(inputs)))
+            return fn(*inputs)
+
+        return batched
+
+    def execute_batch(self, alg: Algorithm,
+                      operands: Dict[int, torch.Tensor]) -> torch.Tensor:
+        """Evaluate ``alg`` over batched operands: (batch, rows, cols)."""
+        batch_size(self.name, alg, operands)
+        return self.execute(alg, operands)
+
+    def time_algorithm_batched(self, alg: Algorithm, batch: int = 32,
+                               operands: Optional[Dict[int, object]] = None,
+                               reps: Optional[int] = None) -> float:
+        """Median seconds of one *batched* evaluation of ``alg`` (on a
+        card, one replay of the batched walk's captured graph). Divide by
+        the batch for the per-instance time; against ``batch ×``
+        :meth:`time_algorithm` it shows what one dispatch for the whole
+        batch saves."""
+        if operands is None:
+            operands = self.make_batched_operands(alg, batch)
+        batch_size(self.name, alg, operands)
+        return self.time_algorithm(alg, operands, reps=reps)
 
     def _pre_rep(self) -> None:
         # The clock starts on an idle card.

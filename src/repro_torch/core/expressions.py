@@ -88,6 +88,13 @@ class GridSpec:
         vals = tuple(sorted(set(int(v) for v in values)))
         return cls(name=name, axes=(vals,) * ndims)
 
+    @classmethod
+    def named(cls, name: str, ndims: int) -> "GridSpec":
+        if name not in SWEEP_GRIDS:
+            raise ValueError(
+                f"unknown grid {name!r}; expected {sorted(SWEEP_GRIDS)}")
+        return cls.uniform(SWEEP_GRIDS[name], ndims, name=name)
+
     @property
     def ndims(self) -> int:
         return len(self.axes)
@@ -398,3 +405,6 @@ SERVE_DECMLP = register(ExpressionSpec(
     description="decode MLP chain X·Wup·Wdn (X: d0×d1, Wup: d1×d2, "
                 "Wdn: d2×d1); 2 association orders"),
     cli="decmlp")
+
+#: The registry under its pre-registry name, as the reference keeps it.
+SPECS = REGISTRY

@@ -73,8 +73,8 @@ from .arena import (FastPathStats, OperandArena, arena_for, memo_counts,
 from .backends import (backend_default_dtype, backend_shard_mode,
                        fusion_enabled, make_backend, register_torch_backends,
                        registered_backends, synthetic_algorithm, timing_mode)
-from .expressions import (REGISTRY, SWEEP_GRIDS, ExpressionSpec, GridSpec, get_spec,
-                          registered_names)
+from .expressions import (REGISTRY, SPECS, SWEEP_GRIDS,  # noqa: F401
+                          ExpressionSpec, GridSpec, get_spec, registered_names)
 from .fingerprint import HardwareFingerprint, cache_base_dir
 from .flops import KernelCall
 from .perfmodel import KernelProfile, TableProfile, predict_algorithm_time

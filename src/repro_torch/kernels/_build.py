@@ -42,22 +42,24 @@ _STRIDED = [_P, _L, _L, _L, _L]   # data pointer, then (B, H, S, D) strides
 #: C entry points and their argument types (pointers and the stream as
 #: ``c_void_p`` so ctypes never truncates them to 32 bits).
 SIGNATURES: Dict[str, List[type]] = {
-    # a, sa0, sa1, b, sb0, sb1, c, workspace, m, n, k, config, split,
-    # kchunk, stream
-    "repro_gemm_f32": [_P, _L, _L, _P, _L, _L, _P, _P, _I, _I, _I, _I, _I,
-                       _I, _P],
-    # a, sa0, sa1, c, workspace, m, k, config, split, kchunk, stream
-    "repro_syrk_f32": [_P, _L, _L, _P, _P, _I, _I, _I, _I, _I, _P],
-    # s, ss0, ss1, b, sb0, sb1, c, workspace, m, n, config, split, kchunk,
+    # Each matrix operand is its data pointer, then its batch, row and
+    # column strides; batch is the number of instances (1 for one product).
+    # a, b (strided), c, workspace, batch, m, n, k, config, split, kchunk,
     # stream
-    "repro_symm_f32": [_P, _L, _L, _P, _L, _L, _P, _P, _I, _I, _I, _I, _I,
-                       _P],
-    # a, sa0, sa1, b, sb0, sb1, c, sc0, sc1, out, m, k, l, n, config, stream
-    "repro_chain_gemm_f32": [_P, _L, _L, _P, _L, _L, _P, _L, _L, _P,
-                             _I, _I, _I, _I, _I, _P],
-    # a, sa0, sa1, b, sb0, sb1, out, m, k, l, bl, cluster, stream
-    "repro_gemm_syrk_f32": [_P, _L, _L, _P, _L, _L, _P, _I, _I, _I, _I, _I,
-                            _P],
+    "repro_gemm_f32": [_P, _L, _L, _L, _P, _L, _L, _L, _P, _P, _L, _I, _I, _I,
+                       _I, _I, _I, _P],
+    # a (strided), c, workspace, batch, m, k, config, split, kchunk, stream
+    "repro_syrk_f32": [_P, _L, _L, _L, _P, _P, _L, _I, _I, _I, _I, _I, _P],
+    # s, b (strided), c, workspace, batch, m, n, config, split, kchunk,
+    # stream
+    "repro_symm_f32": [_P, _L, _L, _L, _P, _L, _L, _L, _P, _P, _L, _I, _I, _I,
+                       _I, _I, _P],
+    # a, b, c (strided), out, batch, m, k, l, n, config, stream
+    "repro_chain_gemm_f32": [_P, _L, _L, _L, _P, _L, _L, _L, _P, _L, _L, _L,
+                             _P, _L, _I, _I, _I, _I, _I, _P],
+    # a, b (strided), out, batch, m, k, l, bl, cluster, stream
+    "repro_gemm_syrk_f32": [_P, _L, _L, _L, _P, _L, _L, _L, _P, _L, _I, _I,
+                            _I, _I, _I, _P],
     # m, bl, cluster, count (out)
     "repro_gemm_syrk_max_clusters": [_I, _I, _I,
                                      ctypes.POINTER(ctypes.c_int)],
@@ -166,6 +168,16 @@ def library() -> ctypes.CDLL:
             lib.repro_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib
         return _lib
+
+
+def matrix_args(*tensors: torch.Tensor) -> list:
+    """Each operand as the C entry points take it: its data pointer, then
+    its batch, row and column strides (a matrix's batch stride is 0)."""
+    args = []
+    for t in tensors:
+        st = t.stride()
+        args += (t.data_ptr(), 0, *st) if len(st) == 2 else (t.data_ptr(), *st)
+    return args
 
 
 def stream(device: torch.device | int) -> int:

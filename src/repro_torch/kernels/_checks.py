@@ -2,9 +2,10 @@
 
 Counterpart of the reference package's ``kernels/_checks.py``. The port's
 kernels mask their ragged edges themselves, so no dim has to divide a
-block; what remains to check is that operands are float32 matrices (for
-attention: 4-D float32 or bfloat16 tensors of a head_dim the kernel is
-built for) on one device whose shared dims agree. Every failure is a
+block; what remains to check is that operands are float32 matrices, or
+batches of them on one leading axis of one size (for attention: 4-D
+float32 or bfloat16 tensors of a head_dim the kernel is built for), on
+one device, whose shared dims agree. Every failure is a
 :class:`ValueError` naming the kernel and the offending dims, never a
 bare ``assert`` (which ``python -O`` would strip, letting a mis-shaped
 call read out of bounds on the card).
@@ -28,21 +29,29 @@ def check_same(kernel: str, what: str,
 
 
 def check_matrices(kernel: str, **operands: torch.Tensor) -> None:
-    """Every operand is a 2-D float32 tensor, all on one device."""
-    devices = set()
+    """Every operand is a float32 matrix, or every one a 3-D batch of
+    matrices (batch, rows, cols) with one batch dim, all on one device."""
+    devices, batches = set(), set()
     for name, t in operands.items():
-        if t.dim() != 2:
+        dim = t.dim()
+        if dim != 2 and dim != 3:
             raise ValueError(
-                f"{kernel}: {name} must be a matrix, got shape "
-                f"{tuple(t.shape)}")
+                f"{kernel}: {name} must be a matrix or a batch of matrices "
+                f"(batch, rows, cols), got shape {tuple(t.shape)}")
         if t.dtype != torch.float32:
             raise ValueError(
                 f"{kernel}: {name} must be float32 (the backend's "
                 f"measured dtype label), got {t.dtype}")
         devices.add(t.device)
+        batches.add(t.shape[0] if dim == 3 else None)
     if len(devices) > 1:
         detail = ", ".join(f"{n} on {t.device}" for n, t in operands.items())
         raise ValueError(f"{kernel}: operands on different devices: {detail}")
+    if len(batches) > 1:
+        detail = ", ".join(
+            f"{n} {'is a matrix' if t.dim() == 2 else f'has batch {t.shape[0]}'}"
+            for n, t in operands.items())
+        raise ValueError(f"{kernel}: batch dim mismatch: {detail}")
 
 
 def check_attention(kernel: str, head_dims: Tuple[int, ...],

@@ -37,6 +37,10 @@
 // is not bitwise deterministic. Each chunk's partials written to a
 // workspace and summed in chunk order (ceil(L / BL)·m·n floats) was
 // slower over the sweep's shapes (PERF.md, section 6).
+//
+// A batch (the reference's vmap of chain_gemm_pallas) takes the grid's z
+// axis: one launch at any batch, a single chain (batch 1) the launch it
+// always was.
 #include "sgemm.cuh"
 
 using namespace repro::sgemm;
@@ -50,13 +54,13 @@ constexpr int piece_bytes() {
 }
 
 // out += (A·B)[row0:, l0:l1] · C[l0:l1, :] for l-chunk blockIdx.x and row
-// tile blockIdx.y: atomically added (atomic) or stored (one l-chunk).
-template <int BM, int BL, int MIN_BLOCKS>
-__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
-chain_kernel(Operand a, Operand b, Operand c, float* out, int m, int k, int l, int n,
-             int atomic) {
+// tile blockIdx.y of one chain: atomically added (atomic) or stored (one
+// l-chunk).
+template <int BM, int BL>
+__device__ __forceinline__ void chain_piece(const Operand& a, const Operand& b, const Operand& c,
+                                            float* out, int m, int k, int l, int n, int atomic,
+                                            float* smem) {
   using T = Tile<BM, BL>;
-  extern __shared__ __align__(16) float smem[];
   float* const m1t = smem + STAGES * (T::SA + T::SB);
   float* const cs = smem + STAGES * T::SA;   // C slabs, in the ring's B part
   const int row0 = blockIdx.y * BM;
@@ -124,44 +128,74 @@ chain_kernel(Operand a, Operand b, Operand c, float* out, int m, int k, int l, i
   cp_async_wait<0>();
 }
 
+// One chain (BATCHED false), or a batch: z walks the instances, then
+// z + gridDim.z, ... past the grid's z; sab, sbb and scb step A, B and C
+// from one instance to the next, and out holds batch results of m·n
+// floats.
+template <int BM, int BL, int MIN_BLOCKS, bool BATCHED>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+chain_kernel(Operand a, Operand b, Operand c, float* out, int m, int k, int l, int n,
+             int atomic, long long sab, long long sbb, long long scb, long long batch) {
+  extern __shared__ __align__(16) float smem[];
+  if constexpr (!BATCHED) {
+    chain_piece<BM, BL>(a, b, c, out, m, k, l, n, atomic, smem);
+  } else {
+    for (long long inst = blockIdx.z; inst < batch; inst += gridDim.z) {
+      Operand ai = a, bi = b, ci = c;
+      ai.p += inst * sab;
+      bi.p += inst * sbb;
+      ci.p += inst * scb;
+      chain_piece<BM, BL>(ai, bi, ci, out + inst * m * n, m, k, l, n, atomic, smem);
+      __syncthreads();   // the next instance refills the ring
+    }
+  }
+}
+
 template <int BM, int BL, int MIN_BLOCKS>
-cudaError_t launch(const Operand& a, const Operand& b, const Operand& c, float* out, int m,
-                   int k, int l, int n, cudaStream_t st) {
+cudaError_t launch(const Operand& a, long long sab, const Operand& b, long long sbb,
+                   const Operand& c, long long scb, float* out, long long batch, int m, int k,
+                   int l, int n, cudaStream_t st) {
   const int chunks = (l + BL - 1) / BL;
   const bool atomic = chunks > 1;
   if (atomic) {
     const cudaError_t err =
-        cudaMemsetAsync(out, 0, sizeof(float) * static_cast<size_t>(m) * n, st);
+        cudaMemsetAsync(out, 0, sizeof(float) * static_cast<size_t>(batch) * m * n, st);
     if (err != cudaSuccess) return err;
   }
-  const dim3 grid(chunks, (m + BM - 1) / BM);
-  return launch_tile<BM, BL>(chain_kernel<BM, BL, MIN_BLOCKS>, grid, piece_bytes<BM, BL>(), st,
-                             a, b, c, out, m, k, l, n, atomic ? 1 : 0);
+  const dim3 grid(chunks, (m + BM - 1) / BM, grid_yz(batch));
+  return launch_tile<BM, BL>(batch > 1 ? chain_kernel<BM, BL, MIN_BLOCKS, true>
+                                       : chain_kernel<BM, BL, MIN_BLOCKS, false>,
+                             grid, piece_bytes<BM, BL>(), st, a, b, c, out, m, k, l, n,
+                             atomic ? 1 : 0, sab, sbb, scb, batch);
 }
 
 }  // namespace
 
-// out (m x n, row-major, contiguous) = (a (m x k) · b (k x l)) · c (l x n),
-// all inputs strided. config picks the piece (BM, BL) (0: 128x128,
-// 1: 128x64, 2: 64x64, the order of kernels/chain_gemm.py: TILES). With
-// more than one l-chunk, the chunks' partial sums are added into out with
+// out (batch x m x n, row-major, contiguous) = (a (m x k) · b (k x l)) · c
+// (l x n) per instance, all inputs strided, sab, sbb and scb the strides
+// from one instance to the next (batch 1 for one chain). config picks the
+// piece (BM, BL) (0: 128x128, 1: 128x64, 2: 64x64, the order of
+// kernels/chain_gemm.py: TILES). With more than one l-chunk, the chunks'
+// partial sums are added into out, zeroed here for the whole batch, with
 // atomics.
-extern "C" int repro_chain_gemm_f32(const float* a, long long sa0, long long sa1,
-                                    const float* b, long long sb0, long long sb1,
-                                    const float* c, long long sc0, long long sc1,
-                                    float* out, int m, int k, int l, int n, int config,
-                                    void* stream) {
+extern "C" int repro_chain_gemm_f32(const float* a, long long sab, long long sa0, long long sa1,
+                                    const float* b, long long sbb, long long sb0, long long sb1,
+                                    const float* c, long long scb, long long sc0, long long sc1,
+                                    float* out, long long batch, int m, int k, int l, int n,
+                                    int config, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (batch < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (l == 0)
-    return static_cast<int>(cudaMemsetAsync(out, 0, sizeof(float) * static_cast<size_t>(m) * n, st));
-  const Operand A{a, sa0, sa1, m, copy_mode(a, sa0, sa1)};
-  const Operand B{b, sb1, sb0, l, copy_mode(b, sb1, sb0)};
-  const Operand C{c, sc1, sc0, n, copy_mode(c, sc1, sc0)};
+    return static_cast<int>(
+        cudaMemsetAsync(out, 0, sizeof(float) * static_cast<size_t>(batch) * m * n, st));
+  const Operand A{a, sa0, sa1, m, copy_mode(a, sa0, sa1, sab)};
+  const Operand B{b, sb1, sb0, l, copy_mode(b, sb1, sb0, sbb)};
+  const Operand C{c, sc1, sc0, n, copy_mode(c, sc1, sc0, scb)};
   cudaError_t err;
   switch (config) {
-    case 0: err = launch<128, 128, 1>(A, B, C, out, m, k, l, n, st); break;
-    case 1: err = launch<128, 64, 2>(A, B, C, out, m, k, l, n, st); break;
-    case 2: err = launch<64, 64, 3>(A, B, C, out, m, k, l, n, st); break;
+    case 0: err = launch<128, 128, 1>(A, sab, B, sbb, C, scb, out, batch, m, k, l, n, st); break;
+    case 1: err = launch<128, 64, 2>(A, sab, B, sbb, C, scb, out, batch, m, k, l, n, st); break;
+    case 2: err = launch<64, 64, 3>(A, sab, B, sbb, C, scb, out, batch, m, k, l, n, st); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);

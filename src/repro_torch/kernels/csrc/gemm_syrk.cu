@@ -42,7 +42,10 @@
 // the summation order over l-chunks vary from run to run, at float32
 // rounding level. (BL, C) is chosen per call (kernels/gemm_syrk.py:
 // gemm_syrk_config); the wrapper falls back to the gemm and syrk kernels
-// where even the narrowest launch cannot hold the panel.
+// where even the narrowest launch cannot hold the panel. A batch (the
+// reference's vmap of gemm_syrk_pallas) takes the grid's y axis, free
+// beside the (C, 1, 1) clusters: one launch at any batch, a single
+// product (batch 1) the launch it always was.
 #include <cooperative_groups.h>
 
 #include "sgemm.cuh"
@@ -107,14 +110,14 @@ __device__ __forceinline__ void store_piece(const PieceRegs<BL>& r, float* dst) 
     *reinterpret_cast<float4*>(dst + piece_offset(u)) = r.v[u];
 }
 
-// out += tril(M1[:, p]·M1[:, p]ᵀ) for l-chunk p = blockIdx.x / C, C the
-// cluster's size.
+// out += tril(M1[:, p]·M1[:, p]ᵀ) for l-chunk p = blockIdx.x / C of one
+// product, C the cluster's size. Returns with every CTA of the cluster
+// done building its pieces, but a peer may still read them.
 template <int BL>
-__global__ void __launch_bounds__(THREADS, 2)
-gemm_syrk_kernel(Operand a, Operand b, float* out, int m, int k, int l) {
+__device__ __forceinline__ void gemm_syrk_chunk(cg::cluster_group& cluster, const Operand& a,
+                                                const Operand& b, float* out, int m, int k,
+                                                int l, float* smem) {
   using T = Tile<BM, BL>;
-  extern __shared__ __align__(16) float smem[];
-  cg::cluster_group cluster = cg::this_cluster();
   const int c = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
   const int l0 = static_cast<int>(blockIdx.x) / c * BL;
@@ -180,16 +183,41 @@ gemm_syrk_kernel(Operand a, Operand b, float* out, int m, int k, int l) {
     store<BM, BM, true>(acc, out, m, ti * BM, tj * BM, m, m);
     if (t + 1 < t1 && i != ti) __syncthreads();   // done reading sa before it changes
   }
+}
+
+// One product (BATCHED false), or a batch: y walks the instances (the
+// cluster is (C, 1, 1), so all its CTAs share y), then y + gridDim.y, ...
+// past the grid's y; sab and sbb step A and B from one instance to the
+// next, and out holds batch results of m·m floats.
+template <int BL, bool BATCHED>
+__global__ void __launch_bounds__(THREADS, 2)
+gemm_syrk_kernel(Operand a, Operand b, float* out, int m, int k, int l, long long sab,
+                 long long sbb, long long batch) {
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  if constexpr (!BATCHED) {
+    gemm_syrk_chunk<BL>(cluster, a, b, out, m, k, l, smem);
+  } else {
+    for (long long inst = blockIdx.y; inst < batch; inst += gridDim.y) {
+      Operand ai = a, bi = b;
+      ai.p += inst * sab;
+      bi.p += inst * sbb;
+      gemm_syrk_chunk<BL>(cluster, ai, bi, out + inst * m * m, m, k, l, smem);
+      // The next instance's pieces overwrite this one's only once every
+      // peer is done reading them.
+      if (inst + gridDim.y < batch) cluster.sync();
+    }
+  }
   cluster.sync();   // no CTA leaves while a peer may still read its pieces
 }
 
 // The launch of chunks·cluster CTAs in clusters of `cluster`.
 template <int BL>
-cudaLaunchConfig_t launch_config(int m, int l, int cluster, cudaStream_t st,
+cudaLaunchConfig_t launch_config(int m, int l, int cluster, long long batch, cudaStream_t st,
                                  cudaLaunchAttribute* attr) {
   const int mt = (m + BM - 1) / BM;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(((l + BL - 1) / BL) * cluster);
+  cfg.gridDim = dim3(((l + BL - 1) / BL) * cluster, grid_yz(batch));
   cfg.blockDim = dim3(THREADS);
   cfg.dynamicSmemBytes = smem_bytes<BL>((mt + cluster - 1) / cluster);
   cfg.stream = st;
@@ -203,15 +231,16 @@ cudaLaunchConfig_t launch_config(int m, int l, int cluster, cudaStream_t st,
 }
 
 template <int BL>
-cudaError_t launch(const Operand& a, const Operand& b, float* out, int m, int k, int l,
-                   int cluster, cudaStream_t st) {
+cudaError_t launch(const Operand& a, long long sab, const Operand& b, long long sbb, float* out,
+                   long long batch, int m, int k, int l, int cluster, cudaStream_t st) {
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = launch_config<BL>(m, l, cluster, st, &attr);
-  cudaError_t err = cudaFuncSetAttribute(gemm_syrk_kernel<BL>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+  const cudaLaunchConfig_t cfg = launch_config<BL>(m, l, cluster, batch, st, &attr);
+  const auto kernel =
+      batch > 1 ? gemm_syrk_kernel<BL, true> : gemm_syrk_kernel<BL, false>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(cfg.dynamicSmemBytes));
   if (err != cudaSuccess) return err;
-  err = cudaLaunchKernelEx(&cfg, gemm_syrk_kernel<BL>, a, b, out, m, k, l);
+  err = cudaLaunchKernelEx(&cfg, kernel, a, b, out, m, k, l, sab, sbb, batch);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -220,33 +249,37 @@ cudaError_t launch(const Operand& a, const Operand& b, float* out, int m, int k,
 template <int BL>
 cudaError_t max_clusters(int m, int cluster, int* count) {
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = launch_config<BL>(m, BL, cluster, nullptr, &attr);
-  const cudaError_t err = cudaFuncSetAttribute(gemm_syrk_kernel<BL>,
+  const cudaLaunchConfig_t cfg = launch_config<BL>(m, BL, cluster, 1, nullptr, &attr);
+  const cudaError_t err = cudaFuncSetAttribute(gemm_syrk_kernel<BL, false>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                static_cast<int>(cfg.dynamicSmemBytes));
   if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveClusters(count, gemm_syrk_kernel<BL>, &cfg);
+  return cudaOccupancyMaxActiveClusters(count, gemm_syrk_kernel<BL, false>, &cfg);
 }
 
 }  // namespace
 
-// out (m x m, row-major, contiguous) = tril((a (m x k) · b (k x l)) ·
-// (a · b)ᵀ), a and b strided, in l-chunks of bl (16, 32 or 64) columns,
-// one cluster of `cluster` (1 to 8) CTAs per chunk.
-extern "C" int repro_gemm_syrk_f32(const float* a, long long sa0, long long sa1,
-                                   const float* b, long long sb0, long long sb1,
-                                   float* out, int m, int k, int l, int bl, int cluster,
-                                   void* stream) {
-  if (cluster < 1 || cluster > MAX_CLUSTER) return static_cast<int>(cudaErrorInvalidValue);
+// out (batch x m x m, row-major, contiguous) = tril((a (m x k) · b (k x
+// l)) · (a · b)ᵀ) per instance, a and b strided, sab and sbb the strides
+// from one instance to the next (batch 1 for one product), in l-chunks of
+// bl (16, 32 or 64) columns, one cluster of `cluster` (1 to 8) CTAs per
+// chunk and instance; out is zeroed here for the whole batch.
+extern "C" int repro_gemm_syrk_f32(const float* a, long long sab, long long sa0, long long sa1,
+                                   const float* b, long long sbb, long long sb0, long long sb1,
+                                   float* out, long long batch, int m, int k, int l, int bl,
+                                   int cluster, void* stream) {
+  if (cluster < 1 || cluster > MAX_CLUSTER || batch < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(out, 0, sizeof(float) * static_cast<size_t>(m) * m, st);
+  cudaError_t err =
+      cudaMemsetAsync(out, 0, sizeof(float) * static_cast<size_t>(batch) * m * m, st);
   if (err != cudaSuccess || l == 0) return static_cast<int>(err);
-  const Operand A{a, sa0, sa1, m, copy_mode(a, sa0, sa1)};
-  const Operand B{b, sb1, sb0, l, copy_mode(b, sb1, sb0)};
+  const Operand A{a, sa0, sa1, m, copy_mode(a, sa0, sa1, sab)};
+  const Operand B{b, sb1, sb0, l, copy_mode(b, sb1, sb0, sbb)};
   switch (bl) {
-    case 16: err = launch<16>(A, B, out, m, k, l, cluster, st); break;
-    case 32: err = launch<32>(A, B, out, m, k, l, cluster, st); break;
-    case 64: err = launch<64>(A, B, out, m, k, l, cluster, st); break;
+    case 16: err = launch<16>(A, sab, B, sbb, out, batch, m, k, l, cluster, st); break;
+    case 32: err = launch<32>(A, sab, B, sbb, out, batch, m, k, l, cluster, st); break;
+    case 64: err = launch<64>(A, sab, B, sbb, out, batch, m, k, l, cluster, st); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);

@@ -60,11 +60,29 @@ struct Operand {
   int mode;
 };
 
-// Copy mode of an operand, decided on the host.
-inline int copy_mode(const float* p, long long sw, long long sk) {
-  if (sw == 1 && sk % 4 == 0 && (reinterpret_cast<uintptr_t>(p) & 15u) == 0) return kVec16;
+// Copy mode of an operand, decided on the host. sb is the stride from
+// one instance of a batch to the next (0 for one instance): every
+// instance's rows must be 16-byte aligned for the 16-byte copies.
+inline int copy_mode(const float* p, long long sw, long long sk, long long sb = 0) {
+  if (sw == 1 && sk % 4 == 0 && sb % 4 == 0 && (reinterpret_cast<uintptr_t>(p) & 15u) == 0)
+    return kVec16;
   return sw <= sk ? kWFast : kKFast;
 }
+
+// The largest grid dimension y or z (x goes to 2^31 - 1): a batch axis
+// longer than this is walked by a loop inside the kernel.
+constexpr long long MAX_GRID_YZ = 65535;
+
+inline unsigned grid_yz(long long n) {
+  return static_cast<unsigned>(n < MAX_GRID_YZ ? n : MAX_GRID_YZ);
+}
+
+// Each matrix kernel keeps its work on one product in a device function
+// and comes in two instances, by a template flag BATCHED: false for one
+// product (batch 1), which runs that function once on the kernel's own
+// parameters; true for a batch, whose units (instances, or (instance,
+// slice) pairs) a block takes from its grid index u, then u + gridDim,
+// ... past the grid's extent, each on operands stepped to its instance.
 
 template <int BM, int BN>
 struct Tile {
@@ -344,11 +362,9 @@ __device__ __forceinline__ void tri_decode(int t, int& i, int& j) {
 }
 
 // c = sum over p of ws[p] (split slices of mn floats), in order p = 0, 1,
-// ...: the result does not depend on the order blocks finished in. (A
-// template, so that every source including this header may launch it.)
+// ...: the result does not depend on the order blocks finished in.
 template <int NT>
-__global__ void __launch_bounds__(NT) split_sum_kernel(const float* ws, float* c, long long mn,
-                                                       int split) {
+__device__ __forceinline__ void split_sum(const float* ws, float* c, long long mn, int split) {
   for (long long i = blockIdx.x * static_cast<long long>(NT) + threadIdx.x; i < mn;
        i += gridDim.x * static_cast<long long>(NT)) {
     float s = ws[i];
@@ -361,8 +377,7 @@ __global__ void __launch_bounds__(NT) split_sum_kernel(const float* ws, float* c
 // threads; an entry above the diagonal is written 0 without reading the
 // slices there.
 template <int NT>
-__global__ void __launch_bounds__(NT) tril_sum_kernel(const float* ws, float* c, int m,
-                                                      int split) {
+__device__ __forceinline__ void tril_sum(const float* ws, float* c, int m, int split) {
   const long long mn = static_cast<long long>(m) * m;
   for (int r = blockIdx.x; r < m; r += gridDim.x) {
     for (int col = threadIdx.x; col < m; col += NT) {
@@ -377,19 +392,57 @@ __global__ void __launch_bounds__(NT) tril_sum_kernel(const float* ws, float* c,
   }
 }
 
-// c = the sum of split slices of ws, on st, over at most 16 blocks an SM.
-inline cudaError_t sum_slices(const float* ws, float* c, long long mn, int split,
+// The summing passes of one product (BATCHED false) or of a batch, its
+// instances over y: c[b] from ws[b]'s split slices, ws holding batch·split
+// slices and c batch results. (Templates, so that every source including
+// this header may launch them.)
+template <int NT, bool BATCHED>
+__global__ void __launch_bounds__(NT) split_sum_kernel(const float* ws, float* c, long long mn,
+                                                       int split, long long batch) {
+  if constexpr (!BATCHED) {
+    split_sum<NT>(ws, c, mn, split);
+  } else {
+    for (long long b = blockIdx.y; b < batch; b += gridDim.y)
+      split_sum<NT>(ws + b * split * mn, c + b * mn, mn, split);
+  }
+}
+
+template <int NT, bool BATCHED>
+__global__ void __launch_bounds__(NT) tril_sum_kernel(const float* ws, float* c, int m, int split,
+                                                      long long batch) {
+  if constexpr (!BATCHED) {
+    tril_sum<NT>(ws, c, m, split);
+  } else {
+    const long long mn = static_cast<long long>(m) * m;
+    for (long long b = blockIdx.y; b < batch; b += gridDim.y)
+      tril_sum<NT>(ws + b * split * mn, c + b * mn, m, split);
+  }
+}
+
+// Blocks along x of a summing pass over `want` units per instance, the
+// batch's instances along y: at most 16 blocks an SM in all (at least
+// one an instance row).
+inline int sum_blocks_x(long long want, long long batch) {
+  const long long budget = 132 * 16;
+  const long long per = (budget + grid_yz(batch) - 1) / grid_yz(batch);
+  return static_cast<int>(want < per ? want : per);
+}
+
+// c = the sums of split slices of ws per instance, on st.
+inline cudaError_t sum_slices(const float* ws, float* c, long long mn, int split, long long batch,
                               cudaStream_t st) {
-  const long long want = (mn + 255) / 256;
-  const int blocks = static_cast<int>(want < 132 * 16 ? want : 132 * 16);
-  split_sum_kernel<256><<<blocks, 256, 0, st>>>(ws, c, mn, split);
+  const dim3 grid(sum_blocks_x((mn + 255) / 256, batch), grid_yz(batch));
+  const auto kernel = batch > 1 ? split_sum_kernel<256, true> : split_sum_kernel<256, false>;
+  kernel<<<grid, 256, 0, st>>>(ws, c, mn, split, batch);
   return cudaGetLastError();
 }
 
-// c = tril(the sum of split slices of ws), c m x m, on st.
-inline cudaError_t sum_slices_tril(const float* ws, float* c, int m, int split,
+// c = tril(the sums of split slices of ws) per instance, c m x m, on st.
+inline cudaError_t sum_slices_tril(const float* ws, float* c, int m, int split, long long batch,
                                    cudaStream_t st) {
-  tril_sum_kernel<256><<<m < 132 * 16 ? m : 132 * 16, 256, 0, st>>>(ws, c, m, split);
+  const dim3 grid(sum_blocks_x(m, batch), grid_yz(batch));
+  const auto kernel = batch > 1 ? tril_sum_kernel<256, true> : tril_sum_kernel<256, false>;
+  kernel<<<grid, 256, 0, st>>>(ws, c, m, split, batch);
   return cudaGetLastError();
 }
 

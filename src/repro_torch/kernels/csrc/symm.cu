@@ -27,25 +27,25 @@
 // on slab boundaries. Only the lower triangle is ever read, so whatever
 // the upper triangle holds cannot leak into C. Split slices are summed in
 // slice order by a second pass, so two calls are bitwise equal. Side R
-// (B·S) runs this kernel on (S·Bᵀ)ᵀ through strides, with no copy.
+// (B·S) runs this kernel on (S·Bᵀ)ᵀ through strides, with no copy. A batch
+// shares z with the split, as in gemm.cu: one launch at any batch.
 #include "sgemm.cuh"
 
 using namespace repro::sgemm;
 
 namespace {
 
-// Segment seg (0 below, 1 band, 2 above) of block rows [row0, row0 + BM)
-// is [lo, hi) of the contraction; S is read through s with strides ss0,
-// ss1, copied in below_mode / kSymLower / above_mode.
-template <int BM, int BN, int MIN_BLOCKS>
-__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
-symm_kernel(const float* s, long long ss0, long long ss1, int below_mode, int above_mode,
-            Operand b, float* c, int m, int n, int kchunk) {
-  extern __shared__ __align__(16) float smem[];
+// C[row0:, col0:] = sym(S)[row0:, k0:k1] · B[k0:k1, col0:] for the tile
+// of block (x, y): the work of one block on one product. Segment seg (0
+// below, 1 band, 2 above) of block rows [row0, row0 + BM) is [lo, hi) of
+// the contraction; S is read through s with strides ss0, ss1, copied in
+// below_mode / kSymLower / above_mode.
+template <int BM, int BN>
+__device__ __forceinline__ void symm_tile(const float* s, long long ss0, long long ss1,
+                                          int below_mode, int above_mode, const Operand& b,
+                                          float* c, int m, int n, int k0, int k1, float* smem) {
   const int row0 = blockIdx.y * BM;
   const int col0 = blockIdx.x * BN;
-  const int k0 = blockIdx.z * kchunk;
-  const int k1 = min(m, k0 + kchunk);
   float acc[BM / 16][BN / 16] = {};
 #pragma unroll 1
   for (int seg = 0; seg < 3; ++seg) {
@@ -59,39 +59,76 @@ symm_kernel(const float* s, long long ss0, long long ss1, int below_mode, int ab
     else
       accumulate<BM, BN>(a, b, row0, col0, lo, hi, smem, acc);
   }
-  store<BM, BN>(acc, c + static_cast<long long>(blockIdx.z) * m * n, n, row0, col0, m, n);
+  store<BM, BN>(acc, c, n, row0, col0, m, n);
+}
+
+// Grid (n tiles, m tiles, z), z as in gemm.cu: the contraction slice of
+// one product, or (BATCHED) the batch·split (instance, slice) pairs; ssb
+// and sbb step S and B from one instance to the next.
+template <int BM, int BN, int MIN_BLOCKS, bool BATCHED>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+symm_kernel(const float* s, long long ss0, long long ss1, int below_mode, int above_mode,
+            Operand b, float* c, int m, int n, int kchunk, int split, long long ssb,
+            long long sbb, long long batch) {
+  extern __shared__ __align__(16) float smem[];
+  if constexpr (!BATCHED) {
+    const int k0 = blockIdx.z * kchunk;
+    symm_tile<BM, BN>(s, ss0, ss1, below_mode, above_mode, b,
+                      c + static_cast<long long>(blockIdx.z) * m * n, m, n, k0,
+                      min(m, k0 + kchunk), smem);
+  } else {
+    for (long long u = blockIdx.z; u < batch * split; u += gridDim.z) {
+      const long long inst = u / split;
+      const int k0 = static_cast<int>(u - inst * split) * kchunk;
+      Operand bi = b;
+      bi.p += inst * sbb;
+      symm_tile<BM, BN>(s + inst * ssb, ss0, ss1, below_mode, above_mode, bi, c + u * m * n, m,
+                        n, k0, min(m, k0 + kchunk), smem);
+    }
+  }
 }
 
 template <int BM, int BN, int MIN_BLOCKS>
-cudaError_t launch(const float* s, long long ss0, long long ss1, const Operand& b, float* c,
-                   float* ws, int m, int n, int split, int kchunk, cudaStream_t st) {
-  const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM, split);
+cudaError_t launch(const float* s, long long ssb, long long ss0, long long ss1, const Operand& b,
+                   long long sbb, float* c, float* ws, long long batch, int m, int n, int split,
+                   int kchunk, cudaStream_t st) {
+  const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM, grid_yz(batch * split));
   const cudaError_t err = launch_tile<BM, BN>(
-      symm_kernel<BM, BN, MIN_BLOCKS>, grid, 0, st, s, ss0, ss1, copy_mode(s, ss0, ss1),
-      copy_mode(s, ss1, ss0), b, split > 1 ? ws : c, m, n, kchunk);
+      batch > 1 ? symm_kernel<BM, BN, MIN_BLOCKS, true> : symm_kernel<BM, BN, MIN_BLOCKS, false>,
+      grid, 0, st, s, ss0, ss1, copy_mode(s, ss0, ss1, ssb), copy_mode(s, ss1, ss0, ssb), b,
+      split > 1 ? ws : c, m, n, kchunk, split, ssb, sbb, batch);
   if (err != cudaSuccess || split == 1) return err;
-  return sum_slices(ws, c, static_cast<long long>(m) * n, split, st);
+  return sum_slices(ws, c, static_cast<long long>(m) * n, split, batch, st);
 }
 
 }  // namespace
 
-// c (m x n, row-major, contiguous) = sym(s) · b; s (m x m) lower-stored
-// and strided, b (m x n) strided. config, split and kchunk as for
-// repro_gemm_f32 (the tile order of kernels/gemm.py: TILES): the
-// contraction over m is cut into split slices of kchunk, which go to ws
-// (split·m·n floats) and are summed into c when split > 1.
-extern "C" int repro_symm_f32(const float* s, long long ss0, long long ss1,
-                              const float* b, long long sb0, long long sb1,
-                              float* c, float* ws, int m, int n, int config, int split,
-                              int kchunk, void* stream) {
-  if (!valid_split(m, split, kchunk, ws)) return static_cast<int>(cudaErrorInvalidValue);
-  const Operand B{b, sb1, sb0, n, copy_mode(b, sb1, sb0)};
+// c (batch x m x n, row-major, contiguous) = sym(s) · b per instance; s
+// (batch x m x m) lower-stored and strided, b (batch x m x n) strided, ssb
+// and sbb the strides from one instance to the next (batch 1 for one
+// product). config, split and kchunk as for repro_gemm_f32 (the tile
+// order of kernels/gemm.py: TILES): the contraction over m is cut into
+// split slices of kchunk, which go to ws (batch·split·m·n floats) and are
+// summed into c when split > 1.
+extern "C" int repro_symm_f32(const float* s, long long ssb, long long ss0, long long ss1,
+                              const float* b, long long sbb, long long sb0, long long sb1,
+                              float* c, float* ws, long long batch, int m, int n, int config,
+                              int split, int kchunk, void* stream) {
+  if (!valid_split(m, split, kchunk, ws) || batch < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Operand B{b, sb1, sb0, n, copy_mode(b, sb1, sb0, sbb)};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (config) {
-    case 0: err = launch<128, 128, 1>(s, ss0, ss1, B, c, ws, m, n, split, kchunk, st); break;
-    case 1: err = launch<128, 64, 2>(s, ss0, ss1, B, c, ws, m, n, split, kchunk, st); break;
-    case 2: err = launch<64, 64, 3>(s, ss0, ss1, B, c, ws, m, n, split, kchunk, st); break;
+    case 0:
+      err = launch<128, 128, 1>(s, ssb, ss0, ss1, B, sbb, c, ws, batch, m, n, split, kchunk, st);
+      break;
+    case 1:
+      err = launch<128, 64, 2>(s, ssb, ss0, ss1, B, sbb, c, ws, batch, m, n, split, kchunk, st);
+      break;
+    case 2:
+      err = launch<64, 64, 3>(s, ssb, ss0, ss1, B, sbb, c, ws, batch, m, n, split, kchunk, st);
+      break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);

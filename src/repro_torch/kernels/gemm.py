@@ -5,7 +5,9 @@ ragged edges and reads both operands through their strides, so the
 wrapper neither pads, slices nor copies; it picks the tile shape and the
 contraction split per call (:func:`gemm_config`), allocates the output
 (and, for a split, the workspace the slices are summed from) and launches
-on PyTorch's current stream. Its plain version is
+on PyTorch's current stream. A 3-D batch of products (the reference's
+vmap of ``gemm_pallas``) is one launch whose instances share the grid's z
+axis with the split (:func:`gemm_batch_blocks`). Its plain version is
 :func:`repro_torch.kernels.ref.gemm`.
 """
 
@@ -40,6 +42,10 @@ SMS = 132
 #: (``ab_bench.py``, NVIDIA H100 80GB HBM3 at 700 W; PERF.md, section 6).
 US_PER_MMAC = (6.63, 7.57, 9.21)
 US_SPLIT = 7.02
+
+#: The largest grid y or z extent; a batch axis past it is a loop in the
+#: kernel.
+MAX_GRID_YZ = 65535
 
 #: Launches of the CUDA kernel in this process.
 launches = 0
@@ -120,36 +126,72 @@ def config_from_dict(dims: Sequence[int], d: Mapping) -> Optional[GemmConfig]:
     return match_config(candidates(int(dims[2])), d)
 
 
-def gemm_cost(m: int, n: int, cfg: GemmConfig, sms: int = SMS) -> float:
-    """Modeled microseconds of ``cfg`` for an m x n output: the busiest
-    SM's multiply-adds (its share of the grid, rounded up to whole blocks)
-    at its tile's rate, plus the split's workspace pass."""
-    busiest = _cdiv(cfg.blocks(m, n), sms) * cfg.bm * cfg.bn * cfg.kchunk
+def gemm_cost(m: int, n: int, cfg: GemmConfig, sms: int = SMS,
+              batch: int = 1) -> float:
+    """Modeled microseconds of ``cfg`` for ``batch`` m x n outputs: the
+    busiest SM's multiply-adds (its share of the grid, rounded up to whole
+    blocks) at its tile's rate, plus the split's workspace pass."""
+    busiest = (_cdiv(cfg.blocks(m, n) * batch, sms)
+               * cfg.bm * cfg.bn * cfg.kchunk)
     return (busiest * 1e-6 * US_PER_MMAC[cfg.config]
             + (US_SPLIT if cfg.split > 1 else 0.0))
 
 
 @lru_cache(maxsize=4096)
-def gemm_config(m: int, n: int, k: int, sms: int = SMS) -> GemmConfig:
-    """The launch the wrapper makes for an (m x k)·(k x n) product: the
-    candidate of least :func:`gemm_cost`, ties to the larger tile, then
-    to fewer slices."""
-    return min(candidates(k),
-               key=lambda c: (gemm_cost(m, n, c, sms), c.config, c.split))
+def gemm_config(m: int, n: int, k: int, sms: int = SMS,
+                batch: int = 1) -> GemmConfig:
+    """The launch the wrapper makes for ``batch`` (m x k)·(k x n)
+    products: the candidate of least :func:`gemm_cost`, ties to the
+    larger tile, then to fewer slices."""
+    return min(candidates(k), key=lambda c: (gemm_cost(m, n, c, sms, batch),
+                                             c.config, c.split))
+
+
+def grid_yz(n: int) -> int:
+    """A grid's y or z extent for ``n`` units: the kernel walks units past
+    :data:`MAX_GRID_YZ` in a loop (``grid_yz`` in ``csrc/sgemm.cuh``)."""
+    return min(n, MAX_GRID_YZ)
+
+
+def strided(units: int, extent: int) -> Iterator[Tuple[int, int]]:
+    """(grid index, unit) of every unit a grid axis of ``extent`` walks,
+    as a kernel's ``for (u = blockIdx; u < units; u += gridDim)``."""
+    for g in range(extent):
+        for u in range(g, units, extent):
+            yield g, u
+
+
+def gemm_grid(m: int, n: int, cfg: GemmConfig,
+              batch: int = 1) -> Tuple[int, int, int]:
+    """The launch's grid (x, y, z): n tiles, m tiles, and the batch·split
+    (instance, slice) pairs up to :data:`MAX_GRID_YZ`."""
+    return (_cdiv(n, cfg.bn), _cdiv(m, cfg.bm),
+            grid_yz(batch * cfg.split))
+
+
+def gemm_batch_blocks(m: int, n: int, k: int, cfg: GemmConfig, batch: int
+                      ) -> Iterator[Tuple[int, int, int, int, int]]:
+    """(instance, row0, col0, k0, k1) of every pass of every block of a
+    batched launch, as the kernel derives them: block z takes the pairs
+    u = z, z + gridDim.z, ... of u = instance·split + slice, each the
+    output tile [row0, row0 + bm) x [col0, col0 + bn) (clipped to m x n
+    by the kernel's masks) of that instance over the contraction slice
+    [k0, k1)."""
+    gx, gy, gz = gemm_grid(m, n, cfg, batch)
+    for _, u in strided(batch * cfg.split, gz):
+        k0 = u % cfg.split * cfg.kchunk
+        for y in range(gy):
+            for x in range(gx):
+                yield (u // cfg.split, y * cfg.bm, x * cfg.bn, k0,
+                       min(k, k0 + cfg.kchunk))
 
 
 def gemm_blocks(m: int, n: int, k: int,
                 cfg: GemmConfig) -> Iterator[Tuple[int, int, int, int]]:
-    """(row0, col0, k0, k1) of every block of the launch, as the kernel
-    derives them from its block index: the output tile
-    [row0, row0 + bm) x [col0, col0 + bn) (clipped to m x n by the
-    kernel's masks) over the contraction slice [k0, k1)."""
-    for z in range(cfg.split):
-        k0 = z * cfg.kchunk
-        k1 = min(k, k0 + cfg.kchunk)
-        for y in range(_cdiv(m, cfg.bm)):
-            for x in range(_cdiv(n, cfg.bn)):
-                yield y * cfg.bm, x * cfg.bn, k0, k1
+    """(row0, col0, k0, k1) of every block of a launch of one product
+    (:func:`gemm_batch_blocks` at batch 1)."""
+    for _, *block in gemm_batch_blocks(m, n, k, cfg, 1):
+        yield tuple(block)
 
 
 @lru_cache(maxsize=None)
@@ -164,31 +206,34 @@ def gemm_cuda(a: torch.Tensor, b: torch.Tensor,
     :func:`gemm_config`'s pick; operands already validated by
     ``ops.gemm``."""
     if cfg is None:
-        m, k = a.shape
-        cfg = gemm_config(m, b.shape[1], k, sm_count(a.get_device()))
+        m, k = a.shape[-2:]
+        cfg = gemm_config(m, b.shape[-1], k, sm_count(a.get_device()),
+                          a.shape[0] if a.dim() == 3 else 1)
     return launch(a, b, cfg)
 
 
 def launch(a: torch.Tensor, b: torch.Tensor, cfg: GemmConfig) -> torch.Tensor:
-    """C = A·B on the card under the launch ``cfg``: the one place the
-    kernel is launched and counted (timing scripts call it with the
-    configurations :func:`gemm_config` did not pick)."""
+    """C = A·B on the card under the launch ``cfg``, for matrices or for
+    3-D batches of them (one launch): the one place the kernel is launched
+    and counted (timing scripts call it with the configurations
+    :func:`gemm_config` did not pick)."""
     global launches
     device = a.get_device()
     if device != torch.cuda.current_device():
         with torch.cuda.device(device):
             return launch(a, b, cfg)
-    m, k = a.shape
-    n = b.shape[1]
-    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    batched = a.dim() == 3
+    batch = a.shape[0] if batched else 1
+    m, k = a.shape[-2:]
+    n = b.shape[-1]
+    out = torch.empty((batch, m, n) if batched else (m, n),
+                      dtype=torch.float32, device=a.device)
     if out.numel() == 0:
         return out
-    ws = (torch.empty((cfg.split, m, n), dtype=torch.float32, device=a.device)
-          if cfg.split > 1 else None)
+    ws = (torch.empty((batch, cfg.split, m, n), dtype=torch.float32,
+                      device=a.device) if cfg.split > 1 else None)
     rc = _build.library().repro_gemm_f32(
-        a.data_ptr(), a.stride(0), a.stride(1),
-        b.data_ptr(), b.stride(0), b.stride(1),
-        out.data_ptr(), None if ws is None else ws.data_ptr(),
+        *_build.matrix_args(a, b), out.data_ptr(), None if ws is None else ws.data_ptr(), batch,
         m, n, k, cfg.config, cfg.split, cfg.kchunk, _build.stream(device))
     _build.check(rc, "gemm")
     launches += 1

@@ -9,6 +9,8 @@ memory (:func:`gemm_syrk_blocks`). The chunk width and the cluster size
 are chosen per call (:func:`gemm_syrk_config`). The launch zeroes the
 output (``cudaMemsetAsync``) before the kernel adds the chunks' partial
 sums with float32 atomics, and the strict upper triangle stays zero.
+A 3-D batch is one launch, its instances on the grid's y axis beside the
+(C, 1, 1) clusters (:func:`gemm_syrk_batch_blocks`).
 
 The cluster's shared memory must hold the m x BL panel of M1. Beyond what
 the narrowest launch holds (m above :func:`max_m`, 23,552 rows),
@@ -122,19 +124,21 @@ def pair_range(pairs: int, cluster: int, rank: int) -> Tuple[int, int]:
 
 
 def gemm_syrk_cost(m: int, k: int, l: int, cfg: GemmSyrkConfig,
-                   active: Tuple[int, ...] = ACTIVE_CLUSTERS) -> float:
-    """Modeled microseconds of ``cfg``: the busiest CTA's work, as
-    ``gemm_cost`` and ``chain_cost`` model theirs, times the waves of
-    clusters (``active[C - 1]`` resident at once). The busiest CTA builds
-    ``slots`` 64 x bl pieces over k and multiplies ceil(pairs / C) 64 x 64
-    pairs over bl, each at its fitted rate, plus a fixed cost a pair."""
+                   active: Tuple[int, ...] = ACTIVE_CLUSTERS,
+                   batch: int = 1) -> float:
+    """Modeled microseconds of ``cfg`` for ``batch`` instances: the
+    busiest CTA's work, as ``gemm_cost`` and ``chain_cost`` model theirs,
+    times the waves of the batch's clusters (``active[C - 1]`` resident at
+    once). The busiest CTA builds ``slots`` 64 x bl pieces over k and
+    multiplies ceil(pairs / C) 64 x 64 pairs over bl, each at its fitted
+    rate, plus a fixed cost a pair."""
     mt = _cdiv(m, BM)
     per_pair = _cdiv(mt * (mt + 1) // 2, cfg.cluster)
     per_cta = (cfg.slots(m) * BM * cfg.bl * _cdiv(k, BK) * BK * 1e-6
                * US_PER_MMAC_PIECE[WIDTHS.index(cfg.bl)]
                + per_pair * BM * BM * cfg.bl * 1e-6 * US_PER_MMAC_PAIR
                + per_pair * US_PER_PAIR)
-    return _cdiv(cfg.chunks(l), active[cfg.cluster - 1]) * per_cta
+    return _cdiv(cfg.chunks(l) * batch, active[cfg.cluster - 1]) * per_cta
 
 
 def candidates(m: int) -> List[GemmSyrkConfig]:
@@ -166,33 +170,54 @@ def config_from_dict(dims: Sequence[int], d: Mapping,
 
 @lru_cache(maxsize=4096)
 def gemm_syrk_config(m: int, k: int, l: int,
-                     active: Tuple[int, ...] = ACTIVE_CLUSTERS
-                     ) -> Optional[GemmSyrkConfig]:
-    """The launch for tril((A·B)(A·B)ᵀ), A m x k, B k x l, on a card
-    holding ``active[C - 1]`` resident clusters of C: the candidate of
-    least :func:`gemm_syrk_cost`, ties to the wider chunk, then to the
-    smaller cluster; None where no launch holds the panel."""
+                     active: Tuple[int, ...] = ACTIVE_CLUSTERS,
+                     batch: int = 1) -> Optional[GemmSyrkConfig]:
+    """The launch for ``batch`` products tril((A·B)(A·B)ᵀ), A m x k, B
+    k x l, on a card holding ``active[C - 1]`` resident clusters of C: the
+    candidate of least :func:`gemm_syrk_cost`, ties to the wider chunk,
+    then to the smaller cluster; None where no launch holds the panel."""
     fit = candidates(m)
     if not fit:
         return None
-    return min(fit, key=lambda c: (gemm_syrk_cost(m, k, l, c, active),
+    return min(fit, key=lambda c: (gemm_syrk_cost(m, k, l, c, active, batch),
                                    -c.bl, c.cluster))
+
+
+def gemm_syrk_grid(l: int, cfg: GemmSyrkConfig,
+                   batch: int = 1) -> Tuple[int, int]:
+    """The launch's grid (x, y): a cluster of C CTAs per l-chunk, and the
+    batch's instances up to :data:`~repro_torch.kernels.gemm.MAX_GRID_YZ`
+    (the cluster is (C, 1, 1), so y is free)."""
+    return cfg.blocks(l), _gemm.grid_yz(batch)
+
+
+def gemm_syrk_batch_blocks(m: int, k: int, l: int, cfg: GemmSyrkConfig,
+                           batch: int) -> Iterator[
+        Tuple[int, int, int, Tuple[int, ...], Tuple[Tuple[int, int], ...]]]:
+    """(instance, chunk, rank, pieces built, tile pairs multiplied) of
+    every pass of every CTA of a batched launch, as the kernel derives
+    them from its block index and cluster rank: CTA (x, y) takes instances
+    y, y + gridDim.y, ...; for each it builds the pieces
+    M1[i·64:(i+1)·64, chunk·bl:(chunk+1)·bl] of row tiles i = rank,
+    rank + C, ... over all of k, and multiplies the pairs (i, j <= i) of
+    its range of the chunk's pairs in row-major order."""
+    mt = _cdiv(m, BM)
+    pairs = mt * (mt + 1) // 2
+    gx, gy = gemm_syrk_grid(l, cfg, batch)
+    for _, inst in _gemm.strided(batch, gy):
+        for x in range(gx):
+            chunk, rank = divmod(x, cfg.cluster)
+            t0, t1 = pair_range(pairs, cfg.cluster, rank)
+            yield (inst, chunk, rank, tuple(range(rank, mt, cfg.cluster)),
+                   tuple(_syrk.tile_of(t) for t in range(t0, t1)))
 
 
 def gemm_syrk_blocks(m: int, k: int, l: int, cfg: GemmSyrkConfig) -> Iterator[
         Tuple[int, int, Tuple[int, ...], Tuple[Tuple[int, int], ...]]]:
     """(chunk, rank, pieces built, tile pairs multiplied) of every CTA of
-    the launch, as the kernel derives them from its cluster rank: it
-    builds the pieces M1[i·64:(i+1)·64, chunk·bl:(chunk+1)·bl] of row
-    tiles i = rank, rank + C, ... over all of k, and multiplies the pairs
-    (i, j <= i) of its range of the chunk's pairs in row-major order."""
-    mt = _cdiv(m, BM)
-    pairs = mt * (mt + 1) // 2
-    for chunk in range(cfg.chunks(l)):
-        for rank in range(cfg.cluster):
-            t0, t1 = pair_range(pairs, cfg.cluster, rank)
-            yield (chunk, rank, tuple(range(rank, mt, cfg.cluster)),
-                   tuple(_syrk.tile_of(t) for t in range(t0, t1)))
+    a launch of one product (:func:`gemm_syrk_batch_blocks` at batch 1)."""
+    for _, *cta in gemm_syrk_batch_blocks(m, k, l, cfg, 1):
+        yield tuple(cta)
 
 
 def executed_flops(m: int, k: int, l: int, cfg: GemmSyrkConfig) -> int:
@@ -214,9 +239,10 @@ def gemm_syrk_cuda(a: torch.Tensor, b: torch.Tensor,
     ``ops.gemm_syrk``. Above :func:`max_m` rows, where no launch holds the
     panel, ``syrk(gemm(a, b))`` on the port's kernels."""
     if cfg is None:
-        m, k = a.shape
-        cfg = gemm_syrk_config(m, k, b.shape[1],
-                               active_clusters(a.get_device()))
+        m, k = a.shape[-2:]
+        cfg = gemm_syrk_config(m, k, b.shape[-1],
+                               active_clusters(a.get_device()),
+                               a.shape[0] if a.dim() == 3 else 1)
     if cfg is None:
         return _syrk.syrk_cuda(_gemm.gemm_cuda(a, b))
     return launch(a, b, cfg)
@@ -224,23 +250,26 @@ def gemm_syrk_cuda(a: torch.Tensor, b: torch.Tensor,
 
 def launch(a: torch.Tensor, b: torch.Tensor,
            cfg: GemmSyrkConfig) -> torch.Tensor:
-    """tril((A·B)(A·B)ᵀ) on the card under the launch ``cfg``: the one
-    place the kernel is launched and counted (timing scripts and tests
-    call it with the launches :func:`gemm_syrk_config` did not pick)."""
+    """tril((A·B)(A·B)ᵀ) on the card under the launch ``cfg``, for
+    matrices or 3-D batches of them (one launch): the one place the kernel
+    is launched and counted (timing scripts and tests call it with the
+    launches :func:`gemm_syrk_config` did not pick)."""
     global launches
     device = a.get_device()
     if device != torch.cuda.current_device():
         with torch.cuda.device(device):
             return launch(a, b, cfg)
-    m, k = a.shape
-    l = b.shape[1]
-    out = torch.empty((m, m), dtype=torch.float32, device=a.device)
+    batched = a.dim() == 3
+    batch = a.shape[0] if batched else 1
+    m, k = a.shape[-2:]
+    l = b.shape[-1]
+    out = torch.empty((batch, m, m) if batched else (m, m),
+                      dtype=torch.float32, device=a.device)
     if out.numel() == 0:
         return out
     rc = _build.library().repro_gemm_syrk_f32(
-        a.data_ptr(), a.stride(0), a.stride(1),
-        b.data_ptr(), b.stride(0), b.stride(1),
-        out.data_ptr(), m, k, l, cfg.bl, cfg.cluster, _build.stream(device))
+        *_build.matrix_args(a, b), out.data_ptr(), batch, m, k, l, cfg.bl, cfg.cluster,
+        _build.stream(device))
     _build.check(rc, "gemm_syrk")
     launches += 1
     return out

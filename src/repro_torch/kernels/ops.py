@@ -12,6 +12,10 @@ mismatched dims), then dispatches on where the operands lie:
 The five matrix kernels take an optional ``config=``: a launch of the
 kernel's own (a tuned one, from :mod:`repro_torch.core.tuning`), made in
 place of the one its launch rule picks. The plain version ignores it.
+Each also takes a batch: every operand (batch, rows, cols) with one
+batch size, the result (batch, m, n). On the card a batch is one launch,
+its instances a grid axis of the kernel, and counts one launch; the
+dims the messages name are the matrix dims, whatever the batch.
 
 ``flash_attention`` keeps the reference's (B, H, S, D) layout at its
 boundary and goes through the custom operator
@@ -80,7 +84,7 @@ def gemm(a: torch.Tensor, b: torch.Tensor, config=None) -> torch.Tensor:
     """C = A·B."""
     check_matrices("gemm", A=a, B=b)
     check_same("gemm", "contraction dim k",
-               ("A.shape[1]", a.shape[1]), ("B.shape[0]", b.shape[0]))
+               ("A.shape[1]", a.shape[-1]), ("B.shape[0]", b.shape[-2]))
     if _on_card("gemm", a):
         return _gemm.gemm_cuda(a, b, config)
     return ref.gemm(a, b)
@@ -99,8 +103,8 @@ def symm(s_lower: torch.Tensor, b: torch.Tensor,
     """C = S·B, S symmetric and stored in its lower triangle (the strict
     upper triangle is never read)."""
     check_matrices("symm", S=s_lower, B=b)
-    check_same("symm", "symmetric dim m", ("S.shape[0]", s_lower.shape[0]),
-               ("S.shape[1]", s_lower.shape[1]), ("B.shape[0]", b.shape[0]))
+    check_same("symm", "symmetric dim m", ("S.shape[0]", s_lower.shape[-2]),
+               ("S.shape[1]", s_lower.shape[-1]), ("B.shape[0]", b.shape[-2]))
     if _on_card("symm", b):
         return _symm.symm_cuda(s_lower, b, config)
     return ref.symm(s_lower, b)
@@ -111,9 +115,9 @@ def chain_gemm(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     """(A·B)·C without materializing A·B (on the card)."""
     check_matrices("chain_gemm", A=a, B=b, C=c)
     check_same("chain_gemm", "contraction dim k",
-               ("A.shape[1]", a.shape[1]), ("B.shape[0]", b.shape[0]))
+               ("A.shape[1]", a.shape[-1]), ("B.shape[0]", b.shape[-2]))
     check_same("chain_gemm", "contraction dim l",
-               ("B.shape[1]", b.shape[1]), ("C.shape[0]", c.shape[0]))
+               ("B.shape[1]", b.shape[-1]), ("C.shape[0]", c.shape[-2]))
     if _on_card("chain_gemm", a):
         return _chain_gemm.chain_gemm_cuda(a, b, c, config)
     return ref.chain_gemm(a, b, c)
@@ -124,7 +128,7 @@ def gemm_syrk(a: torch.Tensor, b: torch.Tensor, config=None) -> torch.Tensor:
     card); strictly-upper entries zero."""
     check_matrices("gemm_syrk", A=a, B=b)
     check_same("gemm_syrk", "contraction dim k",
-               ("A.shape[1]", a.shape[1]), ("B.shape[0]", b.shape[0]))
+               ("A.shape[1]", a.shape[-1]), ("B.shape[0]", b.shape[-2]))
     if _on_card("gemm_syrk", a):
         return _gemm_syrk.gemm_syrk_cuda(a, b, config)
     return ref.gemm_syrk(a, b)
@@ -152,6 +156,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def tri2full(t: torch.Tensor) -> torch.Tensor:
     """Mirror the lower triangle into a full symmetric matrix."""
     check_matrices("tri2full", T=t)
-    check_same("tri2full", "square dim", ("T.shape[0]", t.shape[0]),
-               ("T.shape[1]", t.shape[1]))
+    check_same("tri2full", "square dim", ("T.shape[0]", t.shape[-2]),
+               ("T.shape[1]", t.shape[-1]))
     return ref.tri2full(t)

@@ -6,8 +6,10 @@ modes: each block cuts the contraction at its rows' diagonal band into
 the segments :func:`symm_segments` names, so only the lower triangle of
 S is ever read, through its strides. The tile and the contraction split
 are chosen per call (:func:`symm_config`). Side R (B·S) is
-``symm_cuda(s, b.mT).mT``: two views, no copy. Its plain version is
-:func:`repro_torch.kernels.ref.symm`.
+``symm_cuda(s, b.mT).mT``: two views, no copy. A 3-D batch is one
+launch, its instances on the grid's z axis beside the split, as the
+GEMM's (:func:`repro_torch.kernels.gemm.gemm_batch_blocks`). Its plain
+version is :func:`repro_torch.kernels.ref.symm`.
 """
 
 from __future__ import annotations
@@ -25,13 +27,14 @@ from .gemm import (SMS, GemmConfig, candidates, config_to_dict,  # noqa: F401
 launches = 0
 
 
-def symm_config(m: int, n: int, sms: int = SMS) -> GemmConfig:
-    """The launch for sym(S)·B with S m x m and B m x n: the GEMM's rule
-    (:func:`repro_torch.kernels.gemm.gemm_config`) on the (m x m)·(m x n)
-    product, since grid, slabs and inner loop are the GEMM's. The band's
-    4-byte copies are BM of the m contraction steps and are charged
-    nothing (PERF.md, section 6)."""
-    return gemm_config(m, n, m, sms)
+def symm_config(m: int, n: int, sms: int = SMS,
+                batch: int = 1) -> GemmConfig:
+    """The launch for ``batch`` products sym(S)·B with S m x m and B
+    m x n: the GEMM's rule (:func:`repro_torch.kernels.gemm.gemm_config`)
+    on the (m x m)·(m x n) product, since grid, slabs and inner loop are
+    the GEMM's. The band's 4-byte copies are BM of the m contraction
+    steps and are charged nothing (PERF.md, section 6)."""
+    return gemm_config(m, n, m, sms, batch)
 
 
 def config_from_dict(dims: Sequence[int], d: Mapping) -> Optional[GemmConfig]:
@@ -63,30 +66,33 @@ def symm_cuda(s_lower: torch.Tensor, b: torch.Tensor,
     :func:`symm_config`'s pick; operands already validated by
     ``ops.symm``."""
     if cfg is None:
-        cfg = symm_config(b.shape[0], b.shape[1], sm_count(b.get_device()))
+        cfg = symm_config(b.shape[-2], b.shape[-1], sm_count(b.get_device()),
+                          b.shape[0] if b.dim() == 3 else 1)
     return launch(s_lower, b, cfg)
 
 
 def launch(s_lower: torch.Tensor, b: torch.Tensor,
            cfg: GemmConfig) -> torch.Tensor:
-    """sym(S)·B on the card under the launch ``cfg``: the one place the
-    kernel is launched and counted (timing scripts and tests call it with
-    the configurations :func:`symm_config` did not pick)."""
+    """sym(S)·B on the card under the launch ``cfg``, for matrices or for
+    3-D batches of them (one launch): the one place the kernel is launched
+    and counted (timing scripts and tests call it with the configurations
+    :func:`symm_config` did not pick)."""
     global launches
     device = b.get_device()
     if device != torch.cuda.current_device():
         with torch.cuda.device(device):
             return launch(s_lower, b, cfg)
-    m, n = b.shape
-    out = torch.empty((m, n), dtype=torch.float32, device=b.device)
+    batched = b.dim() == 3
+    batch = b.shape[0] if batched else 1
+    m, n = b.shape[-2:]
+    out = torch.empty((batch, m, n) if batched else (m, n),
+                      dtype=torch.float32, device=b.device)
     if out.numel() == 0:
         return out
-    ws = (torch.empty((cfg.split, m, n), dtype=torch.float32, device=b.device)
-          if cfg.split > 1 else None)
+    ws = (torch.empty((batch, cfg.split, m, n), dtype=torch.float32,
+                      device=b.device) if cfg.split > 1 else None)
     rc = _build.library().repro_symm_f32(
-        s_lower.data_ptr(), s_lower.stride(0), s_lower.stride(1),
-        b.data_ptr(), b.stride(0), b.stride(1),
-        out.data_ptr(), None if ws is None else ws.data_ptr(),
+        *_build.matrix_args(s_lower, b), out.data_ptr(), None if ws is None else ws.data_ptr(), batch,
         m, n, cfg.config, cfg.split, cfg.kchunk, _build.stream(device))
     _build.check(rc, "symm")
     launches += 1

@@ -7,8 +7,9 @@ operands. The tile and a contraction split are chosen per call
 (:func:`syrk_config`); split slices are summed in slice order by a pass
 that also writes the strict upper zeros, and a single slice stores them
 itself, so the output is allocated with ``torch.empty`` and no zeroing
-pass runs outside the kernel. Its plain version is
-:func:`repro_torch.kernels.ref.syrk`.
+pass runs outside the kernel. A 3-D batch is one launch, its instances on
+the grid's y axis beside the split (:func:`syrk_batch_blocks`). Its plain
+version is :func:`repro_torch.kernels.ref.syrk`.
 """
 
 from __future__ import annotations
@@ -21,8 +22,9 @@ import torch
 
 from . import _build
 # config_to_dict is the GEMM's: a SYRK launch has the same knobs.
-from .gemm import (SMS, US_PER_MMAC, US_SPLIT, GemmConfig, candidates,
-                   config_to_dict, match_config, sm_count)  # noqa: F401
+from .gemm import (SMS, US_PER_MMAC, US_SPLIT, GemmConfig,  # noqa: F401
+                   candidates, config_to_dict, grid_yz,
+                   match_config, sm_count, strided)
 
 #: Launches of the CUDA kernel in this process.
 launches = 0
@@ -52,22 +54,25 @@ def config_from_dict(dims: Sequence[int], d: Mapping) -> Optional[GemmConfig]:
     return match_config(syrk_candidates(int(dims[1])), d)
 
 
-def syrk_cost(m: int, cfg: GemmConfig, sms: int = SMS) -> float:
-    """Modeled microseconds of ``cfg``: the GEMM's model
-    (:func:`repro_torch.kernels.gemm.gemm_cost`) over the T·split blocks
-    of the triangular grid instead of a rectangle's."""
-    busiest = _cdiv(tiles(m, cfg.bm) * cfg.split, sms) * cfg.bm * cfg.bn * cfg.kchunk
+def syrk_cost(m: int, cfg: GemmConfig, sms: int = SMS,
+              batch: int = 1) -> float:
+    """Modeled microseconds of ``cfg`` for ``batch`` instances: the GEMM's
+    model (:func:`repro_torch.kernels.gemm.gemm_cost`) over the
+    T·split·batch blocks of the triangular grid instead of a rectangle's."""
+    busiest = (_cdiv(tiles(m, cfg.bm) * cfg.split * batch, sms)
+               * cfg.bm * cfg.bn * cfg.kchunk)
     return (busiest * 1e-6 * US_PER_MMAC[cfg.config]
             + (US_SPLIT if cfg.split > 1 else 0.0))
 
 
 @lru_cache(maxsize=4096)
-def syrk_config(m: int, k: int, sms: int = SMS) -> GemmConfig:
-    """The launch the wrapper makes for tril(A·Aᵀ), A m x k: the candidate
-    of least :func:`syrk_cost`, ties to the larger tile, then to fewer
-    slices."""
+def syrk_config(m: int, k: int, sms: int = SMS,
+                batch: int = 1) -> GemmConfig:
+    """The launch the wrapper makes for ``batch`` products tril(A·Aᵀ), A
+    m x k: the candidate of least :func:`syrk_cost`, ties to the larger
+    tile, then to fewer slices."""
     return min(syrk_candidates(k),
-               key=lambda c: (syrk_cost(m, c, sms), c.config, c.split))
+               key=lambda c: (syrk_cost(m, c, sms, batch), c.config, c.split))
 
 
 def tile_of(t: int) -> Tuple[int, int]:
@@ -84,17 +89,36 @@ def tile_of(t: int) -> Tuple[int, int]:
     return bi, t - bi * (bi + 1) // 2
 
 
+def syrk_grid(m: int, cfg: GemmConfig, batch: int = 1) -> Tuple[int, int]:
+    """The launch's grid (x, y): the T lower-triangular tiles, and the
+    batch·split (instance, slice) pairs up to
+    :data:`~repro_torch.kernels.gemm.MAX_GRID_YZ`."""
+    return tiles(m, cfg.bm), grid_yz(batch * cfg.split)
+
+
+def syrk_batch_blocks(m: int, k: int, cfg: GemmConfig, batch: int
+                      ) -> Iterator[Tuple[int, int, int, int, int]]:
+    """(instance, row0, col0, k0, k1) of every pass of every block of a
+    batched launch, as the kernel derives them: block y takes the pairs
+    u = y, y + gridDim.y, ... of u = instance·split + slice, each the
+    lower-triangular output tile [row0, row0 + bm) x [col0, col0 + bm)
+    (clipped to m x m by the kernel's masks) of block x over the
+    contraction slice [k0, k1)."""
+    gx, gy = syrk_grid(m, cfg, batch)
+    for _, u in strided(batch * cfg.split, gy):
+        k0 = u % cfg.split * cfg.kchunk
+        for t in range(gx):
+            bi, bj = tile_of(t)
+            yield (u // cfg.split, bi * cfg.bm, bj * cfg.bm, k0,
+                   min(k, k0 + cfg.kchunk))
+
+
 def syrk_blocks(m: int, k: int,
                 cfg: GemmConfig) -> Iterator[Tuple[int, int, int, int]]:
-    """(row0, col0, k0, k1) of every block of the launch, as the kernel
-    derives them from its block index: the lower-triangular output tile
-    [row0, row0 + bm) x [col0, col0 + bm) (clipped to m x m by the
-    kernel's masks) over the contraction slice [k0, k1)."""
-    for z in range(cfg.split):
-        k0 = z * cfg.kchunk
-        for t in range(tiles(m, cfg.bm)):
-            bi, bj = tile_of(t)
-            yield bi * cfg.bm, bj * cfg.bm, k0, min(k, k0 + cfg.kchunk)
+    """(row0, col0, k0, k1) of every block of a launch of one product
+    (:func:`syrk_batch_blocks` at batch 1)."""
+    for _, *block in syrk_batch_blocks(m, k, cfg, 1):
+        yield tuple(block)
 
 
 def syrk_cuda(a: torch.Tensor,
@@ -102,30 +126,35 @@ def syrk_cuda(a: torch.Tensor,
     """tril(A·Aᵀ) on the card under ``cfg`` (a tuned launch), else under
     :func:`syrk_config`'s pick; ``a`` already validated by ``ops.syrk``."""
     if cfg is None:
-        m, k = a.shape
-        cfg = syrk_config(m, k, sm_count(a.get_device()))
+        m, k = a.shape[-2:]
+        cfg = syrk_config(m, k, sm_count(a.get_device()),
+                          a.shape[0] if a.dim() == 3 else 1)
     return launch(a, cfg)
 
 
 def launch(a: torch.Tensor, cfg: GemmConfig) -> torch.Tensor:
-    """tril(A·Aᵀ) on the card under the launch ``cfg``: the one place the
-    kernel is launched and counted (timing scripts and tests call it with
-    the configurations :func:`syrk_config` did not pick)."""
+    """tril(A·Aᵀ) on the card under the launch ``cfg``, for a matrix or a
+    3-D batch of them (one launch): the one place the kernel is launched
+    and counted (timing scripts and tests call it with the configurations
+    :func:`syrk_config` did not pick)."""
     global launches
     device = a.get_device()
     if device != torch.cuda.current_device():
         with torch.cuda.device(device):
             return launch(a, cfg)
-    m, k = a.shape
-    out = torch.empty((m, m), dtype=torch.float32, device=a.device)
+    batched = a.dim() == 3
+    batch = a.shape[0] if batched else 1
+    m, k = a.shape[-2:]
+    out = torch.empty((batch, m, m) if batched else (m, m),
+                      dtype=torch.float32, device=a.device)
     if out.numel() == 0:
         return out
-    ws = (torch.empty((cfg.split, m, m), dtype=torch.float32, device=a.device)
-          if cfg.split > 1 else None)
+    ws = (torch.empty((batch, cfg.split, m, m), dtype=torch.float32,
+                      device=a.device) if cfg.split > 1 else None)
     rc = _build.library().repro_syrk_f32(
-        a.data_ptr(), a.stride(0), a.stride(1), out.data_ptr(),
-        None if ws is None else ws.data_ptr(), m, k, cfg.config, cfg.split,
-        cfg.kchunk, _build.stream(device))
+        *_build.matrix_args(a), out.data_ptr(),
+        None if ws is None else ws.data_ptr(), batch, m, k, cfg.config,
+        cfg.split, cfg.kchunk, _build.stream(device))
     _build.check(rc, "syrk")
     launches += 1
     return out

@@ -1180,3 +1180,179 @@ def test_mamba2_smoke_train_step_on_the_card_matches_the_cpu(cuda):
     num = sum(float((card[n] - cpu[n]).norm()) ** 2 for n in cpu)
     den = sum(float((cpu[n] - start[n]).norm()) ** 2 for n in cpu)
     assert (num / den) ** 0.5 <= 1e-2
+
+
+# ---------------------------------------------------------- the batched path --
+
+#: (kernel, dims) of the batched kernel checks: ragged shapes (no dim a
+#: multiple of a tile) and the sweep's main-path shape at batch 8.
+BATCHED_CASES = [
+    ("gemm", (130, 70, 90)), ("gemm", (400, 1200, 400)),
+    ("syrk", (130, 70)), ("syrk", (400, 800)),
+    ("symm", (130, 70)), ("symm", (400, 800)),
+    ("chain_gemm", (130, 70, 150, 60)), ("chain_gemm", (400, 400, 400, 400)),
+    ("gemm_syrk", (130, 70, 90)), ("gemm_syrk", (400, 400, 800))]
+
+
+def _batch(rng, b, r, c, cuda, view):
+    """(b, r, c) operands: contiguous, a transposed view of (b, c, r), or
+    rows cut from a buffer whose leading dim (c + 37) and instance stride
+    are not multiples of 16 bytes."""
+    if view == "t":
+        return torch.from_numpy(rng.standard_normal((b, c, r))).float().to(
+            cuda).mT
+    if view == "ld":
+        big = torch.from_numpy(rng.standard_normal((b, r, c + 37))).float()
+        return big.to(cuda)[:, :, :c]
+    return torch.from_numpy(rng.standard_normal((b, r, c))).float().to(cuda)
+
+
+def _batched_call(kernel, dims, rng, b, cuda, view):
+    """(kernel call, plain call) on batched operands of ``dims``."""
+    if kernel == "gemm":
+        m, k, n = dims
+        a, bb = _batch(rng, b, m, k, cuda, view), _batch(rng, b, k, n, cuda, "")
+        return (lambda: ops.gemm(a, bb)), (lambda: ref.gemm(a, bb))
+    if kernel == "syrk":
+        m, k = dims
+        a = _batch(rng, b, m, k, cuda, view)
+        return (lambda: ops.syrk(a)), (lambda: ref.syrk(a))
+    if kernel == "symm":   # side R through views, garbage above S's diagonal
+        m, n = dims
+        s = _batch(rng, b, m, m, cuda, "")
+        s = torch.tril(s) + torch.triu(s * 1e3, 1)
+        y = _batch(rng, b, n, m, cuda, view)
+        return (lambda: ops.symm(s, y.mT).mT), \
+            (lambda: y @ ref.tri2full(torch.tril(s)))
+    if kernel == "chain_gemm":
+        m, k, l, n = dims
+        a = _batch(rng, b, m, k, cuda, view)
+        bb, c = _batch(rng, b, k, l, cuda, ""), _batch(rng, b, l, n, cuda, "t")
+        return (lambda: ops.chain_gemm(a, bb, c)), \
+            (lambda: ref.chain_gemm(a, bb, c))
+    m, k, l = dims
+    a, bb = _batch(rng, b, m, k, cuda, view), _batch(rng, b, k, l, cuda, "")
+    return (lambda: ops.gemm_syrk(a, bb)), (lambda: ref.gemm_syrk(a, bb))
+
+
+@pytest.mark.parametrize("kernel,dims", BATCHED_CASES)
+@pytest.mark.parametrize("view", ["", "t", "ld"])
+def test_batched_kernel_matches_plain(cuda, kernel, dims, view):
+    """One launch for the batch, each instance within the kernel's
+    tolerance of its plain version (PERF.md section 2)."""
+    rng = np.random.default_rng(sum(dims) + len(view))
+    run, plain = _batched_call(kernel, dims, rng, 8, cuda, view)
+    before = ops.launch_counts()[kernel]
+    out = run()
+    assert ops.launch_counts()[kernel] == before + 1
+    want = plain()
+    assert out.shape == want.shape and out.shape[0] == 8
+    for i in range(8):
+        if kernel == "gemm_syrk":
+            _close_scaled(out[i], want[i])
+        else:
+            _close(out[i], want[i],
+                   CHAIN_TOL if kernel == "chain_gemm" else TOL)
+    if kernel in ("syrk", "gemm_syrk"):
+        assert bool((torch.triu(out, 1) == 0).all())
+
+
+@pytest.mark.parametrize("m,k,n", [(130, 70, 90), (400, 1200, 400),
+                                   (64, 400, 64)])
+def test_batched_gemm_symm_syrk_every_launch_bitwise_per_instance(cuda, m, k,
+                                                                   n):
+    """Under one launch, instance i of a batch is bit for bit the
+    unbatched launch on its operands (same code, same summation order),
+    every tile and split included."""
+    from repro_torch.kernels import gemm as kgemm
+    from repro_torch.kernels import symm as ksymm
+    from repro_torch.kernels import syrk as ksyrk
+    rng = np.random.default_rng(m + k + n)
+    a = _batch(rng, 3, m, k, cuda, "t")
+    b = _batch(rng, 3, k, n, cuda, "")
+    s = torch.tril(_batch(rng, 3, m, m, cuda, ""))
+    bs = _batch(rng, 3, m, n, cuda, "ld")
+    for cfg in kgemm.candidates(k):
+        got = kgemm.launch(a, b, cfg)
+        for i in range(3):
+            assert torch.equal(got[i], kgemm.launch(a[i], b[i], cfg)), cfg
+        if cfg.bm == cfg.bn:
+            got = ksyrk.launch(a, cfg)
+            for i in range(3):
+                assert torch.equal(got[i], ksyrk.launch(a[i], cfg)), cfg
+    for cfg in kgemm.candidates(m):
+        got = ksymm.launch(s, bs, cfg)
+        for i in range(3):
+            assert torch.equal(got[i], ksymm.launch(s[i], bs[i], cfg)), cfg
+
+
+@pytest.mark.parametrize("kernel", ["gemm", "syrk", "symm", "chain_gemm",
+                                    "gemm_syrk"])
+def test_batched_kernel_past_the_grid_limit(cuda, kernel):
+    """70,000 instances: the batch axis outnumbers the grid's y/z limit of
+    65,535 and the kernel loops over the rest (gemm and symm with a split,
+    so z holds 140,000 (instance, slice) pairs)."""
+    from repro_torch.kernels import gemm as kgemm
+    from repro_torch.kernels import symm as ksymm
+    from repro_torch.kernels import syrk as ksyrk
+    rng = np.random.default_rng(70_000)
+    batch = 70_000
+    a = _batch(rng, batch, 8, 200, cuda, "")
+    b = _batch(rng, batch, 200, 8, cuda, "")
+    if kernel == "gemm":
+        out, want = kgemm.launch(a, b, kgemm.with_split(2, 200, 2)), a @ b
+    elif kernel == "syrk":
+        out, want = ksyrk.launch(a, kgemm.with_split(2, 200, 2)), ref.syrk(a)
+    elif kernel == "symm":
+        s = torch.tril(_batch(rng, batch, 8, 8, cuda, ""))
+        c = b[:, :8, :]
+        out = ksymm.launch(s, c, kgemm.with_split(2, 8, 1))
+        want = ref.symm(s, c)
+    elif kernel == "chain_gemm":
+        out, want = ops.chain_gemm(a, b, b.mT), ref.chain_gemm(a, b, b.mT)
+    else:
+        out, want = ops.gemm_syrk(a, b), ref.gemm_syrk(a, b)
+    torch.cuda.synchronize()
+    err = (out - want).abs().amax(dim=(1, 2))
+    scale = want.abs().amax(dim=(1, 2))
+    assert bool((err <= 1e-2 + 1e-5 * scale).all()), float(err.max())
+
+
+GRAPH_BATCH_POINTS = [("aatb", (300, 200, 100)),
+                      ("abcd", (200, 100, 300, 150, 250)),
+                      ("abab", (300, 100, 200))]
+
+
+@pytest.mark.parametrize("name,point", GRAPH_BATCH_POINTS)
+def test_execute_batch_matches_execute_per_instance(cuda, monkeypatch, name,
+                                                    point):
+    from repro_torch.core.backends import CudaBackend
+    from repro_torch.core.expressions import get_spec
+    monkeypatch.delenv("REPRO_NO_FUSION", raising=False)
+    backend = CudaBackend(seed=0, reps=1)
+    for alg in get_spec(name).algorithms(point):
+        operands = backend.make_batched_operands(alg, 4)
+        got = backend.execute_batch(alg, operands)
+        for i in range(4):
+            want = backend.execute(alg, {k: v[i] for k, v in operands.items()})
+            _close_scaled(got[i], want, atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.parametrize("name,point", GRAPH_BATCH_POINTS)
+@pytest.mark.parametrize("batch", [1, 32])
+def test_batched_replay_launches_the_algorithms_steps(cuda, monkeypatch, name,
+                                                      point, batch):
+    """time_algorithm_batched on a memo miss: each kernel step launches
+    2 + reps times (eager walk, warm-up replay, reps replays), whatever
+    the batch: one launch a step for the whole batch."""
+    from repro_torch.core.backends import CudaBackend
+    from repro_torch.core.expressions import get_spec
+    monkeypatch.delenv("REPRO_NO_FUSION", raising=False)
+    backend = CudaBackend(seed=0, reps=2)
+    for alg in get_spec(name).algorithms(point):
+        steps = _step_launches(backend, alg, backend.make_operands(alg))
+        operands = backend.make_batched_operands(alg, batch)
+        ops.reset_launch_counts()
+        assert backend.time_algorithm_batched(alg, operands=operands) > 0
+        got = {k: v for k, v in ops.launch_counts().items() if v}
+        assert got == {k: n * 4 for k, n in steps.items()}, alg.name
