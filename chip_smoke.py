@@ -48,8 +48,12 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
 7. serve Yi-9B at full width and depth in bf16 on random weights: prefill
    2 requests of 2048 tokens through ``api.prefill`` (the flash kernel
    in each of the 48 layers), decode 128 greedy tokens from that cache
-   with ``api.decode_step``, prefill the 2176 tokens again, and hold the
-   decode logits and tokens against the re-prefill's;
+   through the serve step captured in a CUDA graph
+   (``serve.decode.compile_serve_step``, one replay a token) and from a
+   copy of it eagerly with ``api.decode_step`` (the tokens must be
+   identical; ms/token both ways, the capture's ms and the graph pool's
+   bytes), prefill the 2176 tokens again, and hold the captured decode's
+   logits and tokens against the re-prefill's;
 8. over phase 4's atlases, with a temporary ``REPRO_PROFILE_DIR``:
    calibrate the ``default`` kernel grid and then each family's calls on
    the ``cuda`` backend (gemm, syrk and symm must each launch
@@ -106,7 +110,10 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    (chunked SSD), decodes 128 greedy tokens and holds them against a
    re-prefill of 2176, as phase 7; Zamba2-1.2B runs
    ``serve.decode.generate`` (a 2 × 128 prompt fed token by token, 32 new
-   tokens) twice: the tokens must be identical and every logit finite.
+   tokens) twice, captured, and once eagerly (``capture=False``), and the
+   captured step once more keeping its logits: the tokens must be
+   identical and every logit finite. Each model decodes both ways, as
+   phase 7 (captured and eager tokens identical, ms/token both ways).
    One prefill and one decode step of each (Zamba2: a step) run once more
    under ``torch.profiler``: host wall time, device time and the ATen
    ops and hand kernels that take the most device time;
@@ -135,11 +142,12 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    layers (:data:`INTERNVL_LAYERS`), bf16, random weights: ``api.prefill``
    of 256 vision positions and 1792 tokens a request (flash once in each
    layer), 128 greedy tokens with no kernel launch, held against a
-   re-prefill of 2176 positions as phase 7 holds Yi-9B's; whisper-tiny at
-   its full size: the encoder over 1500 frames, ``serve.decode.generate``
-   of a 64-token prompt fed token by token and 128 new tokens with the
-   frames, twice (identical tokens, finite logits, no kernel launch), and
-   its decode logits held against ``api.forward_train`` of the same
+   re-prefill of 2176 positions as phase 7 holds Yi-9B's (captured and
+   eager decode as there); whisper-tiny at its full size: the encoder
+   over 1500 frames, ``serve.decode.generate`` of a 64-token prompt fed
+   token by token and 128 new tokens with the frames, twice captured and
+   once eagerly (identical tokens, no kernel launch), and the captured
+   step's logits (finite) held against ``api.forward_train`` of the same
    tokens at phase 7's limit. A prefill and a decode step of InternVL2 run
    once more under ``torch.profiler``;
 14. training, in bf16 on random weights from seed 0 and ``SyntheticLM``
@@ -908,6 +916,9 @@ def check_flash(torch, np, cases=FLASH_CASES) -> dict:
     return result
 
 
+#: The card's ``nvidia-smi`` name and power limit, printed beside every
+#: decode time (set by :func:`main`).
+CARD = {"line": "card not read"}
 #: Phase 7: requests, prompt tokens and greedy tokens of the served model.
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 2, 2048, 128
 #: |decode logit - re-prefill logit| limit, in logit units (the random
@@ -996,6 +1007,108 @@ def greedy_decode(torch, api, model, cfg, logits, caches, n_new: int):
             caches, start.elapsed_time(end) / n_new)
 
 
+def clone_caches(torch, caches):
+    """A copy of a cache tree (NamedTuples of tensors): a second decode
+    from the same prefill, or scratch steps that leave it as it was (a
+    step writes its caches and advances their lengths in place)."""
+    if isinstance(caches, torch.Tensor):
+        return caches.clone()
+    if isinstance(caches, tuple) and hasattr(caches, "_fields"):
+        return type(caches)(*(clone_caches(torch, x) for x in caches))
+    return caches
+
+
+def captured_decode(torch, model, cfg, caches, first, n_new: int,
+                    forced=None, label: str = "", phase: int = 7) -> dict:
+    """The captured variant of :func:`greedy_decode`: the serve step
+    (``serve.decode.make_serve_step``, greedy) captured once on
+    ``caches`` by ``serve.decode.compile_serve_step`` and replayed for
+    every token, as ``generate`` runs it. ``first`` (B, 1) is the first
+    token fed; ``forced`` (B, F) tokens follow teacher-forced (the
+    hybrid and encdec families' prompt), then ``n_new`` greedy tokens.
+    Each step's logits and next tokens are copied out of the graph's
+    static buffers. The first replay runs under ``torch.profiler``
+    (:func:`device_time_by_op` by kernel, ``label``) and the others are
+    timed → {"logits" (B, F + n_new, V) of every step, "tokens" (B, 1 +
+    F + n_new) fed and the last one predicted, "ms" per timed step by
+    CUDA events, "capture_ms", "pool_bytes", "profile"}."""
+    from repro_torch.serve.decode import (ServeState, compile_serve_step,
+                                          make_serve_step)
+
+    compiled = compile_serve_step(make_serve_step(cfg),
+                                  ServeState(caches, first, None), model)
+    n_forced = 0 if forced is None else forced.shape[1]
+    steps = n_forced + n_new
+    b, v = first.shape[0], compiled.state.logits.shape[-1]
+    logits = torch.empty((b, steps, v), dtype=torch.float32, device="cuda")
+    tokens = torch.empty((b, 1 + steps), dtype=torch.long, device="cuda")
+    tokens[:, :1] = first
+    if n_forced:
+        tokens[:, 1:1 + n_forced] = forced
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    profile = None
+    for i in range(steps):
+        if i == 0:
+            profile = device_time_by_op(
+                torch, f"{label} captured decode step (one replay)",
+                compiled, phase=phase, by_kernel=True)
+            nxt = compiled.next_tokens
+            start.record()
+        else:
+            nxt = compiled()
+        logits[:, i] = compiled.state.logits
+        if i < n_forced:
+            compiled.state.last_tokens.copy_(forced[:, i:i + 1])
+        else:
+            tokens[:, i + 1] = nxt[:, 0]
+    end.record()
+    torch.cuda.synchronize()
+    return {"logits": logits, "tokens": tokens,
+            "ms": start.elapsed_time(end) / (steps - 1),
+            "capture_ms": compiled.capture_ms,
+            "pool_bytes": compiled.pool_bytes, "profile": profile}
+
+
+def decode_both_ways(torch, api, model, cfg, logits, caches, n_new: int,
+                     label: str, phase: int = 7) -> dict:
+    """Greedy decode of ``n_new`` tokens from a prefill's last logits and
+    caches: eagerly on a copy of the caches (:func:`greedy_decode`), then
+    through the captured serve step on the caches themselves
+    (:func:`captured_decode`). Prints ms/token both ways, the capture's
+    ms and the graph pool's bytes, and fails unless the captured tokens
+    are identical to the eager ones → the captured decode's (logits (B,
+    n_new + 1, V) from the prefill's last on, tokens (B, n_new + 1)) and
+    its numbers."""
+    dec_e, gen_e, _, eager_ms = greedy_decode(
+        torch, api, model, cfg, logits, clone_caches(torch, caches), n_new)
+    last = logits[:, -1]
+    got = captured_decode(torch, model, cfg, caches,
+                          torch.argmax(last, dim=-1)[:, None], n_new,
+                          label=label.split()[-1], phase=phase)
+    dec = torch.cat([last[:, None].float(), got["logits"]], dim=1)
+    same = torch.equal(got["tokens"], gen_e)
+    diff = float((dec - dec_e.float()).abs().max())
+    aten = aten_calls_per_decode_step(torch, api, model, cfg,
+                                      logits.shape[0])
+    print(f"{label} decode {n_new} tokens x {logits.shape[0]} "
+          f"({CARD['line']}): captured "
+          f"{got['ms']:.2f} ms/token (capture {got['capture_ms']:.1f} ms, "
+          f"graph pool {got['pool_bytes']} bytes), eager {eager_ms:.2f} "
+          f"ms/token ({aten} ATen calls an eager step); captured tokens "
+          f"identical to eager: {same}; logits max|captured - eager| "
+          f"{diff:.6f}")
+    if not same:
+        raise AssertionError(f"{label}: the captured decode's tokens "
+                             f"differ from the eager decode's")
+    return dec, got["tokens"], {
+        "decode_ms_per_token": got["ms"],
+        "decode_ms_per_token_eager": eager_ms,
+        "capture_ms": got["capture_ms"], "graph_pool_bytes":
+            got["pool_bytes"], "aten_calls_a_step": aten,
+        "captured_vs_eager_max_abs": diff,
+        "captured_profile": got["profile"]}
+
+
 def decode_agrees(torch, dec, chosen, ref_logits) -> bool:
     """Print decode's logits ``dec`` and greedy tokens ``chosen`` against a
     re-prefill's ``ref_logits`` at the same positions; True when every
@@ -1062,17 +1175,17 @@ def serve_model(torch, np) -> dict:
                              f"{after_prefill['flash_attention']} times, "
                              f"not once per layer ({cfg.n_layers})")
     if logits.shape != (b, s0, cfg.vocab) or \
-            not bool(torch.isfinite(logits).all()) or caches.kv.length != s0:
+            not bool(torch.isfinite(logits).all()) or \
+            int(caches.kv.length) != s0:
         raise AssertionError("prefill: bad logits or cache length")
 
-    # Greedy decode from the prefill's cache.
-    dec, generated, caches, decode_ms = greedy_decode(
-        torch, api, model, cfg, logits, caches, n_new)
+    # Greedy decode from the prefill's cache, captured and eager.
+    dec, generated, decoded = decode_both_ways(
+        torch, api, model, cfg, logits, caches, n_new, "yi-9b")
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    print(f"decode {n_new} tokens x {b} requests: {decode_ms:.2f} ms/token "
-          f"({aten_calls_per_decode_step(torch, api, model, cfg, b)} ATen "
-          f"calls a step); launches {ops.launch_counts()}")
-    if ops.launch_counts() != after_prefill or caches.kv.length != max_s:
+    print(f"decode launches {ops.launch_counts()}")
+    if ops.launch_counts() != after_prefill or \
+            int(caches.kv.length) != max_s:
         raise AssertionError("decode launched a kernel or lost a token")
 
     # Re-prefill over prompt + the 128 tokens fed to decode.
@@ -1093,8 +1206,7 @@ def serve_model(torch, np) -> dict:
     if not decode_agrees(torch, dec, generated, logits2[:, s0 - 1:]):
         raise AssertionError("decode disagrees with the re-prefill")
     return {"prefill_ms": prefill_ms, "flash_ms": flash_ms,
-            "decode_ms_per_token": decode_ms, "reprefill_ms": reprefill_ms,
-            "launches": launches}
+            "reprefill_ms": reprefill_ms, "launches": launches, **decoded}
 
 
 #: Phase 8: the discriminants the evaluation scores, Experiment 1's search
@@ -1983,8 +2095,8 @@ def _served_consult(torch, np) -> dict:
     def decode(planned):
         caches.kv.k.copy_(k0)
         caches.kv.v.copy_(v0)
-        state, tok, out = planned._replace(
-            kv=planned.kv._replace(length=s0)), first, [first]
+        planned.kv.length.fill_(s0)
+        state, tok, out = planned, first, [first]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(n_new):
@@ -2117,11 +2229,14 @@ def _on_device(event) -> bool:
 
 
 def device_time_by_op(torch, label: str, fn, top: int = 6,
-                      phase: int = 11) -> dict:
-    """Phases 11, 13 and 14: one call of ``fn`` under ``torch.profiler``;
-    print the host's wall time, the device's (:func:`device_busy_ms`) and
-    its share of the wall time, and the ``top`` ATen ops and hand kernels
-    by the device time of the kernels they launched."""
+                      phase: int = 11, by_kernel: bool = False) -> dict:
+    """Phases 7, 11, 13 and 14: one call of ``fn`` under
+    ``torch.profiler``; print the host's wall time, the device's
+    (:func:`device_busy_ms`) and its share of the wall time, and the
+    ``top`` ATen ops and hand kernels by the device time of the kernels
+    they launched, or with ``by_kernel`` the ``top`` kernels by their
+    own (a replayed graph launches its kernels without an ATen op), with
+    the count of kernels run."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -2136,14 +2251,19 @@ def device_time_by_op(torch, label: str, fn, top: int = 6,
     # would count the same kernel twice)
     ops_ = [e for e in events if e.key.startswith("aten::") or
             ("repro_" in e.key and _on_device(e))]
+    kernels = [e for e in events if _on_device(e)
+               and not getattr(e, "is_user_annotation", False)]
     device_ms = device_busy_ms(events)
-    ranked = sorted(ops_, key=_device_us, reverse=True)[:top]
+    ranked = sorted(kernels if by_kernel else ops_, key=_device_us,
+                    reverse=True)[:top]
+    count = f"{sum(e.count for e in kernels)} kernels; " if by_kernel else ""
     print(f"phase {phase} profile {label}: wall {wall_ms:.1f} ms, device "
-          f"{device_ms:.1f} ms ({device_ms / wall_ms:.0%}); by device "
-          f"time: " + ", ".join(
+          f"{device_ms:.1f} ms ({device_ms / wall_ms:.0%}); {count}by "
+          f"device time: " + ", ".join(
               f"{e.key[:48]} {_device_us(e) / 1e3:.2f} ms x{e.count}"
               for e in ranked))
-    return {"wall_ms": wall_ms, "device_ms": device_ms}
+    return {"wall_ms": wall_ms, "device_ms": device_ms,
+            "kernels": sum(e.count for e in kernels)}
 
 
 def check_params(model, cfg) -> None:
@@ -2253,23 +2373,24 @@ def serve_olmoe(torch, np) -> dict:
           f"({flash_ms / prefill_ms:.1%} of prefill); launches {launches}")
     if launches["flash_attention"] != cfg.n_layers or \
             logits.shape != (b, s0, cfg.vocab) or \
-            not bool(torch.isfinite(logits).all()) or caches.kv.length != s0:
+            not bool(torch.isfinite(logits).all()) or \
+            int(caches.kv.length) != s0:
         raise AssertionError("olmoe prefill: flash not once per layer, or "
                              "bad logits or cache length")
-    # Steps on the prefill's cache, their results dropped: each writes K/V
-    # at position s0, which the first real step writes again.
-    api.decode_step(model, cfg, prompt[:, -1:], caches)     # warm-up
+    # Steps on a copy of the prefill's cache, their results dropped.
+    scratch = clone_caches(torch, caches)
+    api.decode_step(model, cfg, prompt[:, -1:], scratch)    # warm-up
     profiled["decode step"] = device_time_by_op(
         torch, "olmoe decode step", lambda: api.decode_step(
-            model, cfg, prompt[:, -1:], caches))
+            model, cfg, prompt[:, -1:], scratch))
+    del scratch
 
-    dec, generated, caches, decode_ms = greedy_decode(
-        torch, api, model, cfg, logits, caches, n_new)
+    dec, generated, decoded = decode_both_ways(
+        torch, api, model, cfg, logits, caches, n_new, "phase 11 olmoe",
+        phase=11)
     del logits
-    print(f"phase 11 olmoe decode {n_new} tokens x {b}: {decode_ms:.2f} "
-          f"ms/token ({aten_calls_per_decode_step(torch, api, model, cfg, b)}"
-          f" ATen calls a step); launches {ops.launch_counts()}")
-    if ops.launch_counts() != launches or caches.kv.length != max_s:
+    print(f"phase 11 olmoe decode launches {ops.launch_counts()}")
+    if ops.launch_counts() != launches or int(caches.kv.length) != max_s:
         raise AssertionError("olmoe decode launched a kernel or lost a token")
 
     del caches
@@ -2300,8 +2421,8 @@ def serve_olmoe(torch, np) -> dict:
     decode_agrees(torch, dec, generated, logits2[:, s0 - 1:])
     del model, logits2
     return {"prefill_ms": prefill_ms, "flash_ms": flash_ms,
-            "decode_ms_per_token": decode_ms, "launches": launches,
-            "profile": profiled, **dispatch}
+            "launches": launches, "profile": profiled, **decoded,
+            **dispatch}
 
 
 def serve_mamba2(torch, np) -> dict:
@@ -2358,35 +2479,33 @@ def serve_mamba2(torch, np) -> dict:
     # columns (-1e30) up to padded_vocab.
     if logits.shape != (b, s0, cfg.padded_vocab) or \
             not bool(torch.isfinite(logits).all()) or \
-            caches.ssm.length != s0:
+            int(caches.ssm.length) != s0:
         raise AssertionError("mamba2 prefill: bad logits or cache length")
-    dec, generated, caches, decode_ms = greedy_decode(
-        torch, api, model, cfg, logits, caches, n_new)
+    dec, generated, decoded = decode_both_ways(
+        torch, api, model, cfg, logits, caches, n_new, "phase 11 mamba2",
+        phase=11)
     del logits
-    print(f"phase 11 mamba2 decode {n_new} tokens x {b}: {decode_ms:.2f} "
-          f"ms/token ({aten_calls_per_decode_step(torch, api, model, cfg, b)}"
-          f" ATen calls a step)")
     seq = torch.cat([prompt, generated[:, :-1]], dim=1)
     logits2, _, reprefill_ms, _, _ = timed_prefill(
         torch, api, model, cfg, seq, api.init_caches(model, cfg, b, max_s))
     launches = ops.launch_counts()
     print(f"phase 11 mamba2 re-prefill {b}x{max_s}: {reprefill_ms:.1f} ms; "
           f"launches {launches} (no kernel on this path)")
-    if any(launches.values()) or caches.ssm.length != max_s:
+    if any(launches.values()) or int(caches.ssm.length) != max_s:
         raise AssertionError("mamba2 launched a kernel or lost a token")
     v = cfg.vocab
     if not decode_agrees(torch, dec[..., :v], generated,
                          logits2[:, s0 - 1:, :v]):
         raise AssertionError("mamba2 decode disagrees with the re-prefill")
     del model, logits2, caches
-    return {"prefill_ms": prefill_ms, "decode_ms_per_token": decode_ms,
-            "reprefill_ms": reprefill_ms, "ssd_modes": picks,
-            "profile": profiled}
+    return {"prefill_ms": prefill_ms, "reprefill_ms": reprefill_ms,
+            "ssd_modes": picks, "profile": profiled, **decoded}
 
 
 def serve_zamba2(torch, np) -> dict:
     """Phase 11: Zamba2-1.2B at full width and depth, bf16, through
-    ``serve.decode.generate`` twice."""
+    ``serve.decode.generate`` twice captured and once eager, and the
+    captured step once more keeping its logits."""
     from repro_torch import configs
     from repro_torch.kernels import ops
     from repro_torch.models import api
@@ -2405,40 +2524,62 @@ def serve_zamba2(torch, np) -> dict:
             model, cfg, prompt[:, :1], scratch))}
     del scratch
     ops.reset_launch_counts()
-    finite = torch.ones((), dtype=torch.bool, device="cuda")
-    step = api.decode_step
-
-    def checked_step(*args, **kw):   # every step's logits finite
-        logits, caches = step(*args, **kw)
-        finite.logical_and_(torch.isfinite(logits).all())
-        return logits, caches
-
-    runs = []
-    api.decode_step = checked_step
-    try:
-        for _ in range(2):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = generate(model, cfg, prompt, max_new=n_new)
-            torch.cuda.synchronize()
-            runs.append((out, (time.perf_counter() - t0) * 1e3
-                         / (s0 - 1 + n_new)))
-    finally:
-        api.decode_step = step
-    same = torch.equal(runs[0][0], runs[1][0])
+    runs = timed_generations(torch, generate, model, cfg, prompt, n_new,
+                             s0 + n_new + 1)
+    kept = captured_decode(
+        torch, model, cfg, api.init_caches(model, cfg, b, s0 + n_new + 1),
+        prompt[:, :1], n_new, forced=prompt[:, 1:], label="zamba2",
+        phase=11)
+    finite = bool(torch.isfinite(kept["logits"]).all())
+    same = same_generations(torch, runs, kept)
+    aten = aten_calls_per_decode_step(torch, api, model, cfg, b)
     print(f"phase 11 zamba2 generate {b}x{s0} prompt (teacher-forced) + "
-          f"{n_new} tokens, twice: {runs[0][1]:.2f}, {runs[1][1]:.2f} "
-          f"ms/token over {s0 - 1 + n_new} steps "
-          f"({aten_calls_per_decode_step(torch, api, model, cfg, b)} ATen "
-          f"calls a step); tokens identical: {same}; logits finite: "
-          f"{bool(finite)}; launches {ops.launch_counts()}")
-    if not same or not bool(finite) or runs[0][0].shape != (b, s0 + n_new) \
+          f"{n_new} tokens over {s0 - 1 + n_new} steps ({CARD['line']}): "
+          f"captured "
+          f"{runs[0][1]:.2f}, {runs[1][1]:.2f} ms/token (generate's wall, "
+          f"capture included), {kept['ms']:.2f} ms/token by CUDA events "
+          f"(capture {kept['capture_ms']:.1f} ms, graph pool "
+          f"{kept['pool_bytes']} bytes); eager {runs[2][1]:.2f} ms/token "
+          f"({aten} ATen calls an eager step); tokens identical (captured, "
+          f"captured again, eager, captured with logits kept): {same}; "
+          f"logits finite: {finite}; launches {ops.launch_counts()}")
+    if not same or not finite or runs[0][0].shape != (b, s0 + n_new) \
             or any(ops.launch_counts().values()):
-        raise AssertionError("zamba2: the two generations differ, a logit "
-                             "is not finite, or a kernel launched")
+        raise AssertionError("zamba2: the generations differ, a logit is "
+                             "not finite, or a kernel launched")
     del model
-    return {"decode_ms_per_token": [ms for _, ms in runs],
-            "profile": profiled}
+    return {"decode_ms_per_token": [ms for _, ms in runs[:2]],
+            "decode_ms_per_token_eager": runs[2][1],
+            "decode_ms_per_token_events": kept["ms"],
+            "capture_ms": kept["capture_ms"],
+            "graph_pool_bytes": kept["pool_bytes"],
+            "aten_calls_a_step": aten, "profile": profiled}
+
+
+def timed_generations(torch, generate, model, cfg, prompt, n_new: int,
+                      max_s: int, inputs=None) -> list:
+    """``serve.decode.generate`` of ``prompt`` and ``n_new`` tokens twice
+    captured (its default on the card) and once with ``capture=False`` →
+    [(tokens, ms a step by the wall clock, the capture and the cache setup
+    included)] in that order."""
+    runs = []
+    steps = prompt.shape[1] - 1 + n_new
+    for capture in (True, True, False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = generate(model, cfg, prompt, max_new=n_new, max_s=max_s,
+                       batch_inputs=inputs, capture=capture)
+        torch.cuda.synchronize()
+        runs.append((out, (time.perf_counter() - t0) * 1e3 / steps))
+    return runs
+
+
+def same_generations(torch, runs, kept) -> bool:
+    """Whether :func:`timed_generations`' three runs and the tokens of
+    :func:`captured_decode` ``kept`` are all the same."""
+    first = runs[0][0]
+    return all(torch.equal(first, t) for t in
+               [out for out, _ in runs[1:]] + [kept["tokens"]])
 
 
 def serve_families(torch, np) -> dict:
@@ -2528,25 +2669,26 @@ def serve_internvl2(torch, np) -> dict:
     if launches["flash_attention"] != cfg.n_layers or \
             logits.shape != (b, p + s0, cfg.vocab) or \
             not bool(torch.isfinite(logits).all()) or \
-            caches.kv.length != p + s0:
+            int(caches.kv.length) != p + s0:
         raise AssertionError("internvl2 prefill: flash not once per layer, "
                              "or bad logits or cache length")
-    # A step on the prefill's cache, its result dropped: it writes K/V at
-    # position p + s0, which the first real step writes again.
-    api.decode_step(model, cfg, prompt[:, -1:], caches)     # warm-up
+    # Steps on a copy of the prefill's cache, their results dropped.
+    scratch = clone_caches(torch, caches)
+    api.decode_step(model, cfg, prompt[:, -1:], scratch)    # warm-up
     profiled["decode step"] = device_time_by_op(
         torch, "internvl2 decode step", lambda: api.decode_step(
-            model, cfg, prompt[:, -1:], caches), phase=13)
-    dec, generated, caches, decode_ms = greedy_decode(
-        torch, api, model, cfg, logits, caches, n_new)
+            model, cfg, prompt[:, -1:], scratch), phase=13)
+    del scratch
+    dec, generated, decoded = decode_both_ways(
+        torch, api, model, cfg, logits, caches, n_new, "phase 13 internvl2",
+        phase=13)
     del logits
     bound_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
-    aten = aten_calls_per_decode_step(torch, api, model, cfg, b)
-    print(f"phase 13 internvl2 decode {n_new} tokens x {b}: {decode_ms:.2f} "
-          f"ms/token (bound {bound_ms:.2f} ms: {weight_bytes / 1e9:.2f} GB "
-          f"of weights over {HBM_BYTES_PER_S / 1e12:.2f} TB/s; {aten} ATen "
-          f"calls a step); launches {ops.launch_counts()}")
-    if ops.launch_counts() != launches or caches.kv.length != max_s:
+    print(f"phase 13 internvl2 decode bound {bound_ms:.2f} ms/token: "
+          f"{weight_bytes / 1e9:.2f} GB of weights over "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; launches "
+          f"{ops.launch_counts()}")
+    if ops.launch_counts() != launches or int(caches.kv.length) != max_s:
         raise AssertionError("internvl2 decode launched a kernel or lost a "
                              "token")
     del caches
@@ -2569,9 +2711,8 @@ def serve_internvl2(torch, np) -> dict:
     del model, logits2
     return {"prefill_ms": prefill_ms, "flash_ms": flash_ms,
             "flash_launches_per_prefill": n_flash,
-            "decode_ms_per_token": decode_ms, "decode_bound_ms": bound_ms,
-            "aten_calls_a_step": aten, "reprefill_ms": reprefill_ms,
-            "launches": launches, "profile": profiled}
+            "decode_bound_ms": bound_ms, "reprefill_ms": reprefill_ms,
+            "launches": launches, "profile": profiled, **decoded}
 
 
 def serve_whisper(torch, np) -> dict:
@@ -2598,41 +2739,32 @@ def serve_whisper(torch, np) -> dict:
     with torch.no_grad():
         encoder_ms = time_ms(torch, lambda: encdec.encode(model, cfg,
                                                           frames), reps=5)
-    finite = torch.ones((), dtype=torch.bool, device="cuda")
-    step, runs = api.decode_step, []
-
-    def checked_step(*args, **kw):   # every step's logits finite, kept
-        logits, caches = step(*args, **kw)
-        finite.logical_and_(torch.isfinite(logits).all())
-        runs[-1]["logits"].append(logits[:, 0])
-        return logits, caches
-
-    api.decode_step = checked_step
-    try:
-        for _ in range(2):
-            runs.append({"logits": []})
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            runs[-1]["tokens"] = generate(model, cfg, prompt, max_new=n_new,
-                                          max_s=max_s, batch_inputs=inputs)
-            torch.cuda.synchronize()
-            runs[-1]["ms"] = ((time.perf_counter() - t0) * 1e3
-                              / (s0 - 1 + n_new))
-    finally:
-        api.decode_step = step
-    out, dec = runs[0]["tokens"], torch.stack(runs[0]["logits"], dim=1)
-    same = torch.equal(out, runs[1]["tokens"])
+    runs = timed_generations(torch, generate, model, cfg, prompt, n_new,
+                             max_s, inputs)
+    kept = captured_decode(
+        torch, model, cfg, api.init_caches(model, cfg, b, max_s,
+                                           batch_inputs=inputs),
+        prompt[:, :1], n_new, forced=prompt[:, 1:], label="whisper",
+        phase=13)
+    out, dec = runs[0][0], kept["logits"]
+    finite = bool(torch.isfinite(dec).all())
+    same = same_generations(torch, runs, kept)
     aten = aten_calls_per_decode_step(torch, api, model, cfg, b, inputs)
     print(f"phase 13 whisper encoder {b}x{cfg.encoder_seq} frames: "
           f"{encoder_ms:.3f} ms; generate {b}x{s0} prompt (teacher-forced) "
-          f"+ {n_new} tokens, twice: {runs[0]['ms']:.2f}, "
-          f"{runs[1]['ms']:.2f} ms/token over {s0 - 1 + n_new} steps, the "
-          f"encoder run once in init_caches ({aten} ATen calls a step); "
-          f"tokens identical: {same}; logits finite: {bool(finite)}; "
+          f"+ {n_new} tokens over {s0 - 1 + n_new} steps, the encoder run "
+          f"once in init_caches ({CARD['line']}): captured "
+          f"{runs[0][1]:.2f}, "
+          f"{runs[1][1]:.2f} ms/token (generate's wall, capture included), "
+          f"{kept['ms']:.2f} ms/token by CUDA events (capture "
+          f"{kept['capture_ms']:.1f} ms, graph pool {kept['pool_bytes']} "
+          f"bytes); eager {runs[2][1]:.2f} ms/token ({aten} ATen calls an "
+          f"eager step); tokens identical (captured, captured again, eager, "
+          f"captured with logits kept): {same}; logits finite: {finite}; "
           f"launches {ops.launch_counts()}")
-    if not same or not bool(finite) or out.shape != (b, s0 + n_new) or \
+    if not same or not finite or out.shape != (b, s0 + n_new) or \
             any(ops.launch_counts().values()):
-        raise AssertionError("whisper: the two generations differ, a logit "
+        raise AssertionError("whisper: the generations differ, a logit "
                              "is not finite, or a kernel launched")
     # Decode against the teacher-forced forward of the 192 tokens: step i
     # (fed token i) predicts position i + 1; greedy tokens from s0 on.
@@ -2649,7 +2781,11 @@ def serve_whisper(torch, np) -> dict:
                              "teacher-forced forward")
     del model
     return {"encoder_ms": encoder_ms,
-            "decode_ms_per_token": [r["ms"] for r in runs],
+            "decode_ms_per_token": [ms for _, ms in runs[:2]],
+            "decode_ms_per_token_eager": runs[2][1],
+            "decode_ms_per_token_events": kept["ms"],
+            "capture_ms": kept["capture_ms"],
+            "graph_pool_bytes": kept["pool_bytes"],
             "aten_calls_a_step": aten, "prompt_max_abs_err": prompt_err}
 
 
@@ -3582,7 +3718,8 @@ def serve_sharded(torch, np) -> dict:
           f"vs {prefill_u:.1f} ms unsharded; flash launches {flash_s} "
           f"({sharded} through the sharded entry, on local shards; "
           f"unsharded {flash_u}); decode {n_new} tokens {ms_s:.2f} vs "
-          f"{ms_u:.2f} ms/token (DTensor's host cost); tokens identical: "
+          f"{ms_u:.2f} ms/token, both eager (DTensor's host cost; the "
+          f"sharded step is not captured, ROADMAP A9); tokens identical: "
           f"{same}; decode logits max|d| {err:.4f} (tol {DECODE_LOGIT_TOL})")
     if flash_s != cfg.n_layers or sharded != cfg.n_layers or \
             n_flash != cfg.n_layers:
@@ -3930,11 +4067,21 @@ def batched_phase(torch, np) -> dict:
     return {"kernels": kernels, **path}
 
 
+#: Wall-clock marks of :func:`memory_line`: the run's start, the last line.
+CLOCK = {"start": time.perf_counter()}
+
+
 def memory_line(torch, phase: int) -> None:
-    """The card's peak reserved memory since the start, after a phase."""
+    """The card's peak reserved memory since the start, after a phase,
+    and the seconds since the previous such line and since the start."""
+    now = time.perf_counter()
+    since = now - CLOCK.get("last", CLOCK["start"])
+    CLOCK["last"] = now
     print(f"device memory after phase {phase}: peak reserved "
           f"{torch.cuda.max_memory_reserved() / 2 ** 30:.2f} GiB, now "
-          f"{torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB")
+          f"{torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB; "
+          f"{since:.1f} s since the last such line, "
+          f"{now - CLOCK['start']:.1f} s since the start")
 
 
 def release(torch) -> None:
@@ -3958,6 +4105,8 @@ def main() -> int:
     from repro_torch.kernels import _build
 
     smi = nvidia_smi_line()
+    CLOCK["start"] = time.perf_counter()
+    CARD["line"] = smi
     print(f"card: {smi}")
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}")

@@ -212,10 +212,11 @@ def cache_specs(cfg: ModelConfig, caches: Any, mesh) -> Any:
 
     def walk(obj):
         if isinstance(obj, KVCache):
-            return obj._replace(k=kv_spec(obj.k), v=kv_spec(obj.v))
+            return obj._replace(k=kv_spec(obj.k), v=kv_spec(obj.v),
+                                length=())
         if isinstance(obj, SSMCache):
             return obj._replace(conv=lead_spec(obj.conv, 3),
-                                state=lead_spec(obj.state, 2))
+                                state=lead_spec(obj.state, 2), length=())
         if isinstance(obj, LayerCaches):
             return LayerCaches(
                 kv=walk(obj.kv) if obj.kv is not None else None,
@@ -246,10 +247,13 @@ def _map_arrays(caches: Any, specs: Any, fn) -> Any:
 
 def shard_caches(cfg: ModelConfig, caches: Any, mesh) -> Any:
     """``caches`` (plain tensors, the same on every rank) as DTensors laid
-    out by :func:`cache_specs`."""
+    out by :func:`cache_specs`. The lengths (0-d, replicated in the
+    specs) stay plain tensors, the same on every rank: decode reads them
+    beside the DTensors, and writes each rank's shard at them, on the
+    device."""
     specs = cache_specs(cfg, caches, mesh)
     return _map_arrays(caches, specs, lambda t, s: t if isinstance(
-        t, DTensor) else distribute_tensor(
+        t, DTensor) or t.dim() == 0 else distribute_tensor(
             t, mesh, shrules.placements_for(s, mesh), src_data_rank=None))
 
 

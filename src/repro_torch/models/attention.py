@@ -12,7 +12,11 @@ Counterpart of the reference's ``models/attention.py``:
   dense attention below. The flash kernel has no backward and is never on
   the training path.
 * ``apply_prefill`` — the same forward, writing K/V into the cache.
-* ``apply_decode`` — one new token against the cache.
+* ``apply_decode`` — one new token against the cache, graph-safe: the
+  position is the cache's device ``length``, K/V are written there with
+  ``index_copy_``, the whole capacity is read under the reference's
+  -1e30 mask, and the length advances in place, so a CUDA graph of the
+  step replays against the advanced cache (``serve.decode``).
 * ``apply_cross`` / ``project_kv`` — cross-attention against an encoder's
   K/V (the encdec decoder): masked dense attention, neither causal nor
   windowed, with no flash call and no planner consult, as in the
@@ -66,10 +70,16 @@ class AttnConfig(NamedTuple):
 class KVCache(NamedTuple):
     k: torch.Tensor     # (B, max_s, Hkv, Dh)
     v: torch.Tensor     # (B, max_s, Hkv, Dh)
-    length: int         # tokens currently valid
+    length: torch.Tensor  # () int64 on the cache's device: tokens valid
     #: Decode's P·V·Wo association, resolved once for the cache's
     #: capacity (:func:`planned_pv_right_first`); False is left.
     right_first: bool = False
+
+
+def new_length(device=None) -> torch.Tensor:
+    """A cache's length: a 0-d int64 tensor on its device, 0. Steps read
+    it there and advance it in place, as the reference's ``() int32``."""
+    return torch.zeros((), dtype=torch.long, device=device)
 
 
 class Attention(nn.Module):
@@ -318,25 +328,36 @@ def apply_train(p: Attention, cfg: AttnConfig, x: torch.Tensor,
 def apply_prefill(p: Attention, cfg: AttnConfig, x: torch.Tensor,
                   cache: KVCache, rope: Optional[Tuple] = None
                   ) -> Tuple[torch.Tensor, KVCache]:
-    """Prefill attention; K/V are stored at positions 0..S-1 in place."""
+    """Prefill attention; K/V are stored at positions 0..S-1 and the
+    length set to S, in place."""
     s = x.shape[1]
     proj, (k, v) = apply_train(p, cfg, x, rope=rope, return_kv=True,
                                differentiable=False)
     write_positions(cache.k, k, 0)
     write_positions(cache.v, v, 0)
-    return proj, cache._replace(length=s)
+    cache.length.fill_(s)
+    return proj, cache
 
 
-def write_positions(buf: torch.Tensor, new: torch.Tensor,
-                    start: int) -> None:
+def write_positions(buf: torch.Tensor, new: torch.Tensor, start) -> None:
     """``buf[:, start:start + n] = new`` for a cache ``buf`` (B, S, ...)
-    and ``new`` (B, n, ...), in place. A DTensor cache whose sequence is
-    sharded is written shard by shard: each rank stores the positions
-    that fall in its own shard (``new`` gathered to the cache's layout
-    with its positions whole)."""
+    and ``new`` (B, n, ...), in place. ``start`` is a host int, or a 0-d
+    integer tensor on the device for one position (a decode step), which
+    is written with ``index_copy_`` and never read on the host. A DTensor
+    cache whose sequence is sharded is written shard by shard: each rank
+    stores the positions that fall in its own shard (``new`` gathered to
+    the cache's layout with its positions whole); at a device position,
+    each rank writes its clamped slot back unchanged unless the position
+    is its own."""
     n = new.shape[1]
+    at = start if isinstance(start, torch.Tensor) else None
+    if at is not None and n != 1:
+        raise ValueError(f"a device position writes one token, not {n}")
     if not isinstance(buf, DTensor):
-        buf[:, start:start + n] = new
+        if at is None:
+            buf[:, start:start + n] = new
+        else:
+            buf.index_copy_(1, at.view(1), new.to(buf.dtype))
         return
     mesh = buf.device_mesh
     layout = [Replicate() if isinstance(pl, Shard) and pl.dim == 1 else pl
@@ -344,10 +365,17 @@ def write_positions(buf: torch.Tensor, new: torch.Tensor,
     if not isinstance(new, DTensor):
         new = DTensor.from_local(new, mesh, [Replicate()] * mesh.ndim,
                                  run_check=False)
-    new_l = new.redistribute(mesh, layout).to_local()
+    new_l = new.redistribute(mesh, layout).to_local().to(buf.dtype)
     local = buf.to_local()
     off = shard_offset(buf.shape, mesh, buf.placements, 1)
     length = local.shape[1]
+    if at is not None:
+        rel = at - off
+        slot = rel.clamp(0, length - 1).view(1)
+        mine = (rel >= 0) & (rel < length)
+        local.index_copy_(1, slot, torch.where(
+            mine, new_l, local.index_select(1, slot)))
+        return
     lo, hi = max(start, off), min(start + n, off + length)
     if lo < hi:
         local[:, lo - off:hi - off] = new_l[:, lo - start:hi - start]
@@ -422,50 +450,48 @@ def apply_decode(p: Attention, cfg: AttnConfig, x: torch.Tensor,
                  ) -> Tuple[torch.Tensor, KVCache]:
     """One-token step: x (B, 1, d). K/V are written into the cache at
     ``length`` (in place), then the new token attends to positions
-    0..length (the last ``window`` of them if ``window`` > 0).
+    0..length (the last ``window`` of them if ``window`` > 0). The length
+    is left as it is: a stacked cache's layers share one, which the
+    model's step advances once (``transformer.apply_decode``,
+    ``encdec.apply_decode``).
+
+    The position is read on the device, never on the host: the K/V write
+    is an ``index_copy_`` at ``length``, and every position of the cache
+    is read, those outside the window masked with -1e30 (softmax weight
+    exactly zero), as in the reference. The step is therefore the same
+    kernels at every position, which a CUDA graph needs. A DTensor cache
+    is written shard by shard, each rank at its own slots
+    (:func:`write_positions`). Past the capacity the write fails;
+    ``serve.decode.generate`` checks the count before it starts.
 
     The cache quantizes *storage* only (bf16 k/v): the contraction runs
     at activation precision, float32 logits and probabilities, as in the
-    reference. Only the visible slice of the cache is read; the reference
-    masks the rest with -1e30, whose softmax weights are exactly zero.
+    reference.
     """
     b, s1, _ = x.shape
     if s1 != 1:
         raise ValueError(f"apply_decode takes one token per sequence, got "
                          f"x of shape {tuple(x.shape)}")
     idx = cache.length
-    if idx >= cache.k.shape[1]:
-        raise ValueError(f"KV cache full: length {idx} of "
-                         f"{cache.k.shape[1]} positions")
-    pos = torch.full((b, 1), idx, device=x.device, dtype=torch.long)
-    q, k, v = _project_qkv(p, cfg, x, pos, rope)
-    lo = max(0, idx + 1 - cfg.window) if cfg.window > 0 else 0
-    if isinstance(cache.k, DTensor):
-        write_positions(cache.k, k, idx)
-        write_positions(cache.v, v, idx)
-    else:
-        cache.k[:, idx] = k[:, 0]
-        cache.v[:, idx] = v[:, 0]
-    # a sequence split across ranks is read whole, the positions outside
-    # lo..idx masked (their softmax weights are exactly zero)
-    sharded = isinstance(cache.k, DTensor) and \
-        cache.k.to_local().shape[1] != cache.k.shape[1]
-    keys = cache.k if sharded else cache.k[:, lo:idx + 1]   # (B,n,Hkv,Dh)
-    vals = cache.v if sharded else cache.v[:, lo:idx + 1]
+    q, k, v = _project_qkv(p, cfg, x, idx.expand(b, 1), rope)
+    write_positions(cache.k, k, idx)
+    write_positions(cache.v, v, idx)
     hkv = cfg.n_kv_heads
     scale = cfg.query_pre_scale or cfg.head_dim ** -0.5
     qg = whole_within(_whole_parts(q, 2, hkv).reshape(
         b, hkv, cfg.n_heads // hkv, cfg.head_dim), 0, 1)  # einsum merges
     logits = torch.einsum("bhgd,bkhd->bhgk", qg.float(),
-                          keys.to(q.dtype).float()) * scale
+                          cache.k.to(q.dtype).float()) * scale
     logits = softcap(logits, cfg.logit_softcap)
-    if sharded:
-        kpos = torch.arange(keys.shape[1], device=x.device)
-        logits = logits.masked_fill((kpos < lo) | (kpos > idx), -1e30)
+    kpos = torch.arange(cache.k.shape[1], device=x.device)
+    visible = kpos <= idx
+    if cfg.window > 0:
+        visible &= kpos > idx - cfg.window
+    logits = logits.masked_fill(~visible, -1e30)
     p_attn = torch.softmax(logits, dim=-1).reshape(b, cfg.n_heads, 1, -1)
-    proj = pv_wo_output(p_attn, vals.to(q.dtype), p.wo, cfg.n_heads,
+    proj = pv_wo_output(p_attn, cache.v.to(q.dtype), p.wo, cfg.n_heads,
                         cfg.head_dim, x.dtype, right_first=cache.right_first)
-    return proj, cache._replace(length=idx + 1)
+    return proj, cache
 
 
 def apply_cross(p: Attention, cfg: AttnConfig, x: torch.Tensor,

@@ -159,7 +159,7 @@ def init_caches(model: EncDecLM, cfg: ModelConfig, frames: torch.Tensor,
              cfg.head_dim)
     self_kv = KVCache(k=torch.zeros(shape, dtype=dtype, device=enc.device),
                       v=torch.zeros(shape, dtype=dtype, device=enc.device),
-                      length=0)
+                      length=attention.new_length(enc.device))
     return EncDecCaches(
         self_kv=plan_kv(cfg, self_kv),
         cross_k=torch.stack([k for k, _ in cross]).to(dtype),
@@ -168,9 +168,10 @@ def init_caches(model: EncDecLM, cfg: ModelConfig, frames: torch.Tensor,
 
 def apply_decode(model: EncDecLM, cfg: ModelConfig, tokens: torch.Tensor,
                  caches: EncDecCaches) -> Tuple[torch.Tensor, EncDecCaches]:
-    """One-token decode: tokens (B, 1) → (logits (B, 1, V), caches with
-    the new self K/V written in place and the length advanced). The RoPE
-    table spans the self cache's capacity, as in the reference."""
+    """One-token decode: tokens (B, 1) → (logits (B, 1, V), ``caches``,
+    the same object, with the new self K/V written and the length
+    advanced, in place; the cross K/V are fixed for the request). The
+    RoPE table spans the self cache's capacity, as in the reference."""
     x = layers.embed(model.embed, tokens)
     kv = caches.self_kv
     rope = layers.rope_frequencies(cfg.head_dim, kv.k.shape[2],
@@ -182,5 +183,5 @@ def apply_decode(model: EncDecLM, cfg: ModelConfig, tokens: torch.Tensor,
             bp, acfg, x, lambda h, bp=bp, cache=cache: attention.apply_decode(
                 bp.attn, acfg, h, cache, rope=rope)[0],
             caches.cross_k[i].to(x.dtype), caches.cross_v[i].to(x.dtype))
-    return _logits(cfg, model, x), caches._replace(
-        self_kv=kv._replace(length=kv.length + 1))
+    kv.length.add_(1)
+    return _logits(cfg, model, x), caches

@@ -10,7 +10,10 @@ a ring buffer of ``shared_window`` slots.
 As in the reference, zamba2's concatenated [hidden, embedding] input to
 the shared block and its per-application LoRA deltas are omitted. There
 is no prefill: ``serve.decode.generate`` feeds the prompt token by token.
-Caches are updated in place, as the port's other caches are.
+Caches are updated in place, as the port's other caches are, and a
+decode step reads its position only on the device (the RoPE row, the
+ring slot and its mask are arithmetic on the cache's length tensor), so
+it can be captured in a CUDA graph.
 """
 
 from __future__ import annotations
@@ -131,19 +134,21 @@ def init_caches(cfg: ModelConfig, batch: int, max_s: int,
     eff = min(cfg.shared_window or max_s, max_s)
     shape = (na, batch, eff, cfg.n_kv_heads, cfg.head_dim)
     kv = KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
-                 v=torch.zeros(shape, dtype=dtype, device=device), length=0)
+                 v=torch.zeros(shape, dtype=dtype, device=device),
+                 length=attention.new_length(device))
     return HybridCaches(ssm=ssm, shared_kv=kv)
 
 
-def _rope_at(cfg: ModelConfig, position: int, device):
-    """Row ``position`` of the reference's ``rope_frequencies(head_dim,
-    max_seq, theta)`` tables, computed alone (the same float32 products):
-    decode reads one position, and the full tables would be ~268 MB a
-    step at zamba2's 1,048,576 positions."""
+def _rope_at(cfg: ModelConfig, position: torch.Tensor):
+    """Row ``position`` (a 0-d integer tensor) of the reference's
+    ``rope_frequencies(head_dim, max_seq, theta)`` tables, computed alone
+    on ``position``'s device (the same float32 products): decode reads
+    one position, and the full tables would be ~268 MB a step at
+    zamba2's 1,048,576 positions."""
     dh = cfg.head_dim
     inv = 1.0 / (cfg.rope_theta ** (torch.arange(
-        0, dh, 2, dtype=torch.float32, device=device) / dh))
-    ang = torch.tensor([float(position)], device=device)[:, None] * inv
+        0, dh, 2, dtype=torch.float32, device=position.device) / dh))
+    ang = position.to(torch.float32).reshape(1, 1) * inv
     return torch.cos(ang), torch.sin(ang)
 
 
@@ -152,9 +157,11 @@ def _shared_block_decode(cfg: ModelConfig, sp: SharedBlock, x: torch.Tensor,
     """Decode through the shared block with a ring-buffer window cache.
     ``rope`` holds the one row of the tables at ``kv.length``.
 
-    As in the reference, the new K/V are written at slot length % size,
-    q is rounded to the cache's dtype before the logits (accumulated in
-    float32), and the probabilities are rounded to it before P·V."""
+    As in the reference, the new K/V are written at slot length % size
+    (an ``index_copy_`` at a device index), q is rounded to the cache's
+    dtype before the logits (accumulated in float32), and the
+    probabilities are rounded to it before P·V. The length is left to
+    :func:`apply_decode`, which advances it once for every application."""
     acfg = cfg.attn_cfg._replace(window=cfg.shared_window)
     h = layers.rmsnorm(sp.pre_attn_norm, x)
     b = h.shape[0]
@@ -163,8 +170,8 @@ def _shared_block_decode(cfg: ModelConfig, sp: SharedBlock, x: torch.Tensor,
     q, k, v = attention._project_qkv(sp.attn, acfg, h, pos, rope)
     size = kv.k.shape[1]
     slot = length % size
-    kv.k[:, slot] = k[:, 0]
-    kv.v[:, slot] = v[:, 0]
+    kv.k.index_copy_(1, slot.view(1), k.to(kv.k.dtype))
+    kv.v.index_copy_(1, slot.view(1), v.to(kv.v.dtype))
     hkv = acfg.n_kv_heads
     group = acfg.n_heads // hkv
     scale = acfg.head_dim ** -0.5
@@ -186,16 +193,17 @@ def _shared_block_decode(cfg: ModelConfig, sp: SharedBlock, x: torch.Tensor,
     x = x + layers.dense(sp.attn.wo, out.to(x.dtype))
     h = layers.rmsnorm(sp.pre_mlp_norm, x)
     x = x + layers.glu_mlp(sp.mlp, h)
-    return x, kv._replace(length=length + 1)
+    return x, kv
 
 
 def apply_decode(model: HybridLM, cfg: ModelConfig, tokens: torch.Tensor,
                  caches: HybridCaches) -> Tuple[torch.Tensor, HybridCaches]:
-    """One-token decode: tokens (B, 1) → (logits (B, 1, V), caches with
-    the SSM tails and states and the shared K/V written in place)."""
+    """One-token decode: tokens (B, 1) → (logits (B, 1, V), ``caches``,
+    the same object, with the SSM tails and states and the shared K/V
+    written and both lengths advanced, in place)."""
     x = layers.embed(model.embed, tokens)
     skv = caches.shared_kv
-    rope = _rope_at(cfg, skv.length, x.device)
+    rope = _rope_at(cfg, skv.length)
 
     def mamba(x, i):
         bp = model.blocks[i]
@@ -212,7 +220,6 @@ def apply_decode(model: HybridLM, cfg: ModelConfig, tokens: torch.Tensor,
         x, _ = _shared_block_decode(cfg, model.shared, x, kv, rope)
     for i in rest:
         x = mamba(x, i)
-    logits = _logits(cfg, model, x)
-    return logits, HybridCaches(
-        ssm=caches.ssm._replace(length=caches.ssm.length + 1),
-        shared_kv=skv._replace(length=skv.length + 1))
+    caches.ssm.length.add_(1)
+    skv.length.add_(1)
+    return _logits(cfg, model, x), caches

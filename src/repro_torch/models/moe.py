@@ -113,6 +113,13 @@ def _expert_counts(idx: torch.Tensor, e: int) -> torch.Tensor:
                      redistribute_inputs=True)(idx)
 
 
+def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """``F.one_hot(idx, n)`` (int64) as a comparison with ``arange(n)``:
+    ``one_hot`` checks its indices on the host (``.item()``) on the CPU,
+    and the decode step reads nothing on the host on any device."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).long()
+
+
 def _positions(onehot: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Position of each assignment among its expert's, in order:
     ``onehot`` (..., A, E) of the ``idx`` (..., A) → (..., A). The running
@@ -164,13 +171,13 @@ def _apply_einsum(p: MoE, cfg: MoEConfig, x: torch.Tensor
     gate_vals, gate_idx, aux = _route(p, cfg, xt)
 
     flat_idx = gate_idx.reshape(-1)                             # (T*k,)
-    onehot_flat = F.one_hot(flat_idx, e)                        # (T*k, E)
+    onehot_flat = _one_hot(flat_idx, e)                         # (T*k, E)
     pos = _positions(onehot_flat, flat_idx)                     # (T*k,)
     keep = pos < cap
     gate_flat = gate_vals.reshape(-1) * keep.float()
 
-    pos_oh = F.one_hot(torch.where(keep, pos, cap), cap + 1
-                       ).to(x.dtype)[..., :cap]                 # (T*k, cap)
+    pos_oh = _one_hot(torch.where(keep, pos, cap), cap + 1
+                      ).to(x.dtype)[..., :cap]                  # (T*k, cap)
     disp = (onehot_flat.to(x.dtype)[:, :, None] * pos_oh[:, None, :]
             ).reshape(nt, k, e, cap).sum(dim=1)                 # (T,E,C)
     comb = (onehot_flat.float() * gate_flat[:, None])[:, :, None] \
@@ -194,7 +201,7 @@ def _dispatch(xg: torch.Tensor, eidx: torch.Tensor, e: int, cap: int):
     dev = xg.device
     # positions within expert per group: cumsum over flattened (tg*k)
     ef = eidx.reshape(g, tg * k)
-    pos = _positions(F.one_hot(ef, e), ef)                      # (g, tg*k)
+    pos = _positions(_one_hot(ef, e), ef)                       # (g, tg*k)
     keep = pos < cap
     # slot id within group: e*cap + pos; dropped → the overflow slot e*cap
     slot = torch.where(keep, ef * cap + pos, e * cap)           # (g, tg*k)

@@ -64,7 +64,7 @@ class SSMConfig(NamedTuple):
 class SSMCache(NamedTuple):
     conv: torch.Tensor   # (B, K-1, conv_channels), layers stacked first
     state: torch.Tensor  # (B, H, N, P), layers stacked first
-    length: int          # tokens seen
+    length: torch.Tensor  # () int64 on the cache's device: tokens seen
 
 
 # ------------------------------------------------- algorithm selection ---
@@ -381,14 +381,15 @@ def init_cache(cfg: SSMConfig, batch: int, dtype=torch.bfloat16,
                          dtype=dtype, device=device),
         state=torch.zeros(lead + (batch, cfg.n_heads, cfg.d_state,
                                   cfg.head_dim), dtype=dtype, device=device),
-        length=0,
+        length=torch.zeros((), dtype=torch.long, device=device),
     )
 
 
 def apply_prefill(p: Mamba2Mixer, cfg: SSMConfig, u: torch.Tensor,
                   cache: SSMCache) -> Tuple[torch.Tensor, SSMCache]:
     """Full-sequence forward (chunked SSD, S % min(chunk, S) == 0) that
-    writes the conv tail and the final state into ``cache`` in place."""
+    writes the conv tail and the final state into ``cache`` and sets its
+    length to S, in place."""
     s = u.shape[1]
     z, xbc, dt_raw = _split_proj(cfg, dense(p.in_proj, u))
     # the pre-activation tail: decode convolves the raw xbc with it
@@ -400,14 +401,16 @@ def apply_prefill(p: Mamba2Mixer, cfg: SSMConfig, u: torch.Tensor,
     out = _output(p, cfg, y, x, z)
     cache.conv.copy_(conv_tail)
     cache.state.copy_(final)
-    return out, cache._replace(length=s)
+    cache.length.fill_(s)
+    return out, cache
 
 
 def apply_decode(p: Mamba2Mixer, cfg: SSMConfig, u: torch.Tensor,
                  cache: SSMCache) -> Tuple[torch.Tensor, SSMCache]:
     """One-token step, O(1) in sequence length; the conv tail and the
     state are updated in ``cache`` in place (the state rounded to the
-    cache's dtype)."""
+    cache's dtype). The length is left as it is: a stacked cache's layers
+    share one, which the model's step advances once."""
     bsz, s1, _ = u.shape
     if s1 != 1:
         raise ValueError(f"apply_decode takes one token per sequence, got "
@@ -434,4 +437,4 @@ def apply_decode(p: Mamba2Mixer, cfg: SSMConfig, u: torch.Tensor,
     out = dense(p.out_proj, y)
     cache.conv.copy_(new_conv)
     cache.state.copy_(state)
-    return out, cache._replace(length=cache.length + 1)
+    return out, cache

@@ -263,7 +263,8 @@ def _embed(cfg: ModelConfig, model: DecoderLM, tokens: torch.Tensor,
     scaled: (B, P + S, d)."""
     x = layers.embed(model.embed, tokens)
     if cfg.embed_scale:
-        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+        x = x * torch.full((), cfg.d_model ** 0.5, dtype=x.dtype,
+                           device=x.device)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     return shard_seq(x)
@@ -366,7 +367,8 @@ class LayerCaches(NamedTuple):
     """Per-layer caches stacked on a leading layer axis: attention
     families ``kv.k``/``kv.v`` (L, B, max_s, Hkv, Dh), the SSM family
     ``ssm.conv`` (L, B, K-1, C) and ``ssm.state`` (L, B, H, N, P); the
-    length is shared."""
+    length (a 0-d device tensor) is shared, and a step advances it once,
+    in place."""
     kv: Optional[KVCache]
     ssm: Optional[SSMCache] = None
 
@@ -383,7 +385,8 @@ def init_caches(cfg: ModelConfig, batch: int, max_s: int,
     shape = (cfg.n_layers, batch, max_s, cfg.n_kv_heads, cfg.head_dim)
     return plan_decode(cfg, LayerCaches(kv=KVCache(
         k=torch.zeros(shape, dtype=dtype, device=device),
-        v=torch.zeros(shape, dtype=dtype, device=device), length=0)))
+        v=torch.zeros(shape, dtype=dtype, device=device),
+        length=attention.new_length(device))))
 
 
 def plan_decode(cfg: ModelConfig, caches: LayerCaches) -> LayerCaches:
@@ -436,8 +439,7 @@ def apply_prefill(model: DecoderLM, cfg: ModelConfig, tokens: torch.Tensor,
             x = _ssm_block_apply(
                 cfg, bp, x, lambda h, bp=bp, sc=_layer_ssm_cache(caches, i):
                 ssm_lib.apply_prefill(bp.mixer, cfg.ssm, h, sc)[0])
-        return _logits(cfg, model, x), caches._replace(
-            ssm=caches.ssm._replace(length=s))
+        return _logits(cfg, model, x), caches
     rope = _rope_tables(cfg, max(s, caches.kv.k.shape[2]), x.device)
     for i, (bp, window) in enumerate(zip(model.blocks, cfg.layer_windows())):
         acfg = cfg.attn_cfg._replace(window=window)
@@ -449,8 +451,7 @@ def apply_prefill(model: DecoderLM, cfg: ModelConfig, tokens: torch.Tensor,
             return out
 
         x, _ = _block_apply(cfg, bp, x, attend)
-    logits = _logits(cfg, model, x)
-    return logits, caches._replace(kv=caches.kv._replace(length=s))
+    return _logits(cfg, model, x), caches
 
 
 def _decode_attn_dynwin(p: attention.Attention, acfg: AttnConfig,
@@ -458,16 +459,20 @@ def _decode_attn_dynwin(p: attention.Attention, acfg: AttnConfig,
                         w: int) -> Tuple[torch.Tensor, KVCache]:
     """Decode attention with the layer's window ``w`` (gemma2 alternates
     local and global layers; the reference carries ``w`` through its scan
-    as data)."""
+    as data), leaving the shared length to :func:`apply_decode`."""
     return attention.apply_decode(p, acfg._replace(window=w), h, kv,
                                   rope=rope)
 
 
 def apply_decode(model: DecoderLM, cfg: ModelConfig, tokens: torch.Tensor,
                  caches: LayerCaches) -> Tuple[torch.Tensor, LayerCaches]:
-    """One-token decode: tokens (B, 1) → (logits (B, 1, V), caches with
-    the new K/V (or SSM conv tail and state) written in place and the
-    length advanced)."""
+    """One-token decode: tokens (B, 1) → (logits (B, 1, V), ``caches``,
+    the same object, with the new K/V (or SSM conv tail and state)
+    written and the length advanced, all in place). The step reads no
+    value on the host and builds no tensor from host data, so it can be
+    captured in a CUDA graph and replayed (``serve.decode``); the RoPE
+    tables are rebuilt inside it, on the device, for the cache's
+    capacity."""
     _check_family(cfg)
     x = _embed(cfg, model, tokens)
     if cfg.family == "ssm":
@@ -475,8 +480,8 @@ def apply_decode(model: DecoderLM, cfg: ModelConfig, tokens: torch.Tensor,
             x = _ssm_block_apply(
                 cfg, bp, x, lambda h, bp=bp, sc=_layer_ssm_cache(caches, i):
                 ssm_lib.apply_decode(bp.mixer, cfg.ssm, h, sc)[0])
-        return _logits(cfg, model, x), caches._replace(
-            ssm=caches.ssm._replace(length=caches.ssm.length + 1))
+        caches.ssm.length.add_(1)
+        return _logits(cfg, model, x), caches
     rope = _rope_tables(cfg, caches.kv.k.shape[2], x.device)
     acfg = cfg.attn_cfg
     for i, (bp, window) in enumerate(zip(model.blocks, cfg.layer_windows())):
@@ -484,6 +489,5 @@ def apply_decode(model: DecoderLM, cfg: ModelConfig, tokens: torch.Tensor,
         x, _ = _block_apply(cfg, bp, x, lambda h, bp=bp, cache=cache,
                             w=window: _decode_attn_dynwin(bp.attn, acfg, h,
                                                           cache, rope, w)[0])
-    logits = _logits(cfg, model, x)
-    return logits, caches._replace(
-        kv=caches.kv._replace(length=caches.kv.length + 1))
+    caches.kv.length.add_(1)
+    return _logits(cfg, model, x), caches

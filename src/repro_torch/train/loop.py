@@ -13,9 +13,9 @@ It ties the fault-tolerance pieces together:
   * deterministic data: the batch index is the restored step
     (:mod:`repro_torch.data.pipeline`'s contract).
 
-The step runs eagerly (:mod:`.train_step`): the reference jit-compiles
-it, and a graph-captured step waits for the capture design of the
-decode step (ROADMAP A6).
+The step is :func:`~repro_torch.train.train_step.make_train_step`'s,
+bound once, as the reference binds the step it jit-compiles; it runs
+eagerly, and its capture in a CUDA graph is the next slice (ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -36,7 +36,7 @@ from repro_torch.sharding.context import (active_mesh, activation_sharding,
                                           shard_batch)
 from repro_torch.train.train_step import (TrainState, checkpoint_tree,
                                           load_checkpoint_tree,
-                                          make_train_state, train_step)
+                                          make_train_state, make_train_step)
 
 
 def train(
@@ -82,6 +82,8 @@ def train(
             log_fn(f"[train] restored checkpoint at step {start_step}")
         previous_handler = mgr.install_sigterm_hook()
 
+    step_fn = make_train_step(cfg, optimizer=optimizer, peak_lr=peak_lr,
+                              warmup=warmup, total_steps=total_steps)
     monitor = StragglerMonitor()
     prefetch = Prefetcher(source, start_step=start_step)
     # the hooks of an enclosing context stay as they are; a mesh alone
@@ -98,9 +100,7 @@ def train(
             t0 = time.perf_counter()
             with activation_sharding(mesh) if own else \
                     contextlib.nullcontext():
-                state, metrics = train_step(
-                    state, batch, cfg=cfg, optimizer=optimizer,
-                    peak_lr=peak_lr, warmup=warmup, total_steps=total_steps)
+                state, metrics = step_fn(state, batch)
             metrics = {k: float(v) for k, v in metrics.items()}
             wall = time.perf_counter() - t0
             slow = monitor.observe(step, wall)

@@ -18,12 +18,16 @@ runs, DTensor inserting the collectives (gradient reductions onto the
 moments' FSDP layout, gathers onto the parameters'), and the returned
 metrics are plain replicated tensors.
 
-The step runs eagerly: the reference jit-compiles it, and a graph-captured
-step waits for the capture design of the decode step (ROADMAP A6).
+The step runs eagerly: the reference jit-compiles the step that
+:func:`make_train_step` binds, and capturing it in a CUDA graph, on the
+design of the captured decode step (``serve.decode.compile_serve_step``:
+state advanced in place, a step counter on the device), is the next
+slice (ROADMAP A8).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Iterator, List, Mapping, NamedTuple, Tuple
 
 import torch
@@ -165,3 +169,11 @@ def train_step(state: TrainState, batch: Mapping[str, Any], *,
     out = {k: v.full_tensor() if isinstance(v, DTensor) else v
            for k, v in out.items()}
     return state._replace(opt=opt, step=state.step + 1), out
+
+
+def make_train_step(cfg: ModelConfig, **kw):
+    """Bind the static config (``optimizer``, ``peak_lr``, ``warmup``,
+    ``total_steps``, ...): returns fn(state, batch), the step that
+    :func:`repro_torch.train.loop.train` runs and a captured step will
+    replay, as the reference's binds the step its ``jax.jit`` compiles."""
+    return functools.partial(train_step, cfg=cfg, **kw)

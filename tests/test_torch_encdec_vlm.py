@@ -188,12 +188,12 @@ def test_prefill_logits_and_caches_match_reference(smoke_models,
     np.testing.assert_allclose(got.numpy(), _np(want), **TOL)
     if cfg.family == "encdec":
         assert got.shape == (2, s, cfg.vocab) and not calls
-        assert out is caches and out.self_kv.length == 0
+        assert out is caches and int(out.self_kv.length) == 0
         assert int(jc.self_kv.length[0]) == 0
         assert not bool(out.self_kv.k.any()) and not bool(out.self_kv.v.any())
         return
     assert got.shape == (2, 256, cfg.vocab) and len(calls) == cfg.n_layers
-    assert out.kv.length == int(jc.kv.length[0]) == 256
+    assert int(out.kv.length) == int(jc.kv.length[0]) == 256
     assert out.kv.k.dtype == torch.bfloat16
     np.testing.assert_allclose(out.kv.k.float().numpy(), _np(jc.kv.k),
                                **CACHE_TOL)
@@ -216,7 +216,8 @@ def test_init_caches_store_the_cross_kv_in_bf16_as_reference(smoke_models):
                                _np(jc.cross_v), **CACHE_TOL)
     assert caches.self_kv.k.shape == tuple(jc.self_kv.k.shape) == (
         cfg.n_layers, 2, 24, cfg.n_kv_heads, cfg.head_dim)
-    assert caches.self_kv.length == 0 and caches.self_kv.right_first is False
+    assert int(caches.self_kv.length) == 0 and \
+        caches.self_kv.right_first is False
     with pytest.raises(ValueError, match="needs batch_inputs"):
         api.init_caches(model, cfg, 2, 24)
 
@@ -227,10 +228,10 @@ def _port_caches(cfg, jc):
         kv = jc.self_kv
         return encdec.EncDecCaches(
             self_kv=attention.KVCache(_bf16(kv.k), _bf16(kv.v),
-                                      int(kv.length[0])),
+                                      torch.tensor(int(kv.length[0]))),
             cross_k=_bf16(jc.cross_k), cross_v=_bf16(jc.cross_v))
     return transformer.LayerCaches(kv=attention.KVCache(
-        _bf16(jc.kv.k), _bf16(jc.kv.v), int(jc.kv.length[0])))
+        _bf16(jc.kv.k), _bf16(jc.kv.v), torch.tensor(int(jc.kv.length[0]))))
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -255,7 +256,7 @@ def test_decode_from_the_same_cache_matches_reference(smoke_models, arch):
         np.testing.assert_allclose(got.numpy(), _np(want), **TOL)
         kv, jkv = ((caches.self_kv, jc.self_kv) if cfg.family == "encdec"
                    else (caches.kv, jc.kv))
-        assert kv.length == int(jkv.length[0]) == start + step + 1
+        assert int(kv.length) == int(jkv.length[0]) == start + step + 1
         np.testing.assert_allclose(kv.k.float().numpy(), _np(jkv.k),
                                    **CACHE_TOL)
         np.testing.assert_allclose(kv.v.float().numpy(), _np(jkv.v),

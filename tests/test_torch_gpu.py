@@ -874,7 +874,7 @@ def test_vlm_smoke_prefill_runs_flash_and_matches_the_dense_route(cuda):
     got, caches = api.prefill(card, cfg, batch,
                               api.init_caches(card, cfg, 2, 260))
     assert ops.launch_counts()["flash_attention"] == cfg.n_layers
-    assert got.shape == (2, 256, cfg.vocab) and caches.kv.length == 256
+    assert got.shape == (2, 256, cfg.vocab) and int(caches.kv.length) == 256
     dense, _ = api.forward_train(card, cfg, batch)
     assert ops.launch_counts()["flash_attention"] == cfg.n_layers
     _close(got, dense, dict(rtol=1e-4, atol=1e-4))
@@ -1356,3 +1356,133 @@ def test_batched_replay_launches_the_algorithms_steps(cuda, monkeypatch, name,
         assert backend.time_algorithm_batched(alg, operands=operands) > 0
         got = {k: v for k, v in ops.launch_counts().items() if v}
         assert got == {k: n * 4 for k, n in steps.items()}, alg.name
+
+
+# ------------------------------------------------ the captured decode ---
+
+def _eager_and_captured(cuda, arch, n_new=6):
+    """One smoke model on the card (float32, seed 0) decoding a 6-token
+    prompt (teacher-forced) and ``n_new`` greedy tokens twice from fresh
+    caches: eagerly, the serve step driven in place as ``generate`` drives
+    it, and through ``compile_serve_step``'s graph → ((tokens, logits of
+    every step) eager, the same captured)."""
+    from repro_torch import configs
+    from repro_torch.models import api
+    from repro_torch.serve import decode
+    cfg = configs.get_smoke(arch)
+    model = api.init(cfg, seed=0, device=cuda)
+    rng = np.random.default_rng(6)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 6))).to(cuda)
+    inputs = None
+    if cfg.family == "encdec":
+        inputs = {"frames": rng.standard_normal(
+            (2, cfg.encoder_seq, cfg.d_model)).astype(np.float32)}
+    step = decode.make_serve_step(cfg)
+    out = []
+    for capture in (False, True):
+        state = decode.ServeState(
+            api.init_caches(model, cfg, 2, 16, batch_inputs=inputs),
+            prompt[:, :1].clone(), None)
+        if capture:
+            compiled = decode.compile_serve_step(step, state, model)
+            state = compiled.state
+        tokens, logits = [], []
+        for i in range(5 + n_new):
+            if capture:
+                nxt = compiled()
+                logits.append(state.logits.clone())
+            else:
+                new, nxt = step(state, model)
+                state.last_tokens.copy_(nxt)
+                logits.append(new.logits)
+            tokens.append(nxt.clone())
+            if i < 5:
+                state.last_tokens.copy_(prompt[:, i + 1:i + 2])
+        out.append((torch.cat(tokens, 1), torch.stack(logits, 1)))
+    return out
+
+
+@pytest.mark.parametrize("arch", ["yi_9b", "gemma2_9b", "olmoe_1b_7b",
+                                  "mamba2_370m", "zamba2_1p2b",
+                                  "whisper_tiny", "internvl2_76b"])
+def test_captured_serve_step_is_bitwise_the_eager_step(cuda, arch):
+    """Every served family's smoke model: the graph's replays give the
+    eager step's tokens and logits bit for bit (the same kernels on the
+    same buffers), and launch no hand kernel."""
+    ops.reset_launch_counts()
+    (tok_e, log_e), (tok_c, log_c) = _eager_and_captured(cuda, arch)
+    assert not any(ops.launch_counts().values())
+    assert torch.equal(tok_c, tok_e)
+    assert torch.equal(log_c, log_e)
+
+
+def test_generate_captures_once_and_matches_the_eager_generate(
+        cuda, monkeypatch):
+    from repro_torch.serve import decode
+    monkeypatch.setenv("REPRO_SERVE_PLANNER", "0")
+    cfg, _, card, _ = _card_and_cpu(cuda, "yi_9b")
+    captures = []
+    real = decode.compile_serve_step
+    monkeypatch.setattr(decode, "compile_serve_step",
+                        lambda *a: captures.append(1) or real(*a))
+    prompt = np.random.default_rng(7).integers(0, cfg.vocab, (2, 9))
+    got = decode.generate(card, cfg, prompt, max_new=7)
+    assert len(captures) == 1
+    want = decode.generate(card, cfg, prompt, max_new=7, capture=False)
+    assert len(captures) == 1 and torch.equal(got, want)
+
+
+def test_captured_sampling_draws_from_the_seeded_generator(cuda):
+    """temperature > 0 under capture: the explicit generator is
+    registered with the graph, so a seed gives the same tokens every run
+    and another seed others."""
+    from repro_torch.serve.decode import generate
+    cfg, _, card, _ = _card_and_cpu(cuda, "gemma2_9b")
+    prompt = np.random.default_rng(12).integers(0, cfg.vocab, (2, 4))
+    runs = [generate(card, cfg, prompt, max_new=6, temperature=1.0,
+                     seed=seed) for seed in (7, 7, 8)]
+    assert torch.equal(runs[0], runs[1])
+    assert not torch.equal(runs[0], runs[2])
+    assert int(runs[0].min()) >= 0 and int(runs[0].max()) < cfg.vocab
+
+
+def test_a_capture_error_is_raised_not_swallowed(cuda, monkeypatch):
+    """A step that reads a value on the host cannot be captured: the
+    error reaches the caller of ``generate`` (no eager fallback), the
+    card stays usable, and ``capture=False`` still runs the step."""
+    from repro_torch.models import api
+    from repro_torch.serve import decode
+    cfg, _, card, _ = _card_and_cpu(cuda, "yi_9b")
+    real = api.decode_step
+
+    def host_read(model, cfg, tokens, caches):
+        int(caches.kv.length)                      # a synchronising read
+        return real(model, cfg, tokens, caches)
+
+    monkeypatch.setattr(decode.api, "decode_step", host_read)
+    with pytest.raises(RuntimeError):
+        decode.generate(card, cfg, [[1, 2, 3]], max_new=2)
+    torch.cuda.synchronize()
+    out = decode.generate(card, cfg, [[1, 2, 3]], max_new=2, capture=False)
+    assert out.shape == (1, 5)
+
+
+def test_a_step_that_returns_new_caches_is_refused(cuda):
+    """A step that rebuilds its caches instead of writing them in place
+    would replay against stale state: the capture refuses it."""
+    from repro_torch.models import api
+    from repro_torch.serve import decode
+    cfg, _, card, _ = _card_and_cpu(cuda, "yi_9b")
+    step = decode.make_serve_step(cfg)
+
+    def functional(state, params):
+        new, nxt = step(state, params)
+        kv = new.caches.kv
+        return new._replace(caches=new.caches._replace(kv=kv._replace(
+            length=kv.length + 0))), nxt
+
+    state = decode.ServeState(api.init_caches(card, cfg, 1, 8),
+                              torch.zeros((1, 1), dtype=torch.long,
+                                          device=cuda), None)
+    with pytest.raises(RuntimeError, match="stale state"):
+        decode.compile_serve_step(functional, state, card)

@@ -315,7 +315,7 @@ def test_prefill_logits_and_caches_match_reference(smoke_models, arch):
     assert got.shape == (2, 256, cfg.vocab) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), _np(want), **TOL)
     assert caches.kv.k.dtype == torch.bfloat16
-    assert caches.kv.length == int(jc.kv.length[0]) == 256
+    assert int(caches.kv.length) == int(jc.kv.length[0]) == 256
     np.testing.assert_allclose(caches.kv.k.float().numpy(), _np(jc.kv.k),
                                **CACHE_TOL)
     np.testing.assert_allclose(caches.kv.v.float().numpy(), _np(jc.kv.v),

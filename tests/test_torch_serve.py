@@ -77,7 +77,7 @@ def _port_caches(jc):
     def t(a):
         return torch.tensor(_np(a)).to(torch.bfloat16)
     return transformer.LayerCaches(kv=attention.KVCache(
-        t(jc.kv.k), t(jc.kv.v), int(jc.kv.length[0])))
+        t(jc.kv.k), t(jc.kv.v), torch.tensor(int(jc.kv.length[0]))))
 
 
 @pytest.mark.parametrize("arch", ["yi_9b", "gemma2_9b"])
@@ -94,7 +94,7 @@ def test_decode_from_the_same_cache_matches_reference(smoke_models, arch):
         got, caches = api.decode_step(model, cfg, nt, caches)
         assert got.shape == (2, 1, cfg.vocab)
         np.testing.assert_allclose(got.numpy(), _np(want), **TOL)
-        assert caches.kv.length == int(jc.kv.length[0]) == 41 + step
+        assert int(caches.kv.length) == int(jc.kv.length[0]) == 41 + step
         np.testing.assert_allclose(caches.kv.k.float().numpy(),
                                    _np(jc.kv.k), **CACHE_TOL)
 
@@ -178,7 +178,7 @@ def test_serve_step_and_monitor(smoke_models):
                               torch.Generator().manual_seed(0))
     step = decode.make_serve_step(cfg)
     state, nxt = step(state, model)
-    assert nxt.shape == (2, 1) and state.caches.kv.length == 1
+    assert nxt.shape == (2, 1) and int(state.caches.kv.length) == 1
     assert torch.equal(state.last_tokens, nxt)
     assert decode.plan_warmup(cfg, 8, device="cpu") == [
         ("decattn", (1, 8, cfg.head_dim, cfg.d_model)),
@@ -201,12 +201,15 @@ def test_straggler_monitor_matches_reference():
 
 
 def test_decode_past_the_cache_raises(smoke_models):
+    """A step cannot read its position on the host (it may be a CUDA
+    graph's replay), so ``generate`` checks the count before the first
+    step: a prompt of 2 and 2 new tokens write 3 positions, which 3 hold
+    and 2 do not."""
     _, _, cfg, model = smoke_models["yi_9b"]
-    caches = api.init_caches(model, cfg, 1, 2)
-    for t in (1, 2):
-        _, caches = api.decode_step(model, cfg, [[t]], caches)
+    assert decode.generate(model, cfg, [[1, 2]], max_new=2,
+                           max_s=3).shape == (1, 4)
     with pytest.raises(ValueError, match="KV cache full"):
-        api.decode_step(model, cfg, [[3]], caches)
+        decode.generate(model, cfg, [[1, 2]], max_new=2, max_s=2)
 
 
 # ------------------------------------------------ the serving plan cache --
@@ -561,7 +564,8 @@ def test_decode_consults_with_the_cache_capacity(fresh_services,
     caches = api.init_caches(model, cfg, 1, 12)
     assert caches.kv.right_first is False and len(asked) == 2
     right = transformer.LayerCaches(kv=caches.kv._replace(
-        right_first=True, k=caches.kv.k.clone(), v=caches.kv.v.clone()))
+        right_first=True, k=caches.kv.k.clone(), v=caches.kv.v.clone(),
+        length=caches.kv.length.clone()))
     tok = torch.tensor([[5]])
     got_left, left = api.decode_step(model, cfg, tok, caches)
     got_right, right = api.decode_step(model, cfg, tok, right)

@@ -165,6 +165,49 @@ def test_train_step_matches_reference(arch, optimizer, dtype):
                 assert err <= moment_tol, (which, name, err)
 
 
+@pytest.mark.parametrize("optimizer", ["adamw", "muon"])
+def test_make_train_step_matches_reference(optimizer):
+    """One step of the mamba2 smoke config in float32 through each
+    package's ``make_train_step`` (the reference's under ``jax.jit``):
+    lr, loss, grad norm and the updated masters at the float32 limits of
+    :data:`LIMITS`; the bound step is ``train_step`` with the config."""
+    arch = "mamba2_370m"
+    cfg, jcfg = configs.get_smoke(arch), jget_smoke(arch)
+    loss_tol, norm_tol, all_tol = LIMITS[("float32", optimizer)][:3]
+    kw = dict(optimizer=optimizer, **STEP)
+    step = ts.make_train_step(cfg, compute_dtype=torch.float32, **kw)
+    assert step.func is ts.train_step and step.keywords["cfg"] is cfg
+    jstep = jax.jit(jts.make_train_step(jcfg, compute_dtype=jnp.float32,
+                                        **kw))
+    state = _port_state(arch, optimizer)
+    start = {n: p.detach().clone() for n, p in state.params.items()}
+    batch = pipeline.SyntheticLM(cfg.vocab, 64, 4, seed=0).batch_at(0)
+    state, m = step(state, batch)
+    jstate, jm = jstep(_reference_start(arch, optimizer),
+                       {k: jnp.asarray(v) for k, v in batch.items()})
+    np.testing.assert_allclose(float(m["lr"]), float(jm["lr"]), rtol=1e-7)
+    np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]),
+                               rtol=loss_tol)
+    np.testing.assert_allclose(float(m["grad_norm"]), float(jm["grad_norm"]),
+                               rtol=norm_tol)
+    assert state.step == int(jstate.step) == 1
+    want = _reference_flat(jstate.params, cfg)
+    assert _update_distance(state.params, want, start, want) <= all_tol
+
+
+def test_train_loop_builds_its_step_through_make_train_step(monkeypatch):
+    cfg = configs.get_smoke("phi3_mini")
+    bound = []
+    real = train_loop.make_train_step
+    monkeypatch.setattr(train_loop, "make_train_step",
+                        lambda c, **kw: bound.append((c, kw)) or real(c, **kw))
+    train_loop.train(cfg, pipeline.SyntheticLM(cfg.vocab, 16, 2, seed=0), 2,
+                     optimizer="muon", peak_lr=1e-3, warmup=1,
+                     device="cpu", log_fn=lambda msg: None)
+    assert bound == [(cfg, dict(optimizer="muon", peak_lr=1e-3, warmup=1,
+                                total_steps=2))]
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_train_step_at_2048_tokens_matches_reference(dtype):
     """Four AdamW steps of the zamba2 smoke config at 1 × 2048 tokens,
