@@ -157,31 +157,46 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    causal, window 4096), float32 and bf16, with both peaks of allocated
    memory (the chunked one must be lower) and a planted fault (one key
    block's dv dropped) rejected; (b) Mamba2-370M at full width and depth,
-   2 × 2048 tokens a step, 12 AdamW steps through ``train_loop.train``
-   (loss, lr, grad norm and ms per step, tokens/s, peak reserved memory,
-   ``select_ssd_mode``'s pick; every loss finite and the last below the
-   first) and one more step under ``torch.profiler``; (c) 6 Muon steps
-   (``plan_ns_mode``'s pick and FLOPs per matrix shape, Newton–Schulz ms
-   per step); (d) 8 steps saving every 4 (keep 1) with a crash at step 5
-   under a ``Supervisor`` allowing one restart: each save's seconds and
-   GB/s, the last save read back bit for bit, and the resumed steps'
-   losses and final ``final_norm.g`` against an uninterrupted run;
-   (e) Zamba2-1.2B at full width and depth, 1 × 2048 tokens, 4 AdamW
-   steps at the reference launcher's default peak lr (3e-4), its shared
-   block through the chunked attention at every application;
+   2 × 2048 tokens a step, 12 AdamW steps through ``train_loop.train``,
+   which captures the step in a CUDA graph (its first step the eager
+   warm-up, the others replays), then, once that run is released, the
+   same 12 steps eagerly (``capture=False``): loss, lr, grad norm and ms
+   per step, tokens/s and peak reserved memory both ways, the capture's
+   ms and graph pool, ``select_ssd_mode``'s pick; lr bit for bit at
+   every step, the first step's loss and grad norm bit for bit (the
+   eager step both ways), every later one within
+   :data:`CAPTURED_TRAIN_RTOL` of the eager run's, every loss finite and
+   the last below the first, peak ≤ :data:`TRAIN_PEAK_GB`; one more
+   replay and one more eager step under ``torch.profiler``; (c) 6 Muon
+   steps, captured (``plan_ns_mode``'s pick and FLOPs per matrix shape,
+   the Newton–Schulz ms of a step's matrices timed on their final
+   momenta); (d) 8 captured steps saving every 4 (keep 1) with a crash
+   at step 5 under a ``Supervisor`` allowing one restart: each save's
+   seconds and GB/s, the last save read back bit for bit, and the
+   resumed steps' losses and final ``final_norm.g`` against an
+   uninterrupted captured run (whether the resume is bitwise printed);
+   (e) Zamba2-1.2B at full width and depth, 1 × 2048 tokens, 4 captured
+   AdamW steps at :data:`ZAMBA_TRAIN_LR`, its shared block through the
+   chunked attention at every application of the warm-up step and of
+   the capture;
 15. distribution, on a mesh of this one card and on fake process groups:
    (a) an NCCL world of one and ``make_host_mesh(model=1)``: Yi-9B at
    full width and depth in bf16 (phase 7's weights) first unsharded, then
    distributed by ``launch.specs.shard_model`` under
    ``activation_sharding``: prefill 2 × 2048 (flash exactly 48 launches,
-   each on a rank's local heads) and 32 greedy tokens, the sharded tokens
-   identical to the unsharded ones and the logits within
-   :data:`DECODE_LOGIT_TOL`, prefill ms and ms/token both ways;
+   each on a rank's local heads) and 32 greedy tokens through the
+   captured serve step both ways (the sharded step's graph holds what
+   DTensor's dispatch launched; its NCCL kernels a replay are counted)
+   and, on a copy of the sharded caches, eagerly: the captured sharded
+   tokens identical to the captured unsharded ones and to the eager
+   sharded ones, the logits within :data:`DECODE_LOGIT_TOL`, prefill ms
+   both ways and ms/token captured both ways and eager sharded;
    (b) Mamba2-370M at full width, 2 × 2048 tokens, 4 AdamW steps through
-   ``train_loop.train(mesh=...)``: the losses within
-   :data:`SHARDED_LOSS_RTOL` of phase 14 (b)'s first four, step ms beside
-   phase 14's, and the loop's checkpoint (specs and ``mesh_shape`` in its
-   manifest) read back bit for bit; then the group is destroyed;
+   ``train_loop.train(mesh=...)``, eagerly (a sharded train step is not
+   captured): the losses within :data:`SHARDED_LOSS_RTOL` of phase 14
+   (b)'s first four eager steps, step ms beside phase 14's eager ones,
+   and the loop's checkpoint (specs and ``mesh_shape`` in its manifest)
+   read back bit for bit; then the group is destroyed;
    (c) the dry-run, one process per cell on the host (started once (b)
    has destroyed its group, so that no tracing loads the host while (a)
    and (b) are timed): Yi-9B train_4k, prefill_32k and
@@ -1018,6 +1033,28 @@ def clone_caches(torch, caches):
     return caches
 
 
+def _whole(t):
+    """The plain tensor behind ``t``: a DTensor's local shard, which is the
+    whole tensor on the (1, 1) mesh phase 15 runs (a view of the same
+    memory, so a replay's writes show in it); any other tensor as it
+    is."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(t, DTensor):
+        return t
+    if t.device_mesh.size() != 1:
+        raise ValueError("a DTensor over more than one rank has no whole "
+                         "local tensor")
+    return t.to_local()
+
+
+def _full(t):
+    """A DTensor gathered whole; any other tensor as it is."""
+    from torch.distributed.tensor import DTensor
+
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
 def captured_decode(torch, model, cfg, caches, first, n_new: int,
                     forced=None, label: str = "", phase: int = 7) -> dict:
     """The captured variant of :func:`greedy_decode`: the serve step
@@ -1039,10 +1076,11 @@ def captured_decode(torch, model, cfg, caches, first, n_new: int,
                                   ServeState(caches, first, None), model)
     n_forced = 0 if forced is None else forced.shape[1]
     steps = n_forced + n_new
-    b, v = first.shape[0], compiled.state.logits.shape[-1]
+    step_logits = _whole(compiled.state.logits)
+    b, v = first.shape[0], step_logits.shape[-1]
     logits = torch.empty((b, steps, v), dtype=torch.float32, device="cuda")
     tokens = torch.empty((b, 1 + steps), dtype=torch.long, device="cuda")
-    tokens[:, :1] = first
+    tokens[:, :1] = _whole(first)
     if n_forced:
         tokens[:, 1:1 + n_forced] = forced
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -1052,11 +1090,11 @@ def captured_decode(torch, model, cfg, caches, first, n_new: int,
             profile = device_time_by_op(
                 torch, f"{label} captured decode step (one replay)",
                 compiled, phase=phase, by_kernel=True)
-            nxt = compiled.next_tokens
+            nxt = _whole(compiled.next_tokens)
             start.record()
         else:
-            nxt = compiled()
-        logits[:, i] = compiled.state.logits
+            compiled()
+        logits[:, i] = step_logits
         if i < n_forced:
             compiled.state.last_tokens.copy_(forced[:, i:i + 1])
         else:
@@ -2263,7 +2301,9 @@ def device_time_by_op(torch, label: str, fn, top: int = 6,
               f"{e.key[:48]} {_device_us(e) / 1e3:.2f} ms x{e.count}"
               for e in ranked))
     return {"wall_ms": wall_ms, "device_ms": device_ms,
-            "kernels": sum(e.count for e in kernels)}
+            "kernels": sum(e.count for e in kernels),
+            "nccl_kernels": sum(e.count for e in kernels
+                                if "nccl" in e.key.lower())}
 
 
 def check_params(model, cfg) -> None:
@@ -3153,6 +3193,12 @@ ZAMBA_TRAIN_BATCH, ZAMBA_TRAIN_STEPS = 1, 4
 #: attention alike, and is lowest an eighth to a half of the way along
 #: the update); at 3e-5 it falls from step 1 on, 10.76 → 9.12 on seed 0.
 ZAMBA_TRAIN_LR = 3e-5
+#: Phase 14 (b): the captured run's losses and grad norms after the first
+#: step against the eager run's, relative (phase 15 (b)'s limit: eager
+#: runs on the card are not bitwise repeatable), and the most either run
+#: may reserve on the card.
+CAPTURED_TRAIN_RTOL = 2 ** -6
+TRAIN_PEAK_GB = 70.0
 #: Mamba2-370M's per-block activation checkpointing (``ModelConfig.remat``)
 #: at 2 × 2048 tokens: without it a step's peak reserved memory is 64 GB
 #: on an H100, below the 70 GB past which phase 14 would take ``"full"``.
@@ -3323,14 +3369,34 @@ def _state_reckoning(cfg) -> str:
             f"{4 * n / 1e9:.2f} GB = {16 * n / 1e9:.2f} GB")
 
 
+def _kept_compiled(train_loop):
+    """Patch ``train_loop.compile_train_step`` to keep what it returns →
+    (the list it appends to, the original to put back)."""
+    kept, real = [], train_loop.compile_train_step
+
+    def keep(*args, **kw):
+        kept.append(real(*args, **kw))
+        return kept[-1]
+
+    train_loop.compile_train_step = keep
+    return kept, real
+
+
+def _gaps(rows, ref, key: str):
+    return [abs(r[key] - q[key]) / abs(q[key]) for r, q in zip(rows, ref)]
+
+
 def train_mamba2(torch, np) -> dict:
     """Phase 14 (b): Mamba2-370M at full width and depth, AdamW, through
-    ``train_loop.train``; one more step under ``torch.profiler``."""
+    ``train_loop.train``: captured (the loop's default on the card), one
+    more replay under ``torch.profiler``; then, that run released, the
+    same steps eagerly and one more eager step under the profiler."""
     import dataclasses
 
     from repro_torch import configs
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.models import ssm
+    from repro_torch.train import loop as train_loop
     from repro_torch.train import train_step as ts
 
     cfg = dataclasses.replace(configs.get("mamba2_370m"), remat=MAMBA_REMAT)
@@ -3340,35 +3406,75 @@ def train_mamba2(torch, np) -> dict:
     print(f"phase 14 (b) mamba2 {b} x {TRAIN_SEQ} tokens a step, remat "
           f"{cfg.remat!r}; select_ssd_mode picks {pick}; state reckoned: "
           f"{_state_reckoning(cfg)}")
+    extra = SyntheticLM(cfg.vocab, TRAIN_SEQ, b, seed=SEED).batch_at(
+        MAMBA_TRAIN_STEPS)
+    kept, real = _kept_compiled(train_loop)
     torch.cuda.reset_peak_memory_stats()
-    state, rows = _train(torch, cfg, b, MAMBA_TRAIN_STEPS, "(b) mamba2")
-    _falls(rows, "mamba2 AdamW")
+    try:
+        state, rows = _train(torch, cfg, b, MAMBA_TRAIN_STEPS,
+                             "(b) mamba2 captured")
+    finally:
+        train_loop.compile_train_step = real
+    (graph,) = kept
     peak = torch.cuda.max_memory_reserved()
-    batch = {k: torch.from_numpy(v).cuda() for k, v in SyntheticLM(
-        cfg.vocab, TRAIN_SEQ, b, seed=SEED).batch_at(MAMBA_TRAIN_STEPS)
-        .items()}
-    t0 = time.perf_counter()
+    for k, v in extra.items():
+        graph.batch[k].copy_(torch.from_numpy(v))
+    replay = device_time_by_op(torch, "mamba2 captured train step (one "
+                               "replay)", graph, top=8, phase=14,
+                               by_kernel=True)
+    capture_ms, pool = graph.capture_ms, graph.pool_bytes
+    del graph, kept, state
+    release(torch)
+    torch.cuda.reset_peak_memory_stats()
+    state, eager = _train(torch, cfg, b, MAMBA_TRAIN_STEPS,
+                          "(b) mamba2 eager", capture=False)
+    eager_peak = torch.cuda.max_memory_reserved()
+    batch = {k: torch.from_numpy(v).cuda() for k, v in extra.items()}
     profiled = device_time_by_op(
-        torch, "mamba2 train step", lambda: ts.train_step(
+        torch, "mamba2 eager train step", lambda: ts.train_step(
             state, batch, cfg=cfg, peak_lr=TRAIN_LR, warmup=TRAIN_WARMUP,
             total_steps=MAMBA_TRAIN_STEPS + 1), top=8, phase=14)
-    tps = _tokens_per_s(rows, b)
-    step_ms = b * TRAIN_SEQ / tps * 1e3
-    profiled["share_of_step"] = profiled["device_ms"] / step_ms
-    print(f"phase 14 (b) mamba2: {tps:.0f} tokens/s (median step "
-          f"{step_ms:.1f} ms; the profiled step's device time is "
-          f"{profiled['share_of_step']:.0%} of it; profiling took "
-          f"{time.perf_counter() - t0:.1f}s); peak reserved "
-          f"{peak / 1e9:.2f} GB; loss {rows[0]['loss']:.4f} -> "
-          f"{rows[-1]['loss']:.4f}")
-    return {"rows": rows, "tokens_per_s": tps, "peak_reserved_gb": peak / 1e9,
-            "remat": cfg.remat, "ssd_mode": pick, "profile": profiled}
+    del state, batch
+    _falls(rows, "mamba2 AdamW captured")
+    _falls(eager, "mamba2 AdamW eager")
+    tps, eager_tps = _tokens_per_s(rows, b), _tokens_per_s(eager, b)
+    step_ms, eager_ms = (b * TRAIN_SEQ / x * 1e3 for x in (tps, eager_tps))
+    lr_same = [r["lr"] for r in rows] == [r["lr"] for r in eager]
+    first_same = all(rows[0][k] == eager[0][k] for k in ("loss", "grad_norm"))
+    gaps = {k: max(_gaps(rows[1:], eager[1:], k)) for k in ("loss",
+                                                            "grad_norm")}
+    print(f"phase 14 (b) mamba2 ({CARD['line']}): captured {step_ms:.1f} ms "
+          f"a step, {tps:.0f} tokens/s, peak reserved {peak / 1e9:.2f} GB "
+          f"(capture {capture_ms:.1f} ms, graph pool {pool} bytes; a "
+          f"replay: device {replay['device_ms']:.1f} ms in "
+          f"{replay['kernels']} kernels); eager {eager_ms:.1f} ms a step, "
+          f"{eager_tps:.0f} tokens/s, peak reserved {eager_peak / 1e9:.2f} "
+          f"GB (an eager step's device time {profiled['device_ms']:.1f} ms); "
+          f"lr bit for bit at every step: {lr_same}; the first step's loss "
+          f"and grad norm bit for bit: {first_same}; later steps' largest "
+          f"relative gap, loss {gaps['loss']:.3e}, grad norm "
+          f"{gaps['grad_norm']:.3e} (limit {CAPTURED_TRAIN_RTOL:.3e}); loss "
+          f"{rows[0]['loss']:.4f} -> {rows[-1]['loss']:.4f}")
+    if not lr_same or not first_same or \
+            max(gaps.values()) > CAPTURED_TRAIN_RTOL or \
+            max(peak, eager_peak) > TRAIN_PEAK_GB * 1e9:
+        raise AssertionError("phase 14 (b): the captured train step differs "
+                             "from the eager one, or a run needs more than "
+                             f"{TRAIN_PEAK_GB} GB")
+    return {"rows": rows, "eager_rows": eager, "tokens_per_s": tps,
+            "eager_tokens_per_s": eager_tps, "step_ms": step_ms,
+            "eager_step_ms": eager_ms, "peak_reserved_gb": peak / 1e9,
+            "eager_peak_reserved_gb": eager_peak / 1e9,
+            "capture_ms": capture_ms, "pool_bytes": pool, "gaps": gaps,
+            "remat": cfg.remat, "ssd_mode": pick, "replay": replay,
+            "profile": profiled}
 
 
 def train_mamba2_muon(torch, np) -> dict:
-    """Phase 14 (c): Mamba2-370M with Muon; ``plan_ns_mode``'s pick and the
-    FLOPs of one Newton–Schulz (5 iterations) per distinct matrix shape,
-    and the Newton–Schulz ms of each step (CUDA events around each call)."""
+    """Phase 14 (c): Mamba2-370M with Muon, captured; ``plan_ns_mode``'s
+    pick and the FLOPs of one Newton–Schulz (5 iterations) per distinct
+    matrix shape, and the Newton–Schulz ms of a step's matrices (CUDA
+    events around them, on the run's final momenta)."""
     import dataclasses
 
     from repro_torch import configs
@@ -3395,34 +3501,22 @@ def train_mamba2_muon(torch, np) -> dict:
               f"(flops: {muon.plan_ns_mode(m, k, 'flops')}, TPU model: "
               f"{muon.plan_ns_mode(m, k, profile=AnalyticalTPUProfile())}); "
               f"{flops / 1e9:.3f} GFLOP a step")
-    events, ns_ms = [], []
-    real = muon.newton_schulz
-
-    def timed(x, *args, **kw):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = real(x, *args, **kw)
-        end.record()
-        events.append((start, end))
-        return out
-
-    def ns_time(row):
-        torch.cuda.synchronize()
-        row["ns_ms"] = sum(a.elapsed_time(b) for a, b in events)
-        events.clear()
-        return f" (Newton-Schulz {row['ns_ms']:.2f} ms)"
-
-    muon.newton_schulz = timed
-    try:
-        _, rows = _train(torch, cfg, MAMBA_TRAIN_BATCH, MUON_TRAIN_STEPS,
-                         "(c) mamba2 muon", after_step=ns_time,
-                         optimizer="muon")
-    finally:
-        muon.newton_schulz = real
+    state, rows = _train(torch, cfg, MAMBA_TRAIN_BATCH, MUON_TRAIN_STEPS,
+                         "(c) mamba2 muon", optimizer="muon")
     _falls(rows, "mamba2 Muon")
-    return {"rows": rows, "ns_picks": picks,
-            "tokens_per_s": _tokens_per_s(rows, MAMBA_TRAIN_BATCH)}
+    # a replay runs Newton-Schulz inside the graph: time a step's worth of
+    # it on the final momenta, eagerly, with CUDA events around the lot
+    momenta = [muon._stacked(state.opt.momentum, names)
+               for names in muon.matrices(state.params).values()]
+    ns_ms = time_ms(torch, lambda: [muon.newton_schulz(m) for m in momenta],
+                    reps=3, warmup=1)
+    tps = _tokens_per_s(rows, MAMBA_TRAIN_BATCH)
+    print(f"phase 14 (c) mamba2 muon ({CARD['line']}): captured "
+          f"{MAMBA_TRAIN_BATCH * TRAIN_SEQ / tps * 1e3:.1f} ms a step, "
+          f"{tps:.0f} tokens/s; Newton-Schulz of a step's {len(momenta)} "
+          f"matrices {ns_ms:.2f} ms (eager, on the final momenta)")
+    return {"rows": rows, "ns_picks": picks, "ns_ms": ns_ms,
+            "tokens_per_s": tps}
 
 
 def _bits_equal(torch, a, b) -> bool:
@@ -3510,8 +3604,9 @@ def crash_and_resume(torch, np) -> dict:
 
 
 def train_zamba2(torch, np) -> dict:
-    """Phase 14 (e): Zamba2-1.2B at full width and depth, AdamW; the shared
-    block's attention takes the chunked path at every application."""
+    """Phase 14 (e): Zamba2-1.2B at full width and depth, AdamW, captured;
+    the shared block's attention takes the chunked path at every
+    application."""
     from repro_torch import configs
     from repro_torch.models import attention, hybrid
 
@@ -3532,8 +3627,14 @@ def train_zamba2(torch, np) -> dict:
         attention.chunked_attention = real
     _falls(rows, "zamba2 AdamW")
     peak = torch.cuda.max_memory_reserved()
-    want = ZAMBA_TRAIN_STEPS * hybrid.n_shared_applications(cfg)
-    print(f"phase 14 (e) zamba2: {_tokens_per_s(rows, b):.0f} tokens/s; "
+    # Python runs the step twice, as the eager warm-up and as the capture;
+    # the replays run the captured kernels
+    want = 2 * hybrid.n_shared_applications(cfg)
+    tps = _tokens_per_s(rows, b)
+    print(f"phase 14 (e) zamba2 ({CARD['line']}): captured "
+          f"{b * TRAIN_SEQ / tps * 1e3:.1f} ms a step (the eager step "
+          f"took 626.7 ms on an H100 at 700 W, PERF.md section 5), "
+          f"{tps:.0f} tokens/s; "
           f"peak reserved {peak / 1e9:.2f} GB; chunked attention calls "
           f"{len(calls)} (want {want}); loss {rows[0]['loss']:.4f} -> "
           f"{rows[-1]['loss']:.4f}")
@@ -3541,7 +3642,7 @@ def train_zamba2(torch, np) -> dict:
         raise AssertionError("zamba2: the shared block missed the chunked "
                              "attention")
     return {"rows": rows, "peak_reserved_gb": peak / 1e9,
-            "tokens_per_s": _tokens_per_s(rows, b), "chunked_calls": len(calls)}
+            "tokens_per_s": tps, "chunked_calls": len(calls)}
 
 
 def train_phase(torch, np) -> dict:
@@ -3656,7 +3757,9 @@ def finish_dryrun(procs, smi: str) -> list:
 
 def serve_sharded(torch, np) -> dict:
     """Phase 15 (a): Yi-9B unsharded, then on the (1, 1) mesh of an NCCL
-    world of one; the same prompt, prefill and greedy tokens."""
+    world of one; the same prompt and prefill, then greedy tokens through
+    the captured serve step (``captured_decode``) both ways and, on a
+    copy of the sharded caches, eagerly."""
     from repro_torch import configs
     from repro_torch.kernels import flash_attention as flash_mod
     from repro_torch.kernels import ops
@@ -3673,19 +3776,32 @@ def serve_sharded(torch, np) -> dict:
     rng = np.random.default_rng(SEED)
     prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (b, s0))).cuda()
 
-    def run(tokens):
+    def run(tokens, label, eager: bool):
         api.prefill(model, cfg, {"tokens": tokens}, init())   # warm-up
         torch.cuda.synchronize()
         ops.reset_launch_counts()
         logits, caches, prefill_ms, flash_ms, n_flash = timed_prefill(
             torch, api, model, cfg, tokens, init())
         launches = ops.launch_counts()["flash_attention"]
-        dec, generated, _, ms = greedy_decode(torch, api, model, cfg, logits,
-                                              caches, n_new)
-        return dec, generated, prefill_ms, ms, launches, n_flash
+        eager_ms = None
+        if eager:
+            _, gen_e, _, eager_ms = greedy_decode(
+                torch, api, model, cfg, logits, clone_caches(torch, caches),
+                n_new)
+        last = logits[:, -1]
+        got = captured_decode(torch, model, cfg, caches,
+                              torch.argmax(last, dim=-1)[:, None], n_new,
+                              label=label, phase=15)
+        dec = torch.cat([_whole(last)[:, None].float(), got["logits"]],
+                        dim=1)
+        if eager:
+            got["eager_same"] = bool(torch.equal(got["tokens"],
+                                                 _whole(gen_e)))
+        return dec, got, prefill_ms, eager_ms, launches, n_flash
 
     init = lambda: api.init_caches(model, cfg, b, max_s)    # noqa: E731
-    dec_u, gen_u, prefill_u, ms_u, flash_u, _ = run(prompt)
+    dec_u, got_u, prefill_u, _, flash_u, _ = run(prompt, "yi-9b unsharded",
+                                                 False)
 
     torch.distributed.init_process_group(
         "nccl", store=torch.distributed.HashStore(), rank=0, world_size=1)
@@ -3704,40 +3820,49 @@ def serve_sharded(torch, np) -> dict:
             init = lambda: specs.shard_caches(                # noqa: E731
                 cfg, api.init_caches(model, cfg, b, max_s), mesh)
             sharded_calls.clear()
-            dec_s, gen_s, prefill_s, ms_s, flash_s, n_flash = run(
-                shard_batch(prompt))
+            dec_s, got_s, prefill_s, eager_s, flash_s, n_flash = run(
+                shard_batch(prompt), "yi-9b sharded", True)
     finally:
         flash_mod.flash_attention_sharded = entry
-    dec_s, gen_s = dec_s.full_tensor(), gen_s.full_tensor()
-    err = float((dec_s.float() - dec_u.float()).abs().max())
-    same = bool(torch.equal(gen_s, gen_u))
+    err = float((dec_s - dec_u).abs().max())
+    same = bool(torch.equal(got_s["tokens"], got_u["tokens"]))
     # the warm-up prefill took the sharded entry once a layer too
     sharded = len(sharded_calls) - cfg.n_layers
+    nccl = got_s["profile"]["nccl_kernels"]
     print(f"phase 15 (a) yi-9b on mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))} "
-          f"(NCCL world of 1): prefill {b}x{s0} {prefill_s:.1f} ms sharded "
-          f"vs {prefill_u:.1f} ms unsharded; flash launches {flash_s} "
-          f"({sharded} through the sharded entry, on local shards; "
-          f"unsharded {flash_u}); decode {n_new} tokens {ms_s:.2f} vs "
-          f"{ms_u:.2f} ms/token, both eager (DTensor's host cost; the "
-          f"sharded step is not captured, ROADMAP A9); tokens identical: "
-          f"{same}; decode logits max|d| {err:.4f} (tol {DECODE_LOGIT_TOL})")
+          f"(NCCL world of 1; {CARD['line']}): prefill {b}x{s0} "
+          f"{prefill_s:.1f} ms sharded vs {prefill_u:.1f} ms unsharded; "
+          f"flash launches {flash_s} ({sharded} through the sharded entry, "
+          f"on local shards; unsharded {flash_u}); decode {n_new} tokens: "
+          f"captured sharded {got_s['ms']:.2f} ms/token (capture "
+          f"{got_s['capture_ms']:.1f} ms, graph pool {got_s['pool_bytes']} "
+          f"bytes, {nccl} NCCL kernels a replay), captured unsharded "
+          f"{got_u['ms']:.2f}, eager sharded {eager_s:.2f}; captured "
+          f"sharded tokens identical to the unsharded: {same}, to the eager "
+          f"sharded: {got_s['eager_same']}; decode logits max|d| {err:.4f} "
+          f"(tol {DECODE_LOGIT_TOL})")
     if flash_s != cfg.n_layers or sharded != cfg.n_layers or \
             n_flash != cfg.n_layers:
         raise AssertionError("phase 15 (a): the sharded prefill did not "
                              "launch flash once a layer on local shards")
-    if not same or not err <= DECODE_LOGIT_TOL or \
-            not bool(torch.isfinite(dec_s).all()):
+    if not same or not got_s["eager_same"] or not err <= DECODE_LOGIT_TOL \
+            or not bool(torch.isfinite(dec_s).all()):
         raise AssertionError("phase 15 (a): sharded decode differs")
     return {"mesh": mesh, "prefill_ms": prefill_s,
-            "prefill_ms_unsharded": prefill_u, "decode_ms": ms_s,
-            "decode_ms_unsharded": ms_u, "flash_launches": flash_s,
+            "prefill_ms_unsharded": prefill_u,
+            "decode_ms_captured": got_s["ms"],
+            "decode_ms_captured_unsharded": got_u["ms"],
+            "decode_ms_eager": eager_s, "capture_ms": got_s["capture_ms"],
+            "pool_bytes": got_s["pool_bytes"], "nccl_kernels": nccl,
+            "replay": got_s["profile"], "flash_launches": flash_s,
             "max_abs_logit_diff": err}
 
 
 def train_sharded(torch, np, mesh, phase14: dict) -> dict:
     """Phase 15 (b): Mamba2-370M, 4 AdamW steps on ``mesh`` through
-    ``train_loop.train``, against phase 14 (b)'s first four; its last
-    save read back bit for bit."""
+    ``train_loop.train`` (eager: a sharded step is not captured), against
+    phase 14 (b)'s first four eager steps; its last save read back bit
+    for bit."""
     import dataclasses
 
     from repro_torch import configs
@@ -3754,19 +3879,23 @@ def train_sharded(torch, np, mesh, phase14: dict) -> dict:
                                "manifest.json").read_text())
         tree = checkpoint_tree(state)
         back = store.restore(d, SHARD_TRAIN_STEPS, tree, mesh=mesh)
+        # the restore gives every leaf as a DTensor; the step counters
+        # are plain tensors in the state
         same = all(
-            _bits_equal(torch, a.full_tensor(), b.full_tensor())
+            _bits_equal(torch, _full(a), _full(b))
             for (_, a), (_, b) in zip(store.leaf_paths(tree),
                                       store.leaf_paths(back))
             if isinstance(a, torch.Tensor))
     specs = [e["spec"] for e in manifest["leaves"] if "spec" in e]
-    ref = phase14["mamba2"]["rows"][:SHARD_TRAIN_STEPS]
+    ref = phase14["mamba2"]["eager_rows"][:SHARD_TRAIN_STEPS]
     gaps = [abs(r["loss"] - q["loss"]) / abs(q["loss"])
             for r, q in zip(rows, ref)]
     walls = sorted(r["wall_ms"] for r in rows[1:])
-    ref_walls = sorted(r["wall_ms"] for r in phase14["mamba2"]["rows"][1:])
-    print(f"phase 15 (b) mamba2 sharded: losses "
-          f"{[round(r['loss'], 4) for r in rows]} vs phase 14 "
+    ref_walls = sorted(r["wall_ms"]
+                       for r in phase14["mamba2"]["eager_rows"][1:])
+    print(f"phase 15 (b) mamba2 sharded, eager (the sharded train step is "
+          f"not captured: ROADMAP A9): losses "
+          f"{[round(r['loss'], 4) for r in rows]} vs phase 14's eager "
           f"{[round(q['loss'], 4) for q in ref]} (largest relative gap "
           f"{max(gaps):.3e}, limit {SHARDED_LOSS_RTOL:.3e}); median step "
           f"{walls[len(walls) // 2]:.1f} ms vs phase 14's "
@@ -4079,7 +4208,8 @@ def memory_line(torch, phase: int) -> None:
     CLOCK["last"] = now
     print(f"device memory after phase {phase}: peak reserved "
           f"{torch.cuda.max_memory_reserved() / 2 ** 30:.2f} GiB, now "
-          f"{torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB; "
+          f"{torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB reserved, "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated; "
           f"{since:.1f} s since the last such line, "
           f"{now - CLOCK['start']:.1f} s since the start")
 

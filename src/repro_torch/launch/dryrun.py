@@ -234,7 +234,10 @@ def trace_step(cfg: ModelConfig, shape: ShapeSpec, mesh, *,
                                                           policy=policy)
             policy = shard["policy"]
             batch, _ = specs_lib.abstract_batch(cfg, shape, mesh)
-            state_b = _local_bytes(_leaves((state.params, state.opt)))
+            # the 0-d step counters are not laid out by the specs
+            state_b = _local_bytes(t for t in _leaves((state.params,
+                                                       state.opt))
+                                   if t.dim())
             spec_b = _spec_bytes(cfg, mesh, torch.float32, policy, True)
             inputs_b = _local_bytes(_leaves(batch))
             with hlo_lib.CostRecorder() as rec:

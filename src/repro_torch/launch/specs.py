@@ -131,16 +131,19 @@ def moments_like(params: Dict[str, torch.Tensor], cfg: ModelConfig, mesh,
 def init_optimizer(optimizer: str, params: Dict[str, torch.Tensor],
                    cfg: ModelConfig, mesh):
     """The optimizer state of ``params``, its moments (and Muon's
-    momenta) laid out by the FSDP rules."""
+    momenta) laid out by the FSDP rules, its step counters plain 0-d
+    tensors on the mesh's device type."""
     _, axes = abstract_init(cfg)
-    aw = adamw.AdamWState(step=0, mu=moments_like(params, cfg, mesh, axes),
+    aw = adamw.AdamWState(step=adamw.counter(mesh.device_type),
+                          mu=moments_like(params, cfg, mesh, axes),
                           nu=moments_like(params, cfg, mesh, axes))
     if optimizer != "muon":
         return aw
     labels = muon.partition(params)
     mom = moments_like({n: p for n, p in params.items() if labels[n]},
                        cfg, mesh, axes)
-    return muon.MuonState(step=0, momentum={n: mom.get(n) for n in params},
+    return muon.MuonState(step=adamw.counter(mesh.device_type),
+                          momentum={n: mom.get(n) for n in params},
                           adamw=aw)
 
 
@@ -158,7 +161,8 @@ def abstract_train_state(cfg: ModelConfig, mesh, dtype=torch.float32,
     opt = init_optimizer(optimizer, params, cfg, mesh)
     _, _, pshard = param_shardings(cfg, mesh, dtype, policy)
     _, _, mshard = param_shardings(cfg, mesh, dtype, "fsdp")
-    state = TrainState(params=params, opt=opt, step=0, model=model)
+    state = TrainState(params=params, opt=opt, model=model,
+                       step=adamw.counter(mesh.device_type))
     return state, {"params": pshard, "moments": mshard, "policy": policy}
 
 

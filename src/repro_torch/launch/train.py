@@ -90,7 +90,7 @@ def main(argv=None) -> int:
         if mesh is None or dist.get_rank() == 0:
             where = "" if mesh is None else \
                 f" on mesh {dict(axis_sizes(mesh))}"
-            print(f"[train] done at step {state.step}{where}; "
+            print(f"[train] done at step {int(state.step)}{where}; "
                   f"restarts={sup.restarts}")
     finally:
         if owned:

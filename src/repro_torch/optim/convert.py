@@ -29,8 +29,9 @@ def from_reference_optimizer(opt: Any, cfg: ModelConfig, *, device=None):
     :class:`~repro_torch.optim.adamw.AdamWState` /
     :class:`~repro_torch.optim.muon.MuonState` on ``device`` (the card
     unless ``device="cpu"``), fp32 leaves keyed by the port's parameter
-    names. The momentum's ``None`` leaves (AdamW's in Muon) must be
-    exactly the port's non-matrix leaves."""
+    names, the step a 0-d int32 counter on ``device``. The momentum's
+    ``None`` leaves (AdamW's in Muon) must be exactly the port's
+    non-matrix leaves."""
     device = resolve_device(device)
     expected = api.family_module(cfg).init(cfg, None,
                                            device="meta").state_dict()
@@ -42,7 +43,8 @@ def from_reference_optimizer(opt: Any, cfg: ModelConfig, *, device=None):
             np.array(flat[n], dtype=np.float32)).to(device)
             for n in expected}
 
-    step = int(np.asarray(opt.step))
+    step = torch.tensor(int(np.asarray(opt.step)), dtype=torch.int32,
+                        device=device)
     if hasattr(opt, "momentum"):
         momentum = tree(opt.momentum, "Muon momenta")
         labels = muon.partition(expected)

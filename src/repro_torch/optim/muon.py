@@ -122,7 +122,7 @@ def newton_schulz(x: torch.Tensor, steps: int = NS_STEPS, mode: str = "auto",
 
 
 class MuonState(NamedTuple):
-    step: int
+    step: torch.Tensor   # 0-d int32 on the device
     momentum: Dict[str, Optional[torch.Tensor]]  # fp32, matrices only
     adamw: adamw.AdamWState  # every leaf; applied to the non-matrix ones
 
@@ -147,7 +147,9 @@ def init(params: Mapping[str, torch.Tensor]) -> MuonState:
     labels = partition(params)
     mom = {n: torch.zeros_like(p, dtype=torch.float32) if labels[n] else None
            for n, p in params.items()}
-    return MuonState(step=0, momentum=mom, adamw=adamw.init(params))
+    aw = adamw.init(params)
+    return MuonState(step=adamw.counter(aw.step.device), momentum=mom,
+                     adamw=aw)
 
 
 def _stacked(tree: Mapping[str, torch.Tensor], names: List[str]
@@ -158,14 +160,18 @@ def _stacked(tree: Mapping[str, torch.Tensor], names: List[str]
 
 @torch.no_grad()
 def update(grads: Mapping[str, torch.Tensor], state: MuonState,
-           params: Mapping[str, torch.Tensor], lr: float,
+           params: Mapping[str, torch.Tensor], lr,
            momentum: float = 0.95, weight_decay: float = 0.0,
            adamw_lr_scale: float = 0.3, ns_mode: str = "auto",
            discriminant: str = "perfmodel") -> MuonState:
-    """One Muon step in place; returns the new state. The AdamW branch
-    updates both moments of every leaf (as the reference's does) and the
-    non-matrix parameters; each matrix takes the orthogonalized Nesterov
-    momentum, scaled by √max(1, rows/cols)."""
+    """One Muon step in place; returns ``state``, one step on. The AdamW
+    branch updates both moments of every leaf (as the reference's does)
+    and the non-matrix parameters; each matrix takes the orthogonalized
+    Nesterov momentum, scaled by √max(1, rows/cols). Every parameter,
+    momentum, moment and counter is written in place, and ``lr`` may be
+    a 0-d tensor: the step reads nothing on the host (the Newton–Schulz
+    association is a host decision per shape), so a CUDA graph can
+    replay it."""
     aw_state = adamw.moments(grads, state.adamw)
     mats = matrices(params)
     muon_names = {n for names in mats.values() for n in names}
@@ -187,5 +193,5 @@ def update(grads: Mapping[str, torch.Tensor], state: MuonState,
         for i, n in enumerate(names):
             params[n].copy_(pn[i])
             state.momentum[n].copy_(mnew[i])
-    return MuonState(step=state.step + 1, momentum=state.momentum,
-                     adamw=aw_state)
+    state.step.add_(1)
+    return state

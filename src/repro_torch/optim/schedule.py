@@ -1,6 +1,9 @@
 """LR schedules (warmup + cosine / linear / constant) as pure functions of
 the step, in float32 as the reference computes them: each returns a 0-d
-float32 tensor."""
+float32 tensor. The train step passes its step counter, a 0-d integer
+tensor on the device, and gets the lr on that device without a host read
+or a tensor built from host data, as a captured step needs; a Python int
+step gives the lr on the CPU."""
 
 from __future__ import annotations
 
@@ -10,6 +13,9 @@ import torch
 
 
 def _step(step) -> torch.Tensor:
+    if isinstance(step, torch.Tensor):
+        return step.to(torch.float32)
+    return torch.as_tensor(step, dtype=torch.float32)
     return torch.as_tensor(step, dtype=torch.float32)
 
 

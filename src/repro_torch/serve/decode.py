@@ -22,9 +22,11 @@ device, every position is read under a mask, nothing is read on the host
 or built from host data, and all state (caches, lengths, the generator)
 advances in place. :func:`generate` captures on CUDA once per request;
 ``capture=False`` asks for the eager step instead, and on the CPU the
-same in-place step runs eagerly. A sharded step (DTensor caches or
-parameters) stays eager: capturing DTensor's dispatch and collectives is
-queued as ROADMAP A9.
+same in-place step runs eagerly. :func:`compile_serve_step` captures a
+sharded step (DTensor parameters, caches laid out by
+``launch.specs.shard_caches``) as it is: the graph holds the kernels
+DTensor's dispatch launched on the local shards and any collective it
+issued, so a replay skips DTensor's Python altogether.
 """
 
 from __future__ import annotations
@@ -34,7 +36,6 @@ import time
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
-from torch.distributed.tensor import DTensor
 
 from repro_torch.models import api
 from repro_torch.models.attention import KVCache
@@ -133,13 +134,6 @@ def _read_before_written(tree) -> List[torch.Tensor]:
     return _leaves(tree)
 
 
-def _sharded(state: ServeState, params: Any) -> bool:
-    """Whether the step runs on DTensors (its caches, tokens or
-    parameters): the sharded path."""
-    return any(isinstance(t, DTensor) for t in _leaves(state.caches)
-               + [state.last_tokens, params.embed.w])
-
-
 class CompiledServeStep:
     """A serve step captured in a CUDA graph: each call replays it once
     and returns :attr:`next_tokens`, the static (B, 1) buffer the replay
@@ -170,13 +164,9 @@ def compile_serve_step(step: Callable, state: ServeState,
     graph keeps ``state``'s caches and generator and a copy of its
     ``last_tokens``; a step that returns new cache tensors instead of
     writing them in place raises ``RuntimeError`` (a replay would read
-    stale state), and so does any capture error. DTensor caches or
-    parameters raise ``NotImplementedError``: the sharded step stays
-    eager (ROADMAP A9)."""
-    if _sharded(state, params):
-        raise NotImplementedError(
-            "capturing the sharded decode step (DTensor caches or "
-            "parameters) is not ported yet: ROADMAP A9; run it eagerly")
+    stale state), and so does any capture error. DTensor caches and
+    parameters are captured as they are: a replay writes the local
+    shards."""
     device = state.last_tokens.device
     if device.type != "cuda":
         raise ValueError(f"a CUDA graph needs a CUDA device, the state "
@@ -251,8 +241,7 @@ def generate(params: Any, cfg: ModelConfig, prompt, max_new: int,
     (the encdec family's ``frames``). On CUDA the serve step is captured
     once (:func:`compile_serve_step`) and every token, prompt or new, is
     one replay; ``capture=False`` runs the same step eagerly, as it runs
-    on the CPU, and a sharded model (DTensor parameters) is eager unless
-    ``capture=True``, which raises there (ROADMAP A9). The state is one
+    on the CPU. The state is one
     object throughout: a prompt token is copied into its ``last_tokens``
     before a step, and each step writes its next tokens there. Pass a
     ``monitor`` to feed each decode step's wall time (synchronised with
@@ -270,7 +259,7 @@ def generate(params: Any, cfg: ModelConfig, prompt, max_new: int,
                        rng=torch.Generator(device=device).manual_seed(seed))
     step = make_serve_step(cfg, temperature=temperature)
     if capture is None:
-        capture = device.type == "cuda" and not _sharded(state, params)
+        capture = device.type == "cuda"
     if capture:
         compiled = compile_serve_step(step, state, params)
         state, advance = compiled.state, compiled

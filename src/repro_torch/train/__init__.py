@@ -1,5 +1,6 @@
-"""The port's trainer: the eager train step (gradient accumulation, the
-mixed-precision working copy, remat) and the checkpointed training loop."""
+"""The port's trainer: the train step (gradient accumulation, the
+mixed-precision working copy, remat), its capture in a CUDA graph, and
+the checkpointed training loop."""
 
 from . import loop, train_step
 

@@ -14,8 +14,12 @@ It ties the fault-tolerance pieces together:
     (:mod:`repro_torch.data.pipeline`'s contract).
 
 The step is :func:`~repro_torch.train.train_step.make_train_step`'s,
-bound once, as the reference binds the step it jit-compiles; it runs
-eagerly, and its capture in a CUDA graph is the next slice (ROADMAP A8).
+bound once, as the reference binds the step it jit-compiles. On CUDA
+without a mesh the loop captures it in a CUDA graph
+(:func:`~repro_torch.train.train_step.compile_train_step`): the first
+step runs eagerly as the capture's warm-up, and every later step copies
+its batch into the graph's static buffers and replays it.
+``capture=False`` runs the same step eagerly, as the CPU and a mesh do.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ from repro_torch.runtime.supervisor import StragglerMonitor
 from repro_torch.sharding.context import (active_mesh, activation_sharding,
                                           shard_batch)
 from repro_torch.train.train_step import (TrainState, checkpoint_tree,
+                                          compile_train_step,
                                           load_checkpoint_tree,
                                           make_train_state, make_train_step)
 
@@ -57,15 +62,20 @@ def train(
     on_step: Optional[Callable[[int, Dict[str, float], float], None]] = None,
     device=None,
     mesh=None,
+    capture: Optional[bool] = None,
 ) -> TrainState:
     """Train ``cfg`` from random weights (``seed``) or the latest
     checkpoint under ``ckpt_dir`` up to ``total_steps`` on ``device`` (the
     card unless ``device="cpu"``); returns the final state. With a
     ``mesh`` the state is sharded over it, each rank takes its rows of
     every batch, steps run under ``activation_sharding(mesh)`` (unless
-    the caller's context is active) and checkpoints carry the specs. ``on_step``,
-    when given, receives each step's index, its metrics as floats and its
-    wall seconds."""
+    the caller's context is active) and checkpoints carry the specs. On
+    CUDA without a mesh the step is captured in a CUDA graph (its first
+    step is the eager warm-up); ``capture=False`` runs it eagerly, as on
+    the CPU and on a mesh, and ``capture=True`` there raises (a CPU state
+    ``ValueError``, a sharded one ``NotImplementedError``, ROADMAP A9).
+    ``on_step``, when given, receives each step's index, its metrics as
+    floats and its wall seconds."""
     device = resolve_device(device)
     state = make_train_state(cfg, optimizer=optimizer, seed=seed,
                              device=device, mesh=mesh)
@@ -78,7 +88,7 @@ def train(
         if latest is not None:
             state = load_checkpoint_tree(
                 state, mgr.restore(checkpoint_tree(state), step=latest))
-            start_step = state.step
+            start_step = int(state.step)
             log_fn(f"[train] restored checkpoint at step {start_step}")
         previous_handler = mgr.install_sigterm_hook()
 
@@ -89,18 +99,32 @@ def train(
     # the hooks of an enclosing context stay as they are; a mesh alone
     # activates its own, a step at a time
     own = mesh is not None and active_mesh() is None
+    if capture is None:
+        capture = device.type == "cuda" and mesh is None
+    compiled = None
     try:
         for step in range(start_step, total_steps):
             bstep, np_batch = next(prefetch)
             if bstep != step:
                 raise RuntimeError(f"prefetcher at batch {bstep}, "
                                    f"loop at step {step}")
-            batch = {k: shard_batch(torch.from_numpy(v).to(device), mesh)
-                     for k, v in np_batch.items()}
+            if compiled is not None:
+                for k, v in np_batch.items():
+                    compiled.batch[k].copy_(torch.from_numpy(v))
+            else:
+                batch = {k: shard_batch(torch.from_numpy(v).to(device),
+                                        mesh)
+                         for k, v in np_batch.items()}
             t0 = time.perf_counter()
-            with activation_sharding(mesh) if own else \
-                    contextlib.nullcontext():
-                state, metrics = step_fn(state, batch)
+            if compiled is not None:
+                metrics = compiled()
+            elif capture:
+                compiled = compile_train_step(step_fn, state, batch)
+                metrics = compiled.first
+            else:
+                with activation_sharding(mesh) if own else \
+                        contextlib.nullcontext():
+                    state, metrics = step_fn(state, batch)
             metrics = {k: float(v) for k, v in metrics.items()}
             wall = time.perf_counter() - t0
             slow = monitor.observe(step, wall)
@@ -119,7 +143,7 @@ def train(
                 or step == total_steps - 1
                 or mgr.preempted.is_set())
             if want_save:
-                mgr.save(state.step, checkpoint_tree(state))
+                mgr.save(int(state.step), checkpoint_tree(state))
             if mgr is not None and mgr.preempted.is_set():
                 log_fn(f"[train] preempted at step {step}; "
                        "checkpoint saved, exiting")
@@ -136,3 +160,6 @@ def train(
         prefetch.close()
         if previous_handler is not None:
             signal.signal(signal.SIGTERM, previous_handler)
+        # A crash's traceback keeps this frame (a supervisor keeps the
+        # exception): let the graph, its memory pool and the state go.
+        compiled = state = None

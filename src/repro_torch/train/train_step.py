@@ -18,22 +18,28 @@ runs, DTensor inserting the collectives (gradient reductions onto the
 moments' FSDP layout, gathers onto the parameters'), and the returned
 metrics are plain replicated tensors.
 
-The step runs eagerly: the reference jit-compiles the step that
-:func:`make_train_step` binds, and capturing it in a CUDA graph, on the
-design of the captured decode step (``serve.decode.compile_serve_step``:
-state advanced in place, a step counter on the device), is the next
-slice (ROADMAP A8).
+The step is graph-safe: its counters (``TrainState.step``, the
+optimizers' ``step``) are 0-d int32 tensors on the device, advanced in
+place; the schedule's lr, AdamW's bias corrections and the clip scale
+stay on the device; every master, moment and momentum is written in
+place and nothing is read on the host. So :func:`compile_train_step`
+captures it in a ``torch.cuda.CUDAGraph``, as the reference jit-compiles
+the step :func:`make_train_step` binds, and a step is one replay; the
+same step runs eagerly on the CPU, on a mesh, or when asked.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Any, Dict, Iterator, List, Mapping, NamedTuple, Tuple
+import time
+from typing import (Any, Callable, Dict, Iterator, List, Mapping,
+                    NamedTuple, Tuple)
 
 import torch
 from torch import nn
 from torch.distributed.tensor import DTensor
 
+from repro_torch.checkpoint import store
 from repro_torch.models import api
 from repro_torch.models.transformer import ModelConfig
 from repro_torch.optim import adamw, muon, schedule as sched
@@ -43,7 +49,7 @@ from repro_torch.optim.leaves import reference_ndim
 class TrainState(NamedTuple):
     params: Dict[str, torch.Tensor]   # fp32 masters: ``model``'s parameters
     opt: Any                          # AdamWState | MuonState
-    step: int
+    step: torch.Tensor                # 0-d int32 on the device
     model: nn.Module
 
 
@@ -57,17 +63,18 @@ def make_train_state(cfg: ModelConfig, optimizer: str = "adamw",
     (fsdp | zero1 | auto) and the moments by the FSDP rules
     (:mod:`repro_torch.launch.specs`)."""
     model = api.init(cfg, seed=seed, device=device, dtype=torch.float32)
+    step = adamw.counter(model.embed.w.device)
     if mesh is not None:
         from repro_torch.launch import specs
         specs.shard_model(model, cfg, mesh,
                           specs.resolve_policy(cfg, mesh, policy))
         params = dict(model.named_parameters())
-        return TrainState(params=params, step=0, model=model,
+        return TrainState(params=params, step=step, model=model,
                           opt=specs.init_optimizer(optimizer, params, cfg,
                                                    mesh))
     params = dict(model.named_parameters())
     opt = muon.init(params) if optimizer == "muon" else adamw.init(params)
-    return TrainState(params=params, opt=opt, step=0, model=model)
+    return TrainState(params=params, opt=opt, step=step, model=model)
 
 
 def checkpoint_tree(state: TrainState) -> Dict[str, Any]:
@@ -78,11 +85,21 @@ def checkpoint_tree(state: TrainState) -> Dict[str, Any]:
 @torch.no_grad()
 def load_checkpoint_tree(state: TrainState, tree: Mapping[str, Any]
                          ) -> TrainState:
-    """``state`` with a restored :func:`checkpoint_tree`: the masters
-    overwritten in place, the optimizer state and step replaced."""
-    for name, p in state.params.items():
-        p.copy_(tree["params"][name])
-    return state._replace(opt=tree["opt"], step=int(tree["step"]))
+    """``state`` with a restored :func:`checkpoint_tree` copied into its
+    own tensors (masters, moments, momenta and counters), so that a
+    captured step goes on reading them; returns ``state``. A step that
+    older checkpoints hold as a host int reads back as a 0-d int64 tensor
+    and is copied in too; on a mesh the restored counters are replicated
+    DTensors, copied whole into the plain ones."""
+    restored = dict(store.leaf_paths(tree))
+    for name, dst in store.leaf_paths(checkpoint_tree(state)):
+        if dst is None:
+            continue
+        src = restored[name]
+        if isinstance(src, DTensor) and not isinstance(dst, DTensor):
+            src = src.full_tensor()
+        dst.copy_(src)
+    return state
 
 
 def _owners(model: nn.Module, names) -> List[Tuple[nn.Module, str]]:
@@ -149,31 +166,130 @@ def train_step(state: TrainState, batch: Mapping[str, Any], *,
                accum_steps: int = 1, compute_dtype=torch.bfloat16,
                weight_decay: float = 0.1
                ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-    """One step; updates the masters and the optimizer state in place and
-    returns the state one step on with the metrics ``loss`` (the
-    cross-entropy, of the last micro-batch when accumulating, as the
-    reference reports it), ``lr``, ``grad_norm`` (before clipping) and
-    ``aux``, as 0-d float32 tensors on the state's device."""
+    """One step; updates the masters, the optimizer state and the step
+    counter in place and returns ``state`` (now one step on) with the
+    metrics ``loss`` (the cross-entropy, of the last micro-batch when
+    accumulating, as the reference reports it), ``lr``, ``grad_norm``
+    (before clipping) and ``aux``, as 0-d float32 tensors on the state's
+    device."""
     metrics, grads = _grads(cfg, state, batch, accum_steps, compute_dtype)
-    lr_t = sched.SCHEDULES[schedule](state.step, peak_lr, warmup,
-                                     total_steps)
-    lr = float(lr_t)
+    lr = sched.SCHEDULES[schedule](state.step, peak_lr, warmup, total_steps)
     if optimizer == "muon":
-        opt = muon.update(grads, state.opt, state.params, lr,
-                          weight_decay=weight_decay)
+        muon.update(grads, state.opt, state.params, lr,
+                    weight_decay=weight_decay)
     else:
-        opt = adamw.update(grads, state.opt, state.params, lr,
-                           weight_decay=weight_decay)
-    out = {"lr": lr_t.to(metrics["loss"].device),
-           "grad_norm": adamw.global_norm(grads.values()), **metrics}
+        adamw.update(grads, state.opt, state.params, lr,
+                     weight_decay=weight_decay)
+    out = {"lr": lr, "grad_norm": adamw.global_norm(grads.values()),
+           **metrics}
     out = {k: v.full_tensor() if isinstance(v, DTensor) else v
            for k, v in out.items()}
-    return state._replace(opt=opt, step=state.step + 1), out
+    state.step.add_(1)
+    return state, out
 
 
 def make_train_step(cfg: ModelConfig, **kw):
     """Bind the static config (``optimizer``, ``peak_lr``, ``warmup``,
     ``total_steps``, ...): returns fn(state, batch), the step that
-    :func:`repro_torch.train.loop.train` runs and a captured step will
-    replay, as the reference's binds the step its ``jax.jit`` compiles."""
+    :func:`repro_torch.train.loop.train` captures with
+    :func:`compile_train_step` (or runs eagerly), as the reference's binds
+    the step its ``jax.jit`` compiles."""
     return functools.partial(train_step, cfg=cfg, **kw)
+
+
+def state_tensors(state: TrainState) -> List[torch.Tensor]:
+    """Every tensor of the state a step reads and writes: the masters,
+    the optimizer's moments, momenta and counters, and the step."""
+    return [t for _, t in store.leaf_paths(checkpoint_tree(state))
+            if isinstance(t, torch.Tensor)]
+
+
+class CompiledTrainStep:
+    """A train step captured in a CUDA graph. Each call replays it once,
+    one step of :attr:`state` on the batch in :attr:`batch` (static
+    buffers: ``copy_`` the next batch into them before a call), and
+    returns :attr:`metrics`, the static 0-d tensors the replay writes
+    (``loss``, ``lr``, ``grad_norm``, ``aux``). :attr:`first` holds the
+    metrics of the warm-up, a real eager step on the batch the capture
+    was given; replays start at the step after it. ``pool_bytes`` is what
+    the graph's private memory pool added to the reserved memory,
+    ``capture_ms`` the wall time of the warm-up step and the capture."""
+
+    def __init__(self, graph, state: TrainState,
+                 batch: Dict[str, torch.Tensor],
+                 metrics: Dict[str, torch.Tensor],
+                 first: Dict[str, torch.Tensor], pool_bytes: int,
+                 capture_ms: float):
+        self.graph, self.state, self.batch = graph, state, batch
+        self.metrics, self.first = metrics, first
+        self.pool_bytes, self.capture_ms = pool_bytes, capture_ms
+
+    def __call__(self) -> Dict[str, torch.Tensor]:
+        self.graph.replay()
+        return self.metrics
+
+
+def _same_state(ids: List[int], state: TrainState, new: TrainState) -> None:
+    if new is not state and [id(t) for t in state_tensors(new)] != ids:
+        raise RuntimeError("the train step returned new state tensors; a "
+                           "replayed graph would read stale state")
+
+
+def compile_train_step(step: Callable, state: TrainState,
+                       batch: Mapping[str, torch.Tensor]
+                       ) -> CompiledTrainStep:
+    """Capture ``step`` (:func:`make_train_step`'s) on ``state`` in a CUDA
+    graph. The warm-up runs the first step for real, eagerly, on a side
+    stream (cuBLAS and the allocator set up there) on a copy of
+    ``batch`` that becomes the graph's static input; its memory is then
+    handed back to the card (``torch.cuda.empty_cache``) and the step is
+    captured once on a private pool with
+    ``capture_begin(capture_error_mode="global")``. The state is not
+    copied (it would cost gigabytes): the warm-up advances it, and the
+    first replay takes the next step. A step that returns new state
+    tensors instead of writing them in place raises ``RuntimeError``, and
+    so does any capture error. A random draw in the step (none today)
+    would come from the default CUDA generator, which the capture
+    registers with the graph itself. A state on the CPU raises
+    ``ValueError``;
+    a DTensor state ``NotImplementedError`` (ROADMAP A9: capture the
+    sharded train step)."""
+    if any(isinstance(p, DTensor) for p in state.params.values()):
+        raise NotImplementedError(
+            "capturing the sharded train step (DTensor state) is not "
+            "ported yet: ROADMAP A9, capture the sharded train step; run "
+            "it eagerly")
+    device = state.step.device
+    if device.type != "cuda":
+        raise ValueError(f"a CUDA graph needs a CUDA device, the state "
+                         f"lies on {device}")
+    t0 = time.perf_counter()
+    ids = [id(t) for t in state_tensors(state)]
+    static = {k: torch.as_tensor(v).to(device, copy=True)
+              for k, v in batch.items()}
+    stream = torch.cuda.Stream(device)
+    stream.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.device(device), torch.cuda.stream(stream):
+        new, first = step(state, static)
+        _same_state(ids, state, new)
+        del new
+        torch.cuda.synchronize(device)
+        torch.cuda.empty_cache()
+        graph = torch.cuda.CUDAGraph()
+        reserved = torch.cuda.memory_reserved(device)
+        graph.capture_begin(capture_error_mode="global")
+        try:
+            new, metrics = step(state, static)
+        except BaseException:
+            try:
+                graph.capture_end()
+            except RuntimeError:
+                pass  # the capture is already invalid; report the cause
+            raise
+        graph.capture_end()
+        _same_state(ids, state, new)
+        pool = max(0, torch.cuda.memory_reserved(device) - reserved)
+    torch.cuda.current_stream(device).wait_stream(stream)
+    torch.cuda.synchronize(device)
+    return CompiledTrainStep(graph, state, static, metrics, first, pool,
+                             (time.perf_counter() - t0) * 1e3)

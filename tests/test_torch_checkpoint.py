@@ -160,16 +160,21 @@ def test_train_state_round_trips_bit_for_bit(tmp_path):
     gen = torch.Generator().manual_seed(0)
     for t in state.opt.adamw.mu.values():
         t.copy_(torch.randn(t.shape, generator=gen))
+    state.step.fill_(3)
+    state.opt.step.fill_(2)
+    state.opt.adamw.step.fill_(2)
     mgr = CheckpointManager(str(tmp_path), keep=1)
-    mgr.save(0, ts.checkpoint_tree(state._replace(step=3)))
+    mgr.save(0, ts.checkpoint_tree(state))
     mgr.wait()
     fresh = ts.make_train_state(cfg, optimizer="muon", seed=2, device="cpu")
+    kept = ts.state_tensors(fresh)
     out = ts.load_checkpoint_tree(fresh, mgr.restore(
         ts.checkpoint_tree(fresh)))
-    assert out.step == 3 and isinstance(out.opt, muon.MuonState)
-    assert tree_eq(ts.checkpoint_tree(state._replace(step=3)),
-                   ts.checkpoint_tree(out))
+    assert int(out.step) == 3 and isinstance(out.opt, muon.MuonState)
+    assert int(out.opt.step) == int(out.opt.adamw.step) == 2
+    assert tree_eq(ts.checkpoint_tree(state), ts.checkpoint_tree(out))
     assert out.params is fresh.params       # restored in place
+    assert all(a is b for a, b in zip(ts.state_tensors(out), kept))
     assert mgr.saves[0][0] == 0 and mgr.saves[0][1] > 0
 
 

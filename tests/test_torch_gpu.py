@@ -1165,7 +1165,8 @@ def test_mamba2_smoke_train_step_on_the_card_matches_the_cpu(cuda):
         state.model.to(device)
         state = state._replace(params=dict(state.model.named_parameters()),
                                opt=ts.adamw.init(
-                                   dict(state.model.named_parameters())))
+                                   dict(state.model.named_parameters())),
+                               step=state.step.to(device))
         start = {n: p.detach().cpu().clone() for n, p in state.params.items()}
         losses = []
         for step in range(3):
@@ -1486,3 +1487,132 @@ def test_a_step_that_returns_new_caches_is_refused(cuda):
                                           device=cuda), None)
     with pytest.raises(RuntimeError, match="stale state"):
         decode.compile_serve_step(functional, state, card)
+
+
+# -------------------------------------------- the captured train step ---
+
+def _train_both_ways(cuda, optimizer, remat, steps=3):
+    """The mamba2 smoke config (``remat`` per block) from seed 0, ``steps``
+    steps of 4 x 64 tokens twice: eagerly, and through
+    ``compile_train_step``'s graph (the first step its eager warm-up, the
+    others replays on batches copied into its static buffers) → [(rows of
+    float metrics, final state)] eager, captured."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.train import train_step as ts
+    cfg = dataclasses.replace(configs.get_smoke("mamba2_370m"), remat=remat)
+    src = SyntheticLM(cfg.vocab, 64, 4, seed=0)
+    batches = [{k: torch.from_numpy(v).to(cuda) for k, v in
+                src.batch_at(i).items()} for i in range(steps)]
+    step = ts.make_train_step(cfg, optimizer=optimizer, peak_lr=1e-3,
+                              warmup=1, total_steps=steps)
+    runs = []
+    for capture in (False, True):
+        state = ts.make_train_state(cfg, optimizer=optimizer, seed=0,
+                                    device=cuda)
+        rows = []
+        for i, batch in enumerate(batches):
+            if capture and i == 0:
+                compiled = ts.compile_train_step(step, state, batch)
+                m = compiled.first
+            elif capture:
+                for k, v in batch.items():
+                    compiled.batch[k].copy_(v)
+                m = compiled()
+            else:
+                state, m = step(state, batch)
+            rows.append({k: float(v) for k, v in m.items()})
+        runs.append((rows, state))
+    return runs
+
+
+@pytest.mark.parametrize("remat", ["none", "dots", "full"])
+@pytest.mark.parametrize("optimizer", ["adamw", "muon"])
+def test_captured_train_step_matches_the_eager_step(cuda, optimizer, remat):
+    """Three steps both ways: lr bit for bit (the schedule of the device
+    counter), losses and grad norms at rtol 1e-5 (eager backward passes
+    on the card are not bitwise repeatable), the counters at 3 and no
+    hand kernel launched."""
+    ops.reset_launch_counts()
+    (eager, s_e), (captured, s_c) = _train_both_ways(cuda, optimizer, remat)
+    assert not any(ops.launch_counts().values())
+    assert [r["lr"] for r in captured] == [r["lr"] for r in eager]
+    for key in ("loss", "grad_norm"):
+        np.testing.assert_allclose([r[key] for r in captured],
+                                   [r[key] for r in eager], rtol=1e-5)
+    assert int(s_c.step) == int(s_e.step) == 3
+    assert all(np.isfinite(r["loss"]) for r in captured)
+
+
+def test_a_train_step_that_returns_new_state_is_refused(cuda):
+    """A step that rebuilds its counter instead of advancing it in place
+    would replay against stale state: the capture refuses it."""
+    from repro_torch import configs
+    from repro_torch.train import train_step as ts
+    cfg = configs.get_smoke("mamba2_370m")
+    step = ts.make_train_step(cfg)
+
+    def functional(state, batch):
+        new, m = step(state, batch)
+        return new._replace(step=new.step + 0), m
+
+    state = ts.make_train_state(cfg, seed=0, device=cuda)
+    batch = {"tokens": torch.zeros((2, 16), dtype=torch.int32, device=cuda),
+             "labels": torch.zeros((2, 16), dtype=torch.int32, device=cuda)}
+    with pytest.raises(RuntimeError, match="stale state"):
+        ts.compile_train_step(functional, state, batch)
+
+
+def _nccl_world_of_one():
+    import socket
+    import torch.distributed as dist
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+
+
+def test_captured_sharded_decode_matches_the_unsharded_capture(cuda):
+    """Yi-9B smoke (float32) on the (1, 1) mesh of an NCCL world of one:
+    the sharded serve step captured and replayed gives the tokens of the
+    unsharded model's captured step from the same prefill."""
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.launch import specs
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import api
+    from repro_torch.serve import decode
+    from repro_torch.sharding.context import activation_sharding, \
+        shard_batch
+    cfg = configs.get_smoke("yi_9b")
+    model = api.init(cfg, seed=0, device=cuda)
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 12))).to(cuda)
+
+    def decode_captured(tokens, caches, steps=6):
+        logits, caches = api.prefill(model, cfg, {"tokens": tokens}, caches)
+        first = logits[:, -1].argmax(-1)[:, None]
+        compiled = decode.compile_serve_step(
+            decode.make_serve_step(cfg),
+            decode.ServeState(caches, first, None), model)
+        out = [first]
+        for _ in range(steps):
+            out.append(compiled().clone())
+        return torch.cat(out, 1)
+
+    init = lambda: api.init_caches(model, cfg, 2, 20,       # noqa: E731
+                                   dtype=torch.float32)
+    want = decode_captured(prompt, init())
+    _nccl_world_of_one()
+    try:
+        mesh = make_host_mesh(model=1)
+        specs.shard_model(model, cfg, mesh)
+        with activation_sharding(mesh):
+            got = decode_captured(shard_batch(prompt),
+                                  specs.shard_caches(cfg, init(), mesh))
+        got = got.full_tensor()
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(got, want)

@@ -82,7 +82,7 @@ class NoHostData(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         if func in HOST_OPS:
-            raise AssertionError(f"the decode step dispatched {func}")
+            raise AssertionError(f"the step dispatched {func}")
         self.calls += 1
         return func(*args, **(kwargs or {}))
 

@@ -135,7 +135,7 @@ def test_adamw_three_steps_match_reference(grad_clip):
                                    grad_clip=grad_clip)
         state = adamw.update(_port_tree(g), state, params, lr,
                              grad_clip=grad_clip)
-    assert state.step == int(jstate.step) == 3
+    assert int(state.step) == int(jstate.step) == 3
     _assert_port_matches(params, _flat_jax(jp))
     _assert_port_matches(state.mu, _flat_jax(jstate.mu))
     _assert_port_matches(state.nu, _flat_jax(jstate.nu))
@@ -254,7 +254,7 @@ def test_muon_update_matches_reference(steps):
                                   weight_decay=0.1)
         state = muon.update(_port_tree(g), state, params, 0.02,
                             weight_decay=0.1)
-    assert state.step == state.adamw.step == steps
+    assert int(state.step) == int(state.adamw.step) == steps
     want = _port_tree(_flat_jax(jp))
     labels = muon.partition(params)
     for name, p in params.items():

@@ -84,7 +84,8 @@ def _port_state(arch, optimizer):
     opt = optim_convert.from_reference_optimizer(_np_tree(jstate.opt), cfg,
                                                  device="cpu")
     return ts.TrainState(params=dict(model.named_parameters()), opt=opt,
-                         step=0, model=model)
+                         step=torch.zeros((), dtype=torch.int32),
+                         model=model)
 
 
 def _reference_flat(tree, cfg):
@@ -138,8 +139,8 @@ def test_train_step_matches_reference(arch, optimizer, dtype):
                                    float(jm["grad_norm"]), rtol=norm_tol)
         if step not in (0, 2):
             continue
-        assert state.step == int(jstate.step) == step + 1
-        assert _moments(state.opt).step == state.step
+        assert int(state.step) == int(jstate.step) == step + 1
+        assert int(_moments(state.opt).step) == int(state.step)
         assert all(p.dtype == torch.float32 for p in state.params.values())
         want = _reference_flat(jstate.params, cfg)
         assert _update_distance(state.params, want, start, want) <= all_tol
@@ -190,7 +191,7 @@ def test_make_train_step_matches_reference(optimizer):
                                rtol=loss_tol)
     np.testing.assert_allclose(float(m["grad_norm"]), float(jm["grad_norm"]),
                                rtol=norm_tol)
-    assert state.step == int(jstate.step) == 1
+    assert int(state.step) == int(jstate.step) == 1
     want = _reference_flat(jstate.params, cfg)
     assert _update_distance(state.params, want, start, want) <= all_tol
 
@@ -292,7 +293,7 @@ def test_make_train_state_and_working_copy():
                                       state.model.parameters()))
     assert all(p.grad is None and not p.requires_grad
                for p in state.params.values())
-    assert np.isfinite(float(m["loss"])) and state.step == 1
+    assert np.isfinite(float(m["loss"])) and int(state.step) == 1
 
 
 # ----------------------------------------------------------------- data ---
@@ -383,7 +384,7 @@ def test_train_crash_and_resume_deterministic(tmp_path):
             on_step=lambda s, m, w: losses.__setitem__(s, m["loss"]))
 
     state = sup.run(run)
-    assert sup.restarts == 1 and state.step == 6
+    assert sup.restarts == 1 and int(state.step) == 6
     assert "[train] restored checkpoint at step 2" in logs
     np.testing.assert_allclose(state.params["final_norm.g"].numpy(),
                                state_ref.params["final_norm.g"].numpy(),
