@@ -192,11 +192,23 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
    sharded ones, the logits within :data:`DECODE_LOGIT_TOL`, prefill ms
    both ways and ms/token captured both ways and eager sharded;
    (b) Mamba2-370M at full width, 2 × 2048 tokens, 4 AdamW steps through
-   ``train_loop.train(mesh=...)``, eagerly (a sharded train step is not
-   captured): the losses within :data:`SHARDED_LOSS_RTOL` of phase 14
-   (b)'s first four eager steps, step ms beside phase 14's eager ones,
-   and the loop's checkpoint (specs and ``mesh_shape`` in its manifest)
-   read back bit for bit; then the group is destroyed;
+   ``train_loop.train(mesh=...)``, captured (the loop's default: the
+   first step the eager warm-up, the others replays writing the local
+   shards), one more replay under ``torch.profiler`` (device time,
+   kernels, NCCL kernels) and the loop's checkpoint (specs and
+   ``mesh_shape`` in its manifest) read back bit for bit; then, that run
+   released, the same 4 steps eagerly (``capture=False``): lr bit for
+   bit both ways, the first step's loss and grad norm bit for bit, later
+   steps within :data:`CAPTURED_TRAIN_RTOL` of the eager sharded run,
+   which stays within :data:`SHARDED_LOSS_RTOL` of phase 14 (b)'s first
+   four eager steps; ms a step both ways beside phase 14's, the capture's
+   ms and pool, peak reserved ≤ :data:`TRAIN_PEAK_GB`; then the group is
+   destroyed, and, where the ``fake`` process group takes CUDA tensors,
+   the Mamba2 smoke step is captured on the (2, 2) mesh of a fake world
+   of four (DTensor's multi-rank redistributions in a real capture; the
+   fake collectives' data is made up) and held against the eager step on
+   the same fake world: lr bit for bit and the local storage kept, the
+   losses and grad norms only where the fake world's values repeat;
    (c) the dry-run, one process per cell on the host (started once (b)
    has destroyed its group, so that no tracing loads the host while (a)
    and (b) are timed): Yi-9B train_4k, prefill_32k and
@@ -3417,8 +3429,7 @@ def train_mamba2(torch, np) -> dict:
         train_loop.compile_train_step = real
     (graph,) = kept
     peak = torch.cuda.max_memory_reserved()
-    for k, v in extra.items():
-        graph.batch[k].copy_(torch.from_numpy(v))
+    ts.copy_batch(graph.batch, extra)
     replay = device_time_by_op(torch, "mamba2 captured train step (one "
                                "replay)", graph, top=8, phase=14,
                                by_kernel=True)
@@ -3859,26 +3870,36 @@ def serve_sharded(torch, np) -> dict:
 
 
 def train_sharded(torch, np, mesh, phase14: dict) -> dict:
-    """Phase 15 (b): Mamba2-370M, 4 AdamW steps on ``mesh`` through
-    ``train_loop.train`` (eager: a sharded step is not captured), against
-    phase 14 (b)'s first four eager steps; its last save read back bit
-    for bit."""
+    """Phase 15 (b): Mamba2-370M, SHARD_TRAIN_STEPS AdamW steps on
+    ``mesh`` through ``train_loop.train``: captured (one more replay
+    profiled, the last save read back bit for bit), then, released, the
+    same steps eagerly; each against the other and the eager run against
+    phase 14 (b)'s first eager steps."""
     import dataclasses
 
     from repro_torch import configs
     from repro_torch.checkpoint import store
-    from repro_torch.train.train_step import checkpoint_tree
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.train import loop as train_loop
+    from repro_torch.train.train_step import checkpoint_tree, copy_batch
 
     cfg = dataclasses.replace(configs.get("mamba2_370m"), remat=MAMBA_REMAT)
+    b, n = MAMBA_TRAIN_BATCH, SHARD_TRAIN_STEPS
+    extra = SyntheticLM(cfg.vocab, TRAIN_SEQ, b, seed=SEED).batch_at(n)
+    kept, real = _kept_compiled(train_loop)
+    torch.cuda.reset_peak_memory_stats()
     with tempfile.TemporaryDirectory(prefix="chip-smoke-sharded-") as d:
-        state, rows = _train(torch, cfg, MAMBA_TRAIN_BATCH,
-                             SHARD_TRAIN_STEPS, "(b) mamba2 sharded",
-                             phase=15, mesh=mesh, ckpt_dir=d,
-                             save_every=SHARD_TRAIN_STEPS)
-        manifest = json.loads((Path(d) / f"step_{SHARD_TRAIN_STEPS}" /
+        try:
+            state, rows = _train(torch, cfg, b, n, "(b) mamba2 sharded "
+                                 "captured", phase=15, mesh=mesh,
+                                 ckpt_dir=d, save_every=n)
+        finally:
+            train_loop.compile_train_step = real
+        peak = torch.cuda.max_memory_reserved()
+        manifest = json.loads((Path(d) / f"step_{n}" /
                                "manifest.json").read_text())
         tree = checkpoint_tree(state)
-        back = store.restore(d, SHARD_TRAIN_STEPS, tree, mesh=mesh)
+        back = store.restore(d, n, tree, mesh=mesh)
         # the restore gives every leaf as a DTensor; the step counters
         # are plain tensors in the state
         same = all(
@@ -3886,29 +3907,187 @@ def train_sharded(torch, np, mesh, phase14: dict) -> dict:
             for (_, a), (_, b) in zip(store.leaf_paths(tree),
                                       store.leaf_paths(back))
             if isinstance(a, torch.Tensor))
+        del back, tree
+    (graph,) = kept
+    copy_batch(graph.batch, extra)
+    replay = device_time_by_op(torch, "mamba2 captured sharded train step "
+                               "(one replay)", graph, top=8, phase=15,
+                               by_kernel=True)
+    capture_ms, pool = graph.capture_ms, graph.pool_bytes
+    del graph, kept, state
+    release(torch)
+    torch.cuda.reset_peak_memory_stats()
+    state, eager = _train(torch, cfg, b, n, "(b) mamba2 sharded eager",
+                          phase=15, mesh=mesh, capture=False)
+    eager_peak = torch.cuda.max_memory_reserved()
+    del state
+    release(torch)
     specs = [e["spec"] for e in manifest["leaves"] if "spec" in e]
-    ref = phase14["mamba2"]["eager_rows"][:SHARD_TRAIN_STEPS]
-    gaps = [abs(r["loss"] - q["loss"]) / abs(q["loss"])
-            for r, q in zip(rows, ref)]
-    walls = sorted(r["wall_ms"] for r in rows[1:])
-    ref_walls = sorted(r["wall_ms"]
-                       for r in phase14["mamba2"]["eager_rows"][1:])
-    print(f"phase 15 (b) mamba2 sharded, eager (the sharded train step is "
-          f"not captured: ROADMAP A9): losses "
-          f"{[round(r['loss'], 4) for r in rows]} vs phase 14's eager "
-          f"{[round(q['loss'], 4) for q in ref]} (largest relative gap "
-          f"{max(gaps):.3e}, limit {SHARDED_LOSS_RTOL:.3e}); median step "
-          f"{walls[len(walls) // 2]:.1f} ms vs phase 14's "
-          f"{ref_walls[len(ref_walls) // 2]:.1f} ms; checkpoint mesh_shape "
-          f"{manifest['mesh_shape']}, {sum(1 for x in specs if x is not None)}"
-          f" of {len(specs)} leaves with a spec, read back bit for bit: "
-          f"{same}")
-    if max(gaps) > SHARDED_LOSS_RTOL or not same or \
+    ref = phase14["mamba2"]["eager_rows"][:n]
+    ref_gaps = _gaps(eager, ref, "loss")
+    lr_same = [r["lr"] for r in rows] == [r["lr"] for r in eager]
+    first_same = all(rows[0][k] == eager[0][k] for k in ("loss",
+                                                         "grad_norm"))
+    gaps = {k: max(_gaps(rows[1:], eager[1:], k)) for k in ("loss",
+                                                            "grad_norm")}
+
+    def median(runs):
+        walls = sorted(r["wall_ms"] for r in runs[1:])
+        return walls[len(walls) // 2]
+
+    step_ms, eager_ms = median(rows), median(eager)
+    p14 = phase14["mamba2"]
+    print(f"phase 15 (b) mamba2 sharded on mesh "
+          f"{manifest['mesh_shape']} ({CARD['line']}): captured "
+          f"{step_ms:.1f} ms a step (phase 14's unsharded captured "
+          f"{p14['step_ms']:.1f}), eager {eager_ms:.1f} ms (phase 14's "
+          f"unsharded eager {p14['eager_step_ms']:.1f}); capture "
+          f"{capture_ms:.1f} ms, graph pool {pool} bytes; a replay: device "
+          f"{replay['device_ms']:.1f} ms in {replay['kernels']} kernels, "
+          f"{replay['nccl_kernels']} NCCL kernels; peak reserved "
+          f"{peak / 1e9:.2f} GB captured, {eager_peak / 1e9:.2f} GB eager; "
+          f"lr bit for bit at every step: {lr_same}; the first step's loss "
+          f"and grad norm bit for bit: {first_same}; later steps' largest "
+          f"relative gap, loss {gaps['loss']:.3e}, grad norm "
+          f"{gaps['grad_norm']:.3e} (limit {CAPTURED_TRAIN_RTOL:.3e}); "
+          f"eager losses {[round(r['loss'], 4) for r in eager]} vs phase "
+          f"14's eager {[round(q['loss'], 4) for q in ref]} (largest "
+          f"relative gap {max(ref_gaps):.3e}, limit "
+          f"{SHARDED_LOSS_RTOL:.3e}); checkpoint of the captured run: "
+          f"{sum(1 for x in specs if x is not None)} of {len(specs)} "
+          f"leaves with a spec, read back bit for bit: {same}")
+    if max(ref_gaps) > SHARDED_LOSS_RTOL or not same or \
             manifest["mesh_shape"] != {"data": 1, "model": 1} or \
             not any(x is not None for x in specs):
         raise AssertionError("phase 15 (b): sharded training differs")
-    return {"rows": rows, "gaps": gaps, "median_step_ms":
-            walls[len(walls) // 2]}
+    if not lr_same or not first_same or \
+            max(gaps.values()) > CAPTURED_TRAIN_RTOL or \
+            max(peak, eager_peak) > TRAIN_PEAK_GB * 1e9:
+        raise AssertionError("phase 15 (b): the captured sharded train step "
+                             "differs from the eager one, or a run needs "
+                             f"more than {TRAIN_PEAK_GB} GB")
+    return {"rows": rows, "eager_rows": eager, "gaps": gaps,
+            "phase14_gaps": ref_gaps, "step_ms": step_ms,
+            "eager_step_ms": eager_ms, "capture_ms": capture_ms,
+            "pool_bytes": pool, "replay": replay,
+            "peak_reserved_gb": peak / 1e9,
+            "eager_peak_reserved_gb": eager_peak / 1e9}
+
+
+def fake_group_writes(torch) -> dict:
+    """Whether the ``fake`` process group writes the outputs of an
+    all-gather and a reduce-scatter of CUDA tensors (outputs filled with
+    NaN first): where it does not, the values a step computes on a fake
+    world are made of unwritten memory."""
+    dist = torch.distributed
+    out = {}
+    for name, fn, n_out in (
+            ("all_gather_into_tensor", dist.all_gather_into_tensor, 8),
+            ("reduce_scatter_tensor", dist.reduce_scatter_tensor, 2)):
+        dst = torch.full((n_out,), float("nan"), device="cuda")
+        src = torch.ones(8 if n_out == 2 else 2, device="cuda")
+        fn(dst, src)
+        out[name] = bool(torch.isfinite(dst).all())
+    return out
+
+
+def train_sharded_fake_world(torch) -> dict:
+    """Phase 15 (b) on a fake (2, 2) world of four: the Mamba2 smoke
+    step (4 × 64 tokens, SHARD_TRAIN_STEPS AdamW steps) captured and
+    eagerly on the same fake world, where the ``fake`` group takes CUDA
+    tensors (else it says so and returns None). The capture records
+    DTensor's multi-rank redistributions; the fake collectives' data is
+    made up, so the captured run's values are held against the eager
+    run's only where they repeat (the warm-up, an eager step on the same
+    state and batch, bit for bit the eager run's first step); lr bit for
+    bit and the local storage are held always."""
+    import math
+
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch import configs
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sharding.context import activation_sharding, \
+        shard_batch
+    from repro_torch.train import train_step as ts
+
+    dist = torch.distributed
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=4)
+    try:
+        try:
+            dist.all_reduce(torch.ones(1, device="cuda"))
+        except RuntimeError as e:
+            print(f"phase 15 (b) fake world of four: the fake process group "
+                  f"refuses CUDA tensors ({e}); multi-rank capture not run "
+                  f"on the card (the CPU tests run the sharded step on a "
+                  f"fake and a gloo world of four)")
+            return None
+        writes = fake_group_writes(torch)
+        mesh = make_host_mesh(model=2, device_type="cuda")
+        cfg = configs.get_smoke("mamba2_370m")
+        src = SyntheticLM(cfg.vocab, 64, 4, seed=SEED)
+        batches = [{k: torch.from_numpy(v).cuda() for k, v in
+                    src.batch_at(i).items()}
+                   for i in range(SHARD_TRAIN_STEPS)]
+        step = ts.make_train_step(cfg, peak_lr=TRAIN_LR, warmup=TRAIN_WARMUP,
+                                  total_steps=SHARD_TRAIN_STEPS)
+        runs = {}
+        for capture in (False, True):
+            state = ts.make_train_state(cfg, seed=SEED, device="cuda",
+                                        mesh=mesh)
+            before = ts._fingerprint(state)
+            rows = []
+            for i, batch in enumerate(batches):
+                if capture and i > 0:
+                    ts.copy_batch(compiled.batch, batch)
+                    m = compiled()
+                else:
+                    with activation_sharding(mesh):
+                        batch = {k: shard_batch(v) for k, v in batch.items()}
+                        if capture:
+                            compiled = ts.compile_train_step(step, state,
+                                                             batch)
+                            m = compiled.first
+                        else:
+                            state, m = step(state, batch)
+                rows.append({k: float(v) for k, v in m.items()})
+            runs[capture] = (rows, ts._fingerprint(state) == before)
+            if capture:
+                kernels = device_time_by_op(
+                    torch, "mamba2 smoke captured on a fake (2, 2) world "
+                    "(one replay)", compiled, top=4, phase=15,
+                    by_kernel=True)
+                capture_ms = compiled.capture_ms
+                del compiled
+            del state
+    finally:
+        dist.destroy_process_group()
+        release(torch)
+    (eager, _), (captured, kept) = runs[False], runs[True]
+    lr_same = [r["lr"] for r in captured] == [r["lr"] for r in eager]
+    keys = ("loss", "grad_norm")
+    repeats = all(math.isfinite(eager[0][k]) and captured[0][k] == eager[0][k]
+                  for k in keys)
+    gap = max(max(_gaps(captured, eager, k)) for k in keys) if repeats \
+        else None
+    held = (f"largest relative gap of losses and grad norms {gap:.3e} "
+            f"(limit {CAPTURED_TRAIN_RTOL:.3e})") if repeats else (
+        "values not compared: the warm-up, an eager step on the eager "
+        "run's first state and batch, gave loss "
+        f"{captured[0]['loss']:.4g}, grad norm "
+        f"{captured[0]['grad_norm']:.4g} against "
+        f"{eager[0]['loss']:.4g}, {eager[0]['grad_norm']:.4g}")
+    print(f"phase 15 (b) fake world of four, mesh (2, 2), Mamba2 smoke "
+          f"captured (capture {capture_ms:.1f} ms) against eager on the "
+          f"same fake world: the fake group writes its outputs {writes}; "
+          f"lr bit for bit {lr_same}; local storage kept {kept}; {held}")
+    if not lr_same or not kept or (repeats and gap > CAPTURED_TRAIN_RTOL):
+        raise AssertionError("phase 15 (b): the captured sharded step on a "
+                             "fake world of four differs from the eager one")
+    return {"rows": captured, "eager_rows": eager, "gap": gap,
+            "repeats": repeats, "fake_group_writes": writes,
+            "capture_ms": capture_ms, "replay": kernels}
 
 
 def distribution_phase(torch, np, phase14: dict, smi: str) -> dict:
@@ -3922,12 +4101,13 @@ def distribution_phase(torch, np, phase14: dict, smi: str) -> dict:
         release(torch)
         out["train"] = train_sharded(torch, np, out["serve"]["mesh"],
                                      phase14)
-        if ops.launch_counts() != launches:
-            raise AssertionError("phase 15 (b) launched a hand kernel")
     finally:
         if torch.distributed.is_initialized():
             torch.distributed.destroy_process_group()
         release(torch)
+    out["train"]["fake_world"] = train_sharded_fake_world(torch)
+    if ops.launch_counts() != launches:
+        raise AssertionError("phase 15 (b) launched a hand kernel")
     # (a) and (b) are host-bound: the dry-run's processes start after them
     t1 = time.perf_counter()
     out_dir = Path(tempfile.mkdtemp(prefix="chip-smoke-dryrun-"))

@@ -6,10 +6,15 @@ runs batched greedy generation and prints tokens/s. The 1-token decode
 GEMMs are the skinny-matmul regime where kernel efficiency (not FLOPs)
 dominates — the paper's thesis at serving time.
 
+On the card the serve step is compiled as the reference jits it: captured
+once in a CUDA graph (``compile_serve_step``, as ``serve.decode.generate``
+does) and replayed for every token; on the CPU it runs eagerly.
+
 Run:  PYTHONPATH=src python examples/serve_lm_torch.py [--device cpu]
 """
 
 import argparse
+import subprocess
 import time
 
 import numpy as np
@@ -17,7 +22,19 @@ import torch
 
 from repro_torch.configs import get_smoke
 from repro_torch.models import api
-from repro_torch.serve.decode import ServeState, make_serve_step
+from repro_torch.serve.decode import (ServeState, compile_serve_step,
+                                      make_serve_step)
+
+
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` reports them."""
+    try:
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=30).stdout.strip() or "nvidia-smi printed nothing"
+    except (OSError, subprocess.SubprocessError) as e:
+        return f"nvidia-smi failed: {e}"
 
 
 def main():
@@ -36,30 +53,39 @@ def main():
 
     caches = api.init_caches(params, cfg, batch, max_s)
     step = make_serve_step(cfg, temperature=0.0)
-    state = ServeState(caches=caches, last_tokens=prompts[:, :1],
+    state = ServeState(caches=caches, last_tokens=prompts[:, :1].clone(),
                        rng=torch.Generator(device=device).manual_seed(1))
+    if device.type == "cuda":
+        compiled = compile_serve_step(step, state, params)
+        state, advance = compiled.state, compiled
+    else:
+        def advance():
+            _, nxt = step(state, params)
+            state.last_tokens.copy_(nxt)
+            return nxt
 
-    with torch.inference_mode():
+    with torch.no_grad():
         # prefill (teacher-forced through the decode path — exact for all
         # families including SSM)
         for i in range(prompts.shape[1] - 1):
-            state, _ = step(state, params)
-            state = state._replace(last_tokens=prompts[:, i + 1:i + 2])
+            advance()
+            state.last_tokens.copy_(prompts[:, i + 1:i + 2])
 
         # timed decode
-        state, tok = step(state, params)   # first token
-        outs = [tok]
+        outs = [advance().clone()]         # first token
         t0 = time.perf_counter()
         for _ in range(new_tokens - 1):
-            state, tok = step(state, params)
-            outs.append(tok)
+            outs.append(advance().clone())
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         dt = time.perf_counter() - t0
     gen = torch.cat(outs, dim=1)
     tps = batch * (new_tokens - 1) / dt
+    how = "captured" if device.type == "cuda" else "eager"
     print(f"generated {tuple(gen.shape)} tokens for batch={batch} on "
-          f"{args.device}")
+          f"{args.device} ({how} serve step)")
+    if device.type == "cuda":
+        print(f"card: {card_line()}")
     print(f"decode throughput: {tps:.1f} tokens/s "
           f"({dt/(new_tokens-1)*1e3:.1f} ms/step)")
     print("sample:", gen[0][:16].cpu().numpy())

@@ -7,14 +7,17 @@
 config is trained on the card. The launcher wires the synthetic data
 pipeline, the checkpoint manager (``--ckpt``) and the train loop together
 under a :class:`~repro_torch.runtime.supervisor.Supervisor`, which
-restarts the loop from its latest checkpoint after a failure.
+restarts the loop from its latest checkpoint after a failure. On the card
+the loop captures the train step in a CUDA graph after its first step
+and replays it, sharded or not; on the CPU it runs the step eagerly.
 
 ``--model-parallel N`` trains sharded: the launcher initialises a process
 group (gloo on the CPU, NCCL on the card) from ``RANK``/``WORLD_SIZE``
 and ``MASTER_ADDR``/``MASTER_PORT`` as ``torchrun`` sets them (a world
 of one without them), builds the (world / N, N) ``("data", "model")``
 mesh of :func:`~repro_torch.launch.mesh.make_host_mesh` and runs the
-loop inside :func:`~repro_torch.sharding.context.activation_sharding`:
+loop inside :func:`~repro_torch.sharding.context.activation_sharding`
+(on the card the sharded step is captured too):
 
   torchrun --nproc-per-node 4 -m repro_torch.launch.train --arch glm4-9b \
       --smoke --steps 20 --device cpu --model-parallel 2

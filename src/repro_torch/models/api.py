@@ -22,7 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
-from repro_torch.sharding.context import whole_within
+from repro_torch.sharding.context import submesh, whole_within
 
 from . import encdec, hybrid, transformer
 from .layers import resolve_device
@@ -139,7 +139,7 @@ def _cross_entropy(logits: torch.Tensor, labels: torch.Tensor):
     if md is None:
         return F.cross_entropy(logits, labels, reduction="none")
     mesh = logits.device_mesh
-    sub = mesh[mesh.mesh_dim_names[md]]
+    sub = submesh(mesh, mesh.mesh_dim_names[md])
     rows = [p if i != md else Replicate()
             for i, p in enumerate(logits.placements)]
     lg = DTensor.from_local(logits.to_local(), sub, [Shard(1)],

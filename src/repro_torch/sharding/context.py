@@ -38,6 +38,7 @@ def _state():
         _ctx.mesh = None
         _ctx.batch_axes = None
         _ctx.heads_enabled = True
+        _ctx.submeshes = {}
     return _ctx
 
 
@@ -60,16 +61,17 @@ def activation_sharding(mesh=None, batch_axes=None, heads: bool = True):
             raise ValueError("activation_sharding needs a mesh: pass one "
                              "or enter launch.mesh.set_mesh")
     st = _state()
-    prev = (st.mesh, st.batch_axes, st.heads_enabled)
+    prev = (st.mesh, st.batch_axes, st.heads_enabled, st.submeshes)
     st.mesh = mesh
     st.batch_axes = default_batch_axes(mesh) if batch_axes is None \
         else batch_axes
     st.heads_enabled = heads
+    st.submeshes = {}
     try:
         with implicit_replication():
             yield
     finally:
-        st.mesh, st.batch_axes, st.heads_enabled = prev
+        st.mesh, st.batch_axes, st.heads_enabled, st.submeshes = prev
 
 
 def active_mesh():
@@ -80,6 +82,19 @@ def active_mesh():
 def batch_axes():
     """The batch axes of the active context."""
     return _state().batch_axes
+
+
+def submesh(mesh, name: str):
+    """``mesh[name]``, sliced once per context: a slice builds its rank
+    tensor on the host every time, which a step captured after a warm-up
+    in the same context then no longer does."""
+    st = _state()
+    if st.mesh is None:
+        return mesh[name]
+    kept = st.submeshes.get((id(mesh), name))
+    if kept is None or kept[0] is not mesh:
+        kept = st.submeshes[(id(mesh), name)] = (mesh, mesh[name])
+    return kept[1]
 
 
 def _axsize(sizes, axis) -> int:
@@ -284,18 +299,35 @@ def grad_in_layout(x):
     return _GradInLayout.apply(x)
 
 
+def _batch_layout(x: torch.Tensor, mesh):
+    """(this rank's rows of the plain global batch ``x``, placements)."""
+    placements = placements_of(mesh, x.shape, (default_batch_axes(mesh),))
+    parts = math.prod(mesh.size(i) for i, p in enumerate(placements)
+                      if isinstance(p, Shard))
+    rows = x.shape[0] // parts
+    return x.narrow(0, shard_offset(x.shape, mesh, placements, 0),
+                    rows), placements
+
+
+def batch_rows(x: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's rows of a plain (B, ...) global batch on ``mesh``: the
+    local tensor of :func:`shard_batch`'s DTensor, a view of ``x``. A
+    captured train step reads its batch from a static DTensor's local
+    tensor, into which ``train_step.copy_batch`` copies these rows."""
+    return _batch_layout(x, mesh)[0]
+
+
 def shard_batch(x: torch.Tensor, mesh=None):
     """A plain (B, ...) input as a DTensor batch-sharded over (pod, data)
     on the active (or given) mesh, each rank taking its own rows of the
-    same global batch (no communication); the identity outside a
-    context."""
+    same global batch (:func:`batch_rows`; no communication); the
+    identity outside a context."""
     mesh = mesh if mesh is not None else _state().mesh
     if mesh is None or isinstance(x, DTensor):
         return x
-    from torch.distributed.tensor import distribute_tensor
-    placements = placements_of(mesh, x.shape,
-                               (default_batch_axes(mesh),))
-    return distribute_tensor(x, mesh, placements, src_data_rank=None)
+    rows, placements = _batch_layout(x, mesh)
+    return DTensor.from_local(rows, mesh, placements, run_check=False,
+                              shape=x.shape, stride=x.stride())
 
 
 def replicate(x: torch.Tensor, mesh=None):

@@ -14,12 +14,13 @@ It ties the fault-tolerance pieces together:
     (:mod:`repro_torch.data.pipeline`'s contract).
 
 The step is :func:`~repro_torch.train.train_step.make_train_step`'s,
-bound once, as the reference binds the step it jit-compiles. On CUDA
-without a mesh the loop captures it in a CUDA graph
+bound once, as the reference binds the step it jit-compiles. On CUDA,
+with or without a mesh, the loop captures it in a CUDA graph
 (:func:`~repro_torch.train.train_step.compile_train_step`): the first
 step runs eagerly as the capture's warm-up, and every later step copies
-its batch into the graph's static buffers and replays it.
-``capture=False`` runs the same step eagerly, as the CPU and a mesh do.
+its batch (on a mesh, this rank's rows of it) into the graph's static
+buffers (:func:`~repro_torch.train.train_step.copy_batch`) and replays
+it. ``capture=False`` runs the same step eagerly, as the CPU does.
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ from repro_torch.runtime.supervisor import StragglerMonitor
 from repro_torch.sharding.context import (active_mesh, activation_sharding,
                                           shard_batch)
 from repro_torch.train.train_step import (TrainState, checkpoint_tree,
-                                          compile_train_step,
+                                          compile_train_step, copy_batch,
                                           load_checkpoint_tree,
                                           make_train_state, make_train_step)
 
@@ -68,14 +69,14 @@ def train(
     checkpoint under ``ckpt_dir`` up to ``total_steps`` on ``device`` (the
     card unless ``device="cpu"``); returns the final state. With a
     ``mesh`` the state is sharded over it, each rank takes its rows of
-    every batch, steps run under ``activation_sharding(mesh)`` (unless
-    the caller's context is active) and checkpoints carry the specs. On
-    CUDA without a mesh the step is captured in a CUDA graph (its first
-    step is the eager warm-up); ``capture=False`` runs it eagerly, as on
-    the CPU and on a mesh, and ``capture=True`` there raises (a CPU state
-    ``ValueError``, a sharded one ``NotImplementedError``, ROADMAP A9).
-    ``on_step``, when given, receives each step's index, its metrics as
-    floats and its wall seconds."""
+    every batch, steps (and a capture) run under
+    ``activation_sharding(mesh)`` (unless the caller's context is active)
+    and checkpoints carry the specs. On CUDA, with or without a mesh, the
+    step is captured in a CUDA graph (its first step is the eager
+    warm-up); ``capture=False`` runs it eagerly, as on the CPU, where
+    ``capture=True`` raises ``ValueError``. ``on_step``, when given,
+    receives each step's index, its metrics as floats and its wall
+    seconds."""
     device = resolve_device(device)
     state = make_train_state(cfg, optimizer=optimizer, seed=seed,
                              device=device, mesh=mesh)
@@ -100,7 +101,7 @@ def train(
     # activates its own, a step at a time
     own = mesh is not None and active_mesh() is None
     if capture is None:
-        capture = device.type == "cuda" and mesh is None
+        capture = device.type == "cuda"
     compiled = None
     try:
         for step in range(start_step, total_steps):
@@ -109,8 +110,7 @@ def train(
                 raise RuntimeError(f"prefetcher at batch {bstep}, "
                                    f"loop at step {step}")
             if compiled is not None:
-                for k, v in np_batch.items():
-                    compiled.batch[k].copy_(torch.from_numpy(v))
+                copy_batch(compiled.batch, np_batch)
             else:
                 batch = {k: shard_batch(torch.from_numpy(v).to(device),
                                         mesh)
@@ -118,13 +118,14 @@ def train(
             t0 = time.perf_counter()
             if compiled is not None:
                 metrics = compiled()
-            elif capture:
-                compiled = compile_train_step(step_fn, state, batch)
-                metrics = compiled.first
             else:
                 with activation_sharding(mesh) if own else \
                         contextlib.nullcontext():
-                    state, metrics = step_fn(state, batch)
+                    if capture:
+                        compiled = compile_train_step(step_fn, state, batch)
+                        metrics = compiled.first
+                    else:
+                        state, metrics = step_fn(state, batch)
             metrics = {k: float(v) for k, v in metrics.items()}
             wall = time.perf_counter() - t0
             slow = monitor.observe(step, wall)

@@ -23,9 +23,9 @@ optimizers' ``step``) are 0-d int32 tensors on the device, advanced in
 place; the schedule's lr, AdamW's bias corrections and the clip scale
 stay on the device; every master, moment and momentum is written in
 place and nothing is read on the host. So :func:`compile_train_step`
-captures it in a ``torch.cuda.CUDAGraph``, as the reference jit-compiles
-the step :func:`make_train_step` binds, and a step is one replay; the
-same step runs eagerly on the CPU, on a mesh, or when asked.
+captures it in a ``torch.cuda.CUDAGraph``, on a mesh too, as the
+reference jit-compiles the step :func:`make_train_step` binds, and a step
+is one replay; the same step runs eagerly on the CPU or when asked.
 """
 
 from __future__ import annotations
@@ -36,6 +36,7 @@ from typing import (Any, Callable, Dict, Iterator, List, Mapping,
                     NamedTuple, Tuple)
 
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.distributed.tensor import DTensor
 
@@ -44,6 +45,7 @@ from repro_torch.models import api
 from repro_torch.models.transformer import ModelConfig
 from repro_torch.optim import adamw, muon, schedule as sched
 from repro_torch.optim.leaves import reference_ndim
+from repro_torch.sharding.context import batch_rows
 
 
 class TrainState(NamedTuple):
@@ -207,9 +209,10 @@ def state_tensors(state: TrainState) -> List[torch.Tensor]:
 class CompiledTrainStep:
     """A train step captured in a CUDA graph. Each call replays it once,
     one step of :attr:`state` on the batch in :attr:`batch` (static
-    buffers: ``copy_`` the next batch into them before a call), and
-    returns :attr:`metrics`, the static 0-d tensors the replay writes
-    (``loss``, ``lr``, ``grad_norm``, ``aux``). :attr:`first` holds the
+    buffers: :func:`copy_batch` the next batch into them before a call,
+    on a mesh each rank's rows), and returns :attr:`metrics`, the static
+    0-d tensors the replay writes (``loss``, ``lr``, ``grad_norm``,
+    ``aux``). :attr:`first` holds the
     metrics of the warm-up, a real eager step on the batch the capture
     was given; replays start at the step after it. ``pool_bytes`` is what
     the graph's private memory pool added to the reserved memory,
@@ -229,10 +232,60 @@ class CompiledTrainStep:
         return self.metrics
 
 
-def _same_state(ids: List[int], state: TrainState, new: TrainState) -> None:
-    if new is not state and [id(t) for t in state_tensors(new)] != ids:
+def _fingerprint(state: TrainState) -> List[Tuple[int, int]]:
+    """(object id, local storage address) of every state tensor: on a
+    mesh a replay writes the DTensors' local tensors, so their storage
+    must stay too."""
+    return [(id(t), (t.to_local() if isinstance(t, DTensor) else t)
+             .data_ptr()) for t in state_tensors(state)]
+
+
+def _same_state(before: List[Tuple[int, int]], new: TrainState) -> None:
+    if _fingerprint(new) != before:
         raise RuntimeError("the train step returned new state tensors; a "
                            "replayed graph would read stale state")
+
+
+def _static(v, device) -> torch.Tensor:
+    """A copy of a batch entry that a graph reads: a plain tensor on
+    ``device``, or, for a DTensor batch (``shard_batch``'s), a DTensor of
+    the same layout over a fresh copy of its local rows, into which
+    :func:`copy_batch` copies each rank's rows of the next batch."""
+    if isinstance(v, DTensor):
+        return DTensor.from_local(v.to_local().clone(), v.device_mesh,
+                                  v.placements, run_check=False,
+                                  shape=v.shape, stride=v.stride())
+    return torch.as_tensor(v).to(device, copy=True)
+
+
+#: The side stream of every train-step capture on a device, made once, as
+#: ``torch.cuda.graph`` keeps one: cuBLAS keeps a workspace (32 MiB on an
+#: H100) for each stream it has run on, carved from the cached memory the
+#: warm-up step leaves on that stream, so a new stream per capture (a
+#: supervisor's restart, another run in the same process) would pin one
+#: more cached segment each time.
+_CAPTURE_STREAMS: Dict[int, torch.cuda.Stream] = {}
+
+
+def _capture_stream(device) -> "torch.cuda.Stream":
+    if device.index not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[device.index] = torch.cuda.Stream(device)
+    return _CAPTURE_STREAMS[device.index]
+
+
+def copy_batch(static: Mapping[str, torch.Tensor],
+               batch: Mapping[str, Any]) -> None:
+    """Copy the next global ``batch`` (host or device arrays) into a
+    captured step's static buffers (:attr:`CompiledTrainStep.batch`): a
+    static DTensor takes this rank's rows
+    (:func:`~repro_torch.sharding.context.batch_rows`, the rows
+    ``shard_batch`` gives it) into its local tensor."""
+    for k, v in batch.items():
+        dst, v = static[k], torch.as_tensor(v)
+        if isinstance(dst, DTensor):
+            dst.to_local().copy_(batch_rows(v, dst.device_mesh))
+        else:
+            dst.copy_(v)
 
 
 def compile_train_step(step: Callable, state: TrainState,
@@ -240,40 +293,59 @@ def compile_train_step(step: Callable, state: TrainState,
                        ) -> CompiledTrainStep:
     """Capture ``step`` (:func:`make_train_step`'s) on ``state`` in a CUDA
     graph. The warm-up runs the first step for real, eagerly, on a side
-    stream (cuBLAS and the allocator set up there) on a copy of
-    ``batch`` that becomes the graph's static input; its memory is then
-    handed back to the card (``torch.cuda.empty_cache``) and the step is
-    captured once on a private pool with
-    ``capture_begin(capture_error_mode="global")``. The state is not
-    copied (it would cost gigabytes): the warm-up advances it, and the
-    first replay takes the next step. A step that returns new state
-    tensors instead of writing them in place raises ``RuntimeError``, and
-    so does any capture error. A random draw in the step (none today)
-    would come from the default CUDA generator, which the capture
-    registers with the graph itself. A state on the CPU raises
-    ``ValueError``;
-    a DTensor state ``NotImplementedError`` (ROADMAP A9: capture the
-    sharded train step)."""
-    if any(isinstance(p, DTensor) for p in state.params.values()):
-        raise NotImplementedError(
-            "capturing the sharded train step (DTensor state) is not "
-            "ported yet: ROADMAP A9, capture the sharded train step; run "
-            "it eagerly")
+    stream (one a device, kept for every capture; cuBLAS, the allocator
+    and, on a mesh, the process group's communicators set up there) on a
+    copy of ``batch`` that becomes the graph's static input; its memory
+    is then handed back to the card (``torch.cuda.empty_cache``) and the
+    step is captured once on a private pool with
+    ``capture_begin(capture_error_mode="global")``. The
+    state is not copied (it would cost gigabytes): the warm-up advances
+    it, and the first replay takes the next step. A step that returns new
+    state tensors instead of writing them in place raises
+    ``RuntimeError``, and so does any capture error. A random draw in the
+    step (none today) would come from the default CUDA generator, which
+    the capture registers with the graph itself. A state on the CPU
+    raises ``ValueError``.
+
+    A sharded state (DTensor masters and moments, :func:`make_train_state`
+    with ``mesh=``) is captured as it is, under the caller's
+    ``activation_sharding``: DTensor's dispatch runs on the host while
+    the graph records, and a replay runs the local kernels and the
+    collectives it issued, writing the local tensors in place. The static
+    batch keeps the given batch's layout. The warm-up's collectives are
+    drained before the capture (a synchronise and, on NCCL, a barrier),
+    and a sharded step must draw no random number (``RuntimeError``):
+    DTensor's RNG tracker sets the generator's state on the host, which a
+    replay would not repeat."""
     device = state.step.device
     if device.type != "cuda":
         raise ValueError(f"a CUDA graph needs a CUDA device, the state "
                          f"lies on {device}")
     t0 = time.perf_counter()
-    ids = [id(t) for t in state_tensors(state)]
-    static = {k: torch.as_tensor(v).to(device, copy=True)
-              for k, v in batch.items()}
-    stream = torch.cuda.Stream(device)
+    before = _fingerprint(state)
+    sharded = any(isinstance(p, DTensor) for p in state.params.values())
+    static = {k: _static(v, device) for k, v in batch.items()}
+    generator = torch.cuda.default_generators[device.index]
+    offset = generator.get_offset()
+    stream = _capture_stream(device)
     stream.wait_stream(torch.cuda.current_stream(device))
     with torch.cuda.device(device), torch.cuda.stream(stream):
         new, first = step(state, static)
-        _same_state(ids, state, new)
+        _same_state(before, new)
         del new
+        if sharded and generator.get_offset() != offset:
+            raise RuntimeError("the sharded train step drew random numbers: "
+                               "DTensor's RNG tracker sets the generator's "
+                               "state on the host, which a replay would "
+                               "not repeat")
         torch.cuda.synchronize(device)
+        if sharded and dist.is_initialized() and \
+                dist.get_backend() == "nccl":
+            # no work of the group may be pending while the graph records:
+            # the NCCL watchdog thread queries pending works' events, a call
+            # a "global" capture may refuse in another thread
+            dist.barrier(device_ids=[device.index])
+            torch.cuda.synchronize(device)
         torch.cuda.empty_cache()
         graph = torch.cuda.CUDAGraph()
         reserved = torch.cuda.memory_reserved(device)
@@ -287,7 +359,7 @@ def compile_train_step(step: Callable, state: TrainState,
                 pass  # the capture is already invalid; report the cause
             raise
         graph.capture_end()
-        _same_state(ids, state, new)
+        _same_state(before, new)
         pool = max(0, torch.cuda.memory_reserved(device) - reserved)
     torch.cuda.current_stream(device).wait_stream(stream)
     torch.cuda.synchronize(device)

@@ -41,7 +41,7 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _worker(rank, port, name, out_dir, args, init):
+def _worker(rank, port, fn, out_dir, args, init):
     torch.set_num_threads(1)
     os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
                       RANK=str(rank), LOCAL_RANK=str(rank),
@@ -49,7 +49,7 @@ def _worker(rank, port, name, out_dir, args, init):
     if init:
         dist.init_process_group("gloo", rank=rank, world_size=WORLD)
     try:
-        result = globals()[name](rank, *args)
+        result = fn(rank, *args)
         torch.save(result, os.path.join(out_dir, f"{rank}.pt"))
     finally:
         if dist.is_initialized():
@@ -57,10 +57,12 @@ def _worker(rank, port, name, out_dir, args, init):
 
 
 def run_world(fn, tmp_path, *args, init=True):
-    """fn(rank, *args) on each of WORLD gloo ranks → the ranks' results."""
+    """fn(rank, *args) on each of WORLD gloo ranks → the ranks' results;
+    ``fn`` is a module-level function of any test module (the spawned
+    ranks import it by name)."""
     out = tmp_path / "results"
     out.mkdir(exist_ok=True)
-    mp.start_processes(_worker, args=(_free_port(), fn.__name__, str(out),
+    mp.start_processes(_worker, args=(_free_port(), fn, str(out),
                                       args, init),
                        nprocs=WORLD, start_method="spawn")
     return [torch.load(out / f"{r}.pt", weights_only=False)

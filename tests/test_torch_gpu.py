@@ -1491,15 +1491,23 @@ def test_a_step_that_returns_new_caches_is_refused(cuda):
 
 # -------------------------------------------- the captured train step ---
 
-def _train_both_ways(cuda, optimizer, remat, steps=3):
+def _train_both_ways(cuda, optimizer, remat, steps=3, mesh=None):
     """The mamba2 smoke config (``remat`` per block) from seed 0, ``steps``
     steps of 4 x 64 tokens twice: eagerly, and through
     ``compile_train_step``'s graph (the first step its eager warm-up, the
     others replays on batches copied into its static buffers) → [(rows of
-    float metrics, final state)] eager, captured."""
+    float metrics, final state, whether every state tensor kept its
+    object and local storage)] eager, captured. On a ``mesh`` the state
+    is sharded, the steps and the capture run under
+    ``activation_sharding`` on ``shard_batch``'s batches, and each
+    replay's batch is copied in as the loop copies it (``copy_batch``:
+    this rank's rows into the static DTensor's local tensor)."""
+    import contextlib
     import dataclasses
     from repro_torch import configs
     from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.sharding.context import activation_sharding, \
+        shard_batch
     from repro_torch.train import train_step as ts
     cfg = dataclasses.replace(configs.get_smoke("mamba2_370m"), remat=remat)
     src = SyntheticLM(cfg.vocab, 64, 4, seed=0)
@@ -1507,24 +1515,38 @@ def _train_both_ways(cuda, optimizer, remat, steps=3):
                 src.batch_at(i).items()} for i in range(steps)]
     step = ts.make_train_step(cfg, optimizer=optimizer, peak_lr=1e-3,
                               warmup=1, total_steps=steps)
+    sharding = (lambda: activation_sharding(mesh)) if mesh is not None \
+        else contextlib.nullcontext
     runs = []
     for capture in (False, True):
         state = ts.make_train_state(cfg, optimizer=optimizer, seed=0,
-                                    device=cuda)
+                                    device=cuda, mesh=mesh)
+        before = ts._fingerprint(state)
         rows = []
         for i, batch in enumerate(batches):
-            if capture and i == 0:
-                compiled = ts.compile_train_step(step, state, batch)
-                m = compiled.first
-            elif capture:
-                for k, v in batch.items():
-                    compiled.batch[k].copy_(v)
+            if capture and i > 0:
+                ts.copy_batch(compiled.batch, batch)
                 m = compiled()
             else:
-                state, m = step(state, batch)
+                with sharding():
+                    batch = {k: shard_batch(v, mesh)
+                             for k, v in batch.items()}
+                    if capture:
+                        compiled = ts.compile_train_step(step, state, batch)
+                        m = compiled.first
+                    else:
+                        state, m = step(state, batch)
             rows.append({k: float(v) for k, v in m.items()})
-        runs.append((rows, state))
+        runs.append((rows, state, ts._fingerprint(state) == before))
     return runs
+
+
+def _captured_against_eager(eager, captured):
+    assert [r["lr"] for r in captured] == [r["lr"] for r in eager]
+    for key in ("loss", "grad_norm"):
+        np.testing.assert_allclose([r[key] for r in captured],
+                                   [r[key] for r in eager], rtol=1e-5)
+    assert all(np.isfinite(r["loss"]) for r in captured)
 
 
 @pytest.mark.parametrize("remat", ["none", "dots", "full"])
@@ -1535,14 +1557,12 @@ def test_captured_train_step_matches_the_eager_step(cuda, optimizer, remat):
     on the card are not bitwise repeatable), the counters at 3 and no
     hand kernel launched."""
     ops.reset_launch_counts()
-    (eager, s_e), (captured, s_c) = _train_both_ways(cuda, optimizer, remat)
+    (eager, s_e, _), (captured, s_c, kept) = _train_both_ways(
+        cuda, optimizer, remat)
+    assert kept
     assert not any(ops.launch_counts().values())
-    assert [r["lr"] for r in captured] == [r["lr"] for r in eager]
-    for key in ("loss", "grad_norm"):
-        np.testing.assert_allclose([r[key] for r in captured],
-                                   [r[key] for r in eager], rtol=1e-5)
+    _captured_against_eager(eager, captured)
     assert int(s_c.step) == int(s_e.step) == 3
-    assert all(np.isfinite(r["loss"]) for r in captured)
 
 
 def test_a_train_step_that_returns_new_state_is_refused(cuda):
@@ -1616,3 +1636,106 @@ def test_captured_sharded_decode_matches_the_unsharded_capture(cuda):
     finally:
         dist.destroy_process_group()
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("optimizer", ["adamw", "muon"])
+def test_captured_sharded_train_step_matches_the_eager_sharded_step(
+        cuda, optimizer):
+    """Mamba2 smoke on the (1, 1) mesh of an NCCL world of one: three
+    steps captured (the warm-up, then replays that write the DTensors'
+    local tensors in place) against three eager sharded steps: lr bit for
+    bit, losses and grad norms at rtol 1e-5, no hand kernel launched."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch.launch.mesh import make_host_mesh
+    _nccl_world_of_one()
+    try:
+        mesh = make_host_mesh(model=1)
+        ops.reset_launch_counts()
+        (eager, _, _), (captured, state, kept) = _train_both_ways(
+            cuda, optimizer, "none", mesh=mesh)
+        assert not any(ops.launch_counts().values())
+        assert all(isinstance(p, DTensor) for p in state.params.values())
+        assert int(state.step) == 3
+    finally:
+        dist.destroy_process_group()
+    assert kept
+    _captured_against_eager(eager, captured)
+
+
+def test_train_loop_on_a_mesh_captures_and_restores(cuda, tmp_path,
+                                                    monkeypatch):
+    """``train_loop.train(mesh=...)`` on the card captures by default (one
+    capture a run), and a run that crashed at step 3 resumes from its
+    save at step 2 into the state it then captures: steps 2-4 as an
+    uninterrupted captured run's at rtol 1e-5, lr bit for bit."""
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train import loop as train_loop
+    captures, real = [], train_loop.compile_train_step
+
+    def counted(*args, **kw):
+        captures.append(1)
+        return real(*args, **kw)
+
+    monkeypatch.setattr(train_loop, "compile_train_step", counted)
+    cfg = configs.get_smoke("mamba2_370m")
+    source = SyntheticLM(cfg.vocab, 64, 4, seed=0)
+
+    def run(ckpt=None, fail_at_step=None):
+        rows = {}
+        state = train_loop.train(
+            cfg, source, 5, ckpt_dir=ckpt, save_every=2, peak_lr=1e-3,
+            warmup=1, device=cuda, mesh=mesh, fail_at_step=fail_at_step,
+            log_fn=lambda msg: None,
+            on_step=lambda s, m, w: rows.__setitem__(s, m))
+        return state, rows
+
+    _nccl_world_of_one()
+    try:
+        mesh = make_host_mesh(model=1)
+        _, whole = run()
+        with pytest.raises(RuntimeError, match="injected failure"):
+            run(str(tmp_path), fail_at_step=3)
+        state, resumed = run(str(tmp_path))
+        assert int(state.step) == 5
+    finally:
+        dist.destroy_process_group()
+    assert len(captures) == 3
+    assert sorted(resumed) == [2, 3, 4]
+    _captured_against_eager([whole[s] for s in (2, 3, 4)],
+                            [resumed[s] for s in (2, 3, 4)])
+
+
+def test_captured_sharded_train_step_on_a_fake_world_of_four(cuda):
+    """The mamba2 smoke step on the (2, 2) mesh of a fake world of four
+    on the card: DTensor's multi-rank redistributions (gathers, reduce-
+    scatters, the vocab-parallel loss) recorded in a real capture, held
+    against the eager step on the same fake world: lr bit for bit and
+    the local storage kept. The fake group's data is made up (a release
+    whose fake collectives leave their outputs unwritten gives values of
+    unwritten memory), so the losses and grad norms are compared, at
+    rtol 1e-5, where they repeat: where the warm-up, an eager step on the
+    eager run's first state and batch, gives its loss and grad norm bit
+    for bit."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    from repro_torch.launch.mesh import make_host_mesh
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=4)
+    try:
+        try:
+            dist.all_reduce(torch.ones(1, device=cuda))
+        except RuntimeError as e:
+            pytest.skip(f"the fake process group refuses CUDA tensors: {e}")
+        mesh = make_host_mesh(model=2, device_type="cuda")
+        (eager, _, _), (captured, _, kept) = _train_both_ways(
+            cuda, "adamw", "none", mesh=mesh)
+    finally:
+        dist.destroy_process_group()
+    assert kept
+    assert [r["lr"] for r in captured] == [r["lr"] for r in eager]
+    if all(np.isfinite(eager[0][k]) and captured[0][k] == eager[0][k]
+           for k in ("loss", "grad_norm")):
+        _captured_against_eager(eager, captured)

@@ -18,11 +18,27 @@ tests/test_torch_graph_decode.py:
 * the device counters give the reference's numbers: lr at steps 0–3
   for every schedule and AdamW's bias corrections, bit for bit;
 * the capture refuses what it cannot take: a CPU state (``ValueError``),
-  a DTensor state (``NotImplementedError`` naming ROADMAP A9), and
-  ``train(capture=True)`` on the CPU.
+  a sharded one too, and ``train(capture=True)`` on the CPU, with or
+  without a mesh.
+
+On a mesh the card captures the sharded step as it is (DTensor's
+dispatch runs on the host while the graph records, after a warm-up step
+in the same ``activation_sharding`` context):
+
+* (1) the sharded step under the mode on a fake (2, 2) world of four in
+  this process (its collectives are real DTensor dispatches, the fake
+  group's do nothing), for AdamW and Muon at ``accum_steps`` 1 and 2,
+  after a warm-up step, drawing no random number;
+* (2) on a gloo (2, 2) world of four processes, three steps keep every
+  state DTensor's local tensor at its address, ``context.batch_rows``
+  gives each rank's ``shard_batch`` rows, and the loop's static batch
+  (``train_step._static`` of a ``shard_batch`` DTensor, each later batch
+  copied in by ``train_step.copy_batch``) trains to the losses of
+  freshly sharded batches.
 
 The capture itself needs the card: tests/test_torch_gpu.py holds the
-captured step against the eager one there.
+captured step against the eager one there, sharded on an NCCL world of
+one too.
 """
 
 import socket
@@ -42,6 +58,7 @@ from repro_torch.data.pipeline import SyntheticLM
 from repro_torch.optim import adamw, schedule
 from repro_torch.train import loop as train_loop
 from repro_torch.train import train_step as ts
+from test_torch_distribution import WORLD, run_world
 from test_torch_graph_decode import NoHostData
 
 ARCHS = ("mamba2_370m", "zamba2_1p2b")
@@ -196,8 +213,8 @@ def test_compile_train_step_refuses_a_cpu_state():
 
 
 def test_compile_train_step_refuses_a_sharded_state():
-    """A DTensor state (a fake world of one) raises before anything
-    runs, naming the ROADMAP item that ports it."""
+    """A DTensor state on the CPU (a fake world of one) raises the CPU
+    state's ``ValueError`` before anything runs."""
     from torch.distributed.device_mesh import init_device_mesh
     from torch.distributed.tensor import Replicate, distribute_tensor
     from torch.testing._internal.distributed.fake_pg import FakeStore
@@ -208,9 +225,10 @@ def test_compile_train_step_refuses_a_sharded_state():
         w = distribute_tensor(torch.ones(4, 4), mesh, [Replicate()])
         state = ts.TrainState(params={"w": w}, opt=None,
                               step=adamw.counter("cpu"), model=None)
-        with pytest.raises(NotImplementedError,
-                           match="A9, capture the sharded train step"):
-            ts.compile_train_step(lambda s, b: (s, {}), state, {})
+        calls = []
+        with pytest.raises(ValueError, match="CUDA device"):
+            ts.compile_train_step(lambda s, b: calls.append(1), state, {})
+        assert not calls
     finally:
         dist.destroy_process_group()
 
@@ -224,6 +242,151 @@ def test_train_with_capture_raises_on_the_cpu():
     state = train_loop.train(cfg, source, 2, device="cpu",
                              log_fn=lambda msg: None)   # eager by default
     assert int(state.step) == 2
+
+
+def test_train_on_a_mesh_with_capture_raises_on_the_cpu():
+    """On a mesh (a fake world of one) ``capture=True`` on the CPU raises
+    as it does unsharded; the CPU's default runs the sharded step
+    eagerly."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    from repro_torch.launch.mesh import make_host_mesh
+
+    cfg = configs.get_smoke("mamba2_370m")
+    source = SyntheticLM(cfg.vocab, 32, 2, seed=0)
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=1)
+    try:
+        mesh = make_host_mesh(model=1)
+        with pytest.raises(ValueError, match="CUDA device"):
+            train_loop.train(cfg, source, 2, device="cpu", mesh=mesh,
+                             capture=True, log_fn=lambda msg: None)
+        state = train_loop.train(cfg, source, 2, device="cpu", mesh=mesh,
+                                 log_fn=lambda msg: None)
+        assert int(state.step) == 2
+        assert all(isinstance(p, DTensor) for p in state.params.values())
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("accum_steps", [1, 2])
+@pytest.mark.parametrize("optimizer", ["adamw", "muon"])
+def test_sharded_train_step_reads_nothing_on_the_host(optimizer,
+                                                      accum_steps):
+    """The mamba2 smoke step on the (2, 2) mesh of a fake world of four:
+    a warm-up step, then, in the same context, a step under the mode, as
+    ``compile_train_step`` warms up and captures. The model axis shards
+    the vocab (``loss_parallel``) and every projection; the fake group's
+    collectives return made-up data, so only the host reads, the state's
+    storage and the metrics' types are checked. The step draws no random
+    number."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sharding.context import activation_sharding, \
+        shard_batch
+
+    cfg = configs.get_smoke("mamba2_370m")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=WORLD)
+    try:
+        mesh = make_host_mesh(model=2)
+        state = ts.make_train_state(cfg, optimizer=optimizer, seed=0,
+                                    device="cpu", mesh=mesh)
+        before = ts._fingerprint(state)
+        step = ts.make_train_step(cfg, optimizer=optimizer,
+                                  accum_steps=accum_steps, **STEP)
+        rng = torch.get_rng_state()
+        with activation_sharding(mesh):
+            batch = {k: shard_batch(v) for k, v in _batch(cfg, 0).items()}
+            step(state, batch)
+            with NoHostData() as mode:
+                out, m = step(state, batch)
+        assert mode.calls > 0
+        assert ts._fingerprint(out) == before
+        assert torch.equal(torch.get_rng_state(), rng)
+        assert set(m) == {"loss", "lr", "grad_norm", "aux"}
+        assert all(type(v) is torch.Tensor and v.shape == ()
+                   and v.dtype == torch.float32 for v in m.values())
+        assert int(state.step) == 2
+    finally:
+        dist.destroy_process_group()
+
+
+def sharded_steps(rank, optimizers):
+    """Three mamba2 smoke steps from seed 0 on the (2, 2) mesh, per
+    optimizer: on freshly sharded batches, and (the first optimizer) on
+    the loop's static batch → {"rows": whether ``batch_rows`` gave
+    ``shard_batch``'s local rows for every entry, (optimizer, feed):
+    (losses, whether the state kept its tensors and local storage after
+    each step)}."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sharding.context import activation_sharding, \
+        batch_rows, shard_batch
+
+    mesh = make_host_mesh(model=2)
+    cfg = configs.get_smoke("mamba2_370m")
+    src = SyntheticLM(cfg.vocab, 32, 8, seed=0)
+    batches = [{k: torch.from_numpy(v) for k, v in src.batch_at(i).items()}
+               for i in range(3)]
+    out = {"rows": all(torch.equal(batch_rows(v, mesh),
+                                   shard_batch(v, mesh).to_local())
+                       for b in batches for v in b.values())}
+    runs = [(o, "fresh") for o in optimizers] + [(optimizers[0], "static")]
+    for optimizer, feed in runs:
+        step = ts.make_train_step(cfg, optimizer=optimizer, **STEP)
+        state = ts.make_train_state(cfg, optimizer=optimizer, seed=0,
+                                    device="cpu", mesh=mesh)
+        before = ts._fingerprint(state)
+        losses, same, static = [], [], None
+        with activation_sharding(mesh):
+            for b in batches:
+                if feed == "fresh":
+                    batch = {k: shard_batch(v) for k, v in b.items()}
+                elif static is None:
+                    batch = static = {k: ts._static(shard_batch(v), "cpu")
+                                      for k, v in b.items()}
+                else:
+                    ts.copy_batch(static, b)
+                new, m = step(state, batch)
+                losses.append(float(m["loss"]))
+                same.append(ts._fingerprint(new) == before)
+        out[(optimizer, feed)] = (losses, same)
+    return out
+
+
+@pytest.fixture(scope="module")
+def gloo_steps(tmp_path_factory):
+    """:func:`sharded_steps` on each rank of a gloo world of four."""
+    return run_world(sharded_steps, tmp_path_factory.mktemp("gloo"),
+                     ("adamw", "muon"))
+
+
+@pytest.mark.parametrize("optimizer", ["adamw", "muon"])
+def test_sharded_steps_keep_the_local_storage(gloo_steps, optimizer):
+    """Every rank: after each of three steps every state tensor is the
+    same object over the same local storage (a replay writes there), and
+    the ranks agree on the losses."""
+    runs = [r[(optimizer, "fresh")] for r in gloo_steps]
+    assert all(same == [True] * 3 for _, same in runs)
+    losses = [loss for loss, _ in runs]
+    assert all(x == losses[0] for x in losses)
+    assert np.all(np.isfinite(losses[0]))
+
+
+def test_static_batch_rows_are_shard_batch_rows(gloo_steps):
+    """Every rank's ``batch_rows`` of every batch entry is the local
+    tensor of ``shard_batch``'s DTensor."""
+    assert [r["rows"] for r in gloo_steps] == [True] * WORLD
+
+
+def test_steps_on_the_static_batch_match_freshly_sharded_batches(
+        gloo_steps):
+    """Three steps fed as the captured loop feeds them (one static
+    DTensor batch, the next rows copied into its local tensor) give the
+    losses of freshly sharded batches, bit for bit, on every rank, with
+    the state's storage kept."""
+    for r in gloo_steps:
+        static, same = r[("adamw", "static")]
+        assert same == [True] * 3
+        assert static == r[("adamw", "fresh")][0]
 
 
 def _free_port() -> int:
