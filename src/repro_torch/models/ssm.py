@@ -40,6 +40,7 @@ from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.core.flops import gemm as gemm_call
 from repro_torch.core.perfmodel import AnalyticalHopperProfile, KernelProfile
+from repro_torch.runtime import spans
 from repro_torch.sharding.context import (batch_axes, grad_in_layout,
                                           placements_of, replicate,
                                           shard_ssd_chunks, shard_ssd_states)
@@ -101,7 +102,9 @@ def select_ssd_mode(s: int, n: int, p: int, q: int, heads: int = 1,
             scores[mode] = sum(c.flops for c in calls)
         else:
             scores[mode] = sum(prof.time(c, 2) for c in calls)
-    return min(scores, key=scores.get)
+    mode = min(scores, key=scores.get)
+    spans.count(f"ssm.ssd.mode.{mode}")
+    return mode
 
 
 # ------------------------------------------------------------- the math ---
@@ -251,18 +254,30 @@ def ssd_chunked(x, dt, a_log, bmat, cmat, chunk: int,
         intra, inter, outputs = _sharded_stages(xc, h0 is not None)
         h0 = None if h0 is None else replicate(h0, xc.device_mesh)
 
-    y_intra, s_c, chunk_decay, cum = intra(xc, dtc, bc, cc, a)
+    y_intra, s_c, chunk_decay, cum = spans.region_end(
+        "ssm.ssd.intra",
+        *intra(*spans.region("ssm.ssd.intra", xc, dtc, bc, cc, a)))
     s_c = shard_ssd_states(s_c, h_axis=2)
     chunk_decay = shard_ssd_states(chunk_decay, h_axis=2)
-    h_prev, state = inter(s_c, chunk_decay,
-                          h0.to(f32) if h0 is not None else None)
-    y = outputs(y_intra, cc, cum, h_prev).reshape(bsz, s, h, p).to(x.dtype)
+    s_c, chunk_decay, h0, y_intra, cc, cum = spans.region(
+        "ssm.ssd.inter", s_c, chunk_decay,
+        h0.to(f32) if h0 is not None else None, y_intra, cc, cum)
+    h_prev, state = inter(s_c, chunk_decay, h0)
+    # one expression, as without the region: holding the float32 output in
+    # a local until its cast changed which cached blocks the allocator
+    # reused (0.77 GB more reserved at the H100 cell's peak)
+    y, state = spans.region_end(
+        "ssm.ssd.inter",
+        outputs(y_intra, cc, cum, h_prev).reshape(bsz, s, h, p).to(x.dtype),
+        state)
     if return_state:
         return y, state.to(x.dtype)
     return y
 
 
 def ssd(x, dt, a_log, bmat, cmat, cfg: SSMConfig) -> torch.Tensor:
+    """The SSD in the form ``cfg.ssd_mode`` names, or, for ``auto``,
+    the one :func:`select_ssd_mode` picks; device region ``ssm.ssd``."""
     s = x.shape[1]
     q = min(cfg.chunk, s)
     mode = cfg.ssd_mode
@@ -270,9 +285,13 @@ def ssd(x, dt, a_log, bmat, cmat, cfg: SSMConfig) -> torch.Tensor:
         mode = select_ssd_mode(
             s, cfg.d_state, cfg.head_dim, q,
             heads=cfg.n_heads, discriminant=cfg.discriminant)
+    x, dt, a_log, bmat, cmat = spans.region("ssm.ssd", x, dt, a_log, bmat,
+                                            cmat)
     if mode == "quadratic" or s % q != 0:
-        return ssd_quadratic(x, dt, a_log, bmat, cmat)
-    return ssd_chunked(x, dt, a_log, bmat, cmat, q)
+        y = ssd_quadratic(x, dt, a_log, bmat, cmat)
+    else:
+        y = ssd_chunked(x, dt, a_log, bmat, cmat, q)
+    return spans.region_end("ssm.ssd", y)
 
 
 # ------------------------------------------------------------- the block ---

@@ -28,6 +28,8 @@ from typing import Dict, Iterable, Mapping, NamedTuple, Tuple
 
 import torch
 
+from repro_torch.runtime import spans
+
 from .leaves import reference_ndim
 
 Tree = Dict[str, torch.Tensor]
@@ -65,21 +67,25 @@ def moments(grads: Mapping[str, torch.Tensor], state: AdamWState,
             grad_clip: float = 1.0) -> AdamWState:
     """Both moments of every leaf from the fp32 gradients, clipped to a
     global norm of ``grad_clip`` (none when it is 0), and the step
-    counter, in place; returns ``state``, now one step on."""
-    names = list(grads)
-    gf = [grads[n].float() for n in names]
-    if grad_clip > 0:
-        gnorm = global_norm(gf)
-        scale = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-12),
-                            max=1.0)
-        gf = torch._foreach_mul(gf, scale)
-    mu = [state.mu[n] for n in names]
-    nu = [state.nu[n] for n in names]
-    torch._foreach_mul_(mu, b1)
-    torch._foreach_add_(mu, gf, alpha=1 - b1)
-    torch._foreach_mul_(nu, b2)
-    torch._foreach_addcmul_(nu, gf, gf, value=1 - b2)
-    state.step.add_(1)
+    counter, in place; returns ``state``, now one step on. Spans
+    ``adamw.moments``, with ``adamw.cast`` and ``adamw.clip`` inside."""
+    with spans.span("adamw.moments"):
+        names = list(grads)
+        with spans.span("adamw.cast"):
+            gf = [grads[n].float() for n in names]
+        if grad_clip > 0:
+            with spans.span("adamw.clip"):
+                gnorm = global_norm(gf)
+                scale = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-12),
+                                    max=1.0)
+                gf = torch._foreach_mul(gf, scale)
+        mu = [state.mu[n] for n in names]
+        nu = [state.nu[n] for n in names]
+        torch._foreach_mul_(mu, b1)
+        torch._foreach_add_(mu, gf, alpha=1 - b1)
+        torch._foreach_mul_(nu, b2)
+        torch._foreach_addcmul_(nu, gf, gf, value=1 - b2)
+        state.step.add_(1)
     return state
 
 
@@ -89,25 +95,26 @@ def apply(params: Mapping[str, torch.Tensor], names: Iterable[str],
           eps: float = 1e-8, weight_decay: float = 0.1) -> None:
     """p ← p − lr·(m̂ / (√v̂ + eps) + wd·p) for the leaves ``names``, in
     place, from ``state``'s moments (already at its ``step``); ``lr`` is
-    a float or a 0-d tensor."""
+    a float or a 0-d tensor. Span ``adamw.apply``."""
     names = list(names)
     if not names:
         return
-    bc1, bc2 = bias_corrections(state.step, b1, b2)
-    mhat = torch._foreach_div([state.mu[n] for n in names], bc1)
-    denom = torch._foreach_div([state.nu[n] for n in names], bc2)
-    torch._foreach_sqrt_(denom)
-    torch._foreach_add_(denom, eps)
-    torch._foreach_div_(mhat, denom)
-    del denom
-    decayed = [i for i, n in enumerate(names)
-               if reference_ndim(n, params[n]) >= 2]
-    if weight_decay and decayed:
-        torch._foreach_add_([mhat[i] for i in decayed],
-                            [params[names[i]] for i in decayed],
-                            alpha=weight_decay)
-    torch._foreach_mul_(mhat, lr)
-    torch._foreach_sub_([params[n] for n in names], mhat)
+    with spans.span("adamw.apply"):
+        bc1, bc2 = bias_corrections(state.step, b1, b2)
+        mhat = torch._foreach_div([state.mu[n] for n in names], bc1)
+        denom = torch._foreach_div([state.nu[n] for n in names], bc2)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, eps)
+        torch._foreach_div_(mhat, denom)
+        del denom
+        decayed = [i for i, n in enumerate(names)
+                   if reference_ndim(n, params[n]) >= 2]
+        if weight_decay and decayed:
+            torch._foreach_add_([mhat[i] for i in decayed],
+                                [params[names[i]] for i in decayed],
+                                alpha=weight_decay)
+        torch._foreach_mul_(mhat, lr)
+        torch._foreach_sub_([params[n] for n in names], mhat)
 
 
 def bias_corrections(step: torch.Tensor, b1: float = 0.9, b2: float = 0.95
@@ -123,8 +130,10 @@ def update(grads: Mapping[str, torch.Tensor], state: AdamWState,
            b2: float = 0.95, eps: float = 1e-8, weight_decay: float = 0.1,
            grad_clip: float = 1.0) -> AdamWState:
     """One AdamW step on every leaf of ``params`` in place (global-norm
-    clipping included); returns ``state``, one step on."""
-    state = moments(grads, state, b1=b1, b2=b2, grad_clip=grad_clip)
-    apply(params, params.keys(), state, lr, b1=b1, b2=b2, eps=eps,
-          weight_decay=weight_decay)
+    clipping included); returns ``state``, one step on. Span
+    ``adamw.update``."""
+    with spans.span("adamw.update"):
+        state = moments(grads, state, b1=b1, b2=b2, grad_clip=grad_clip)
+        apply(params, params.keys(), state, lr, b1=b1, b2=b2, eps=eps,
+              weight_decay=weight_decay)
     return state

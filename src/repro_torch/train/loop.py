@@ -21,6 +21,15 @@ step runs eagerly as the capture's warm-up, and every later step copies
 its batch (on a mesh, this rank's rows of it) into the graph's static
 buffers (:func:`~repro_torch.train.train_step.copy_batch`) and replays
 it. ``capture=False`` runs the same step eagerly, as the CPU does.
+
+With a :class:`~repro_torch.runtime.spans.Recorder` active, every step is
+one :func:`~repro_torch.runtime.spans.begin_step` and host spans
+``train.loop.next_batch`` (the wait on the prefetcher),
+``train.loop.copy_batch``, ``train.loop.replay`` or
+``train.loop.eager_step``, ``train.loop.read_metrics`` (the host reads of
+the metrics, which wait for the step), ``train.loop.on_step`` (the
+caller's hook, where it can collect the step's device spans) and
+``train.loop.save``.
 """
 
 from __future__ import annotations
@@ -36,6 +45,7 @@ from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.data.pipeline import Prefetcher
 from repro_torch.models.layers import resolve_device
 from repro_torch.models.transformer import ModelConfig
+from repro_torch.runtime import spans
 from repro_torch.runtime.supervisor import StragglerMonitor
 from repro_torch.sharding.context import (active_mesh, activation_sharding,
                                           shard_batch)
@@ -105,32 +115,40 @@ def train(
     compiled = None
     try:
         for step in range(start_step, total_steps):
-            bstep, np_batch = next(prefetch)
+            spans.begin_step(step)
+            with spans.span("train.loop.next_batch", device=False):
+                bstep, np_batch = next(prefetch)
             if bstep != step:
                 raise RuntimeError(f"prefetcher at batch {bstep}, "
                                    f"loop at step {step}")
-            if compiled is not None:
-                copy_batch(compiled.batch, np_batch)
-            else:
-                batch = {k: shard_batch(torch.from_numpy(v).to(device),
-                                        mesh)
-                         for k, v in np_batch.items()}
+            with spans.span("train.loop.copy_batch", device=False):
+                if compiled is not None:
+                    copy_batch(compiled.batch, np_batch)
+                else:
+                    batch = {k: shard_batch(torch.from_numpy(v).to(device),
+                                            mesh)
+                             for k, v in np_batch.items()}
             t0 = time.perf_counter()
             if compiled is not None:
-                metrics = compiled()
+                with spans.span("train.loop.replay", device=False,
+                                enclose=False):
+                    metrics = compiled()
             else:
-                with activation_sharding(mesh) if own else \
+                with spans.span("train.loop.eager_step", device=False), \
+                        activation_sharding(mesh) if own else \
                         contextlib.nullcontext():
                     if capture:
                         compiled = compile_train_step(step_fn, state, batch)
                         metrics = compiled.first
                     else:
                         state, metrics = step_fn(state, batch)
-            metrics = {k: float(v) for k, v in metrics.items()}
+            with spans.span("train.loop.read_metrics", device=False):
+                metrics = {k: float(v) for k, v in metrics.items()}
             wall = time.perf_counter() - t0
             slow = monitor.observe(step, wall)
             if on_step is not None:
-                on_step(step, metrics, wall)
+                with spans.span("train.loop.on_step", device=False):
+                    on_step(step, metrics, wall)
             if step % log_every == 0 or step == total_steps - 1:
                 log_fn(f"[train] step={step} loss={metrics['loss']:.4f} "
                        f"lr={metrics['lr']:.2e} "
@@ -144,7 +162,8 @@ def train(
                 or step == total_steps - 1
                 or mgr.preempted.is_set())
             if want_save:
-                mgr.save(int(state.step), checkpoint_tree(state))
+                with spans.span("train.loop.save", device=False):
+                    mgr.save(int(state.step), checkpoint_tree(state))
             if mgr is not None and mgr.preempted.is_set():
                 log_fn(f"[train] preempted at step {step}; "
                        "checkpoint saved, exiting")

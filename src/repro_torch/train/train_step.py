@@ -45,6 +45,7 @@ from repro_torch.models import api
 from repro_torch.models.transformer import ModelConfig
 from repro_torch.optim import adamw, muon, schedule as sched
 from repro_torch.optim.leaves import reference_ndim
+from repro_torch.runtime import spans
 from repro_torch.sharding.context import batch_rows
 
 
@@ -130,22 +131,27 @@ def _grads(cfg: ModelConfig, state: TrainState, batch: Mapping[str, Any],
            accum_steps: int, compute_dtype):
     """(metrics of the last micro-batch, gradients by name): fp32 sums
     over ``accum_steps`` micro-batches, or one batch's gradients in the
-    working copy's dtypes."""
+    working copy's dtypes. Spans ``train.cast`` (the working copy),
+    ``train.forward`` (the loss) and ``train.backward`` (its gradients)."""
     names = list(state.params)
     owners = _owners(state.model, names)
     work = []
-    for name in names:
-        p = state.params[name]
-        w = p.to(compute_dtype) if p.dtype == torch.float32 \
-            and reference_ndim(name, p) >= 2 else p
-        work.append(nn.Parameter(w.detach(), requires_grad=True))
+    with spans.span("train.cast"):
+        for name in names:
+            p = state.params[name]
+            w = p.to(compute_dtype) if p.dtype == torch.float32 \
+                and reference_ndim(name, p) >= 2 else p
+            work.append(nn.Parameter(w.detach(), requires_grad=True))
     acc = None
     _install(owners, work)
     try:
         for mb in _micro_batches(batch, max(1, accum_steps)):
             with api.vocab_parallel(cfg):
-                total, metrics = api.loss_fn(state.model, cfg, mb)
-                grads = torch.autograd.grad(total, work, allow_unused=True)
+                with spans.span("train.forward"):
+                    total, metrics = api.loss_fn(state.model, cfg, mb)
+                with spans.span("train.backward"):
+                    grads = torch.autograd.grad(total, work,
+                                                allow_unused=True)
             grads = [torch.zeros_like(w) if g is None else g
                      for w, g in zip(work, grads)]
             if accum_steps <= 1:
@@ -173,20 +179,25 @@ def train_step(state: TrainState, batch: Mapping[str, Any], *,
     metrics ``loss`` (the cross-entropy, of the last micro-batch when
     accumulating, as the reference reports it), ``lr``, ``grad_norm``
     (before clipping) and ``aux``, as 0-d float32 tensors on the state's
-    device."""
-    metrics, grads = _grads(cfg, state, batch, accum_steps, compute_dtype)
-    lr = sched.SCHEDULES[schedule](state.step, peak_lr, warmup, total_steps)
-    if optimizer == "muon":
-        muon.update(grads, state.opt, state.params, lr,
-                    weight_decay=weight_decay)
-    else:
-        adamw.update(grads, state.opt, state.params, lr,
-                     weight_decay=weight_decay)
-    out = {"lr": lr, "grad_norm": adamw.global_norm(grads.values()),
-           **metrics}
-    out = {k: v.full_tensor() if isinstance(v, DTensor) else v
-           for k, v in out.items()}
-    state.step.add_(1)
+    device. Span ``train.step``, with ``train.grad_norm`` (the metric's
+    norm) beside :func:`_grads`' and the optimizer's."""
+    with spans.span("train.step"):
+        metrics, grads = _grads(cfg, state, batch, accum_steps,
+                                compute_dtype)
+        lr = sched.SCHEDULES[schedule](state.step, peak_lr, warmup,
+                                       total_steps)
+        if optimizer == "muon":
+            muon.update(grads, state.opt, state.params, lr,
+                        weight_decay=weight_decay)
+        else:
+            adamw.update(grads, state.opt, state.params, lr,
+                         weight_decay=weight_decay)
+        with spans.span("train.grad_norm"):
+            grad_norm = adamw.global_norm(grads.values())
+        out = {"lr": lr, "grad_norm": grad_norm, **metrics}
+        out = {k: v.full_tensor() if isinstance(v, DTensor) else v
+               for k, v in out.items()}
+        state.step.add_(1)
     return state, out
 
 
@@ -216,19 +227,24 @@ class CompiledTrainStep:
     metrics of the warm-up, a real eager step on the batch the capture
     was given; replays start at the step after it. ``pool_bytes`` is what
     the graph's private memory pool added to the reserved memory,
-    ``capture_ms`` the wall time of the warm-up step and the capture."""
+    ``capture_ms`` the wall time of the warm-up step and the capture,
+    ``marks`` the device marks that a recorder active during the capture
+    put in the graph (:mod:`repro_torch.runtime.spans`), handed to the
+    active recorder after each replay."""
 
     def __init__(self, graph, state: TrainState,
                  batch: Dict[str, torch.Tensor],
                  metrics: Dict[str, torch.Tensor],
                  first: Dict[str, torch.Tensor], pool_bytes: int,
-                 capture_ms: float):
+                 capture_ms: float, marks=()):
         self.graph, self.state, self.batch = graph, state, batch
         self.metrics, self.first = metrics, first
         self.pool_bytes, self.capture_ms = pool_bytes, capture_ms
+        self.marks = list(marks)
 
     def __call__(self) -> Dict[str, torch.Tensor]:
         self.graph.replay()
+        spans.replayed(self.marks)
         return self.metrics
 
 
@@ -316,7 +332,10 @@ def compile_train_step(step: Callable, state: TrainState,
     drained before the capture (a synchronise and, on NCCL, a barrier),
     and a sharded step must draw no random number (``RuntimeError``):
     DTensor's RNG tracker sets the generator's state on the host, which a
-    replay would not repeat."""
+    replay would not repeat.
+
+    Host spans ``train.capture.warmup`` and ``train.capture.record``;
+    counters ``train.capture.count`` and ``train.capture.pool_bytes``."""
     device = state.step.device
     if device.type != "cuda":
         raise ValueError(f"a CUDA graph needs a CUDA device, the state "
@@ -330,38 +349,44 @@ def compile_train_step(step: Callable, state: TrainState,
     stream = _capture_stream(device)
     stream.wait_stream(torch.cuda.current_stream(device))
     with torch.cuda.device(device), torch.cuda.stream(stream):
-        new, first = step(state, static)
-        _same_state(before, new)
-        del new
-        if sharded and generator.get_offset() != offset:
-            raise RuntimeError("the sharded train step drew random numbers: "
-                               "DTensor's RNG tracker sets the generator's "
-                               "state on the host, which a replay would "
-                               "not repeat")
-        torch.cuda.synchronize(device)
-        if sharded and dist.is_initialized() and \
-                dist.get_backend() == "nccl":
-            # no work of the group may be pending while the graph records:
-            # the NCCL watchdog thread queries pending works' events, a call
-            # a "global" capture may refuse in another thread
-            dist.barrier(device_ids=[device.index])
+        with spans.span("train.capture.warmup", device=False):
+            new, first = step(state, static)
+            _same_state(before, new)
+            del new
+            if sharded and generator.get_offset() != offset:
+                raise RuntimeError(
+                    "the sharded train step drew random numbers: DTensor's "
+                    "RNG tracker sets the generator's state on the host, "
+                    "which a replay would not repeat")
             torch.cuda.synchronize(device)
-        torch.cuda.empty_cache()
-        graph = torch.cuda.CUDAGraph()
-        reserved = torch.cuda.memory_reserved(device)
-        graph.capture_begin(capture_error_mode="global")
-        try:
-            new, metrics = step(state, static)
-        except BaseException:
+            if sharded and dist.is_initialized() and \
+                    dist.get_backend() == "nccl":
+                # no work of the group may be pending while the graph
+                # records: the NCCL watchdog thread queries pending works'
+                # events, a call a "global" capture may refuse in another
+                # thread
+                dist.barrier(device_ids=[device.index])
+                torch.cuda.synchronize(device)
+            torch.cuda.empty_cache()
+        with spans.span("train.capture.record", device=False), \
+                spans.capturing() as marks:
+            graph = torch.cuda.CUDAGraph()
+            reserved = torch.cuda.memory_reserved(device)
+            graph.capture_begin(capture_error_mode="global")
             try:
-                graph.capture_end()
-            except RuntimeError:
-                pass  # the capture is already invalid; report the cause
-            raise
-        graph.capture_end()
-        _same_state(before, new)
-        pool = max(0, torch.cuda.memory_reserved(device) - reserved)
+                new, metrics = step(state, static)
+            except BaseException:
+                try:
+                    graph.capture_end()
+                except RuntimeError:
+                    pass  # the capture is already invalid; report the cause
+                raise
+            graph.capture_end()
+            _same_state(before, new)
+            pool = max(0, torch.cuda.memory_reserved(device) - reserved)
     torch.cuda.current_stream(device).wait_stream(stream)
     torch.cuda.synchronize(device)
+    spans.count("train.capture.count")
+    spans.count("train.capture.pool_bytes", pool)
     return CompiledTrainStep(graph, state, static, metrics, first, pool,
-                             (time.perf_counter() - t0) * 1e3)
+                             (time.perf_counter() - t0) * 1e3, marks)
