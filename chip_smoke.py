@@ -292,6 +292,9 @@ KERNEL_SOURCES = {
     # runs csrc/flash_attention.cu.
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention_tc.cu",
                         "src/repro/kernels/flash_attention.py:89"),
+    # The SSD's intra-chunk stage on the training path; the reference's
+    # SSD is plain jnp.
+    "ssd_chunk": ("src/repro_torch/kernels/csrc/ssd_chunk.cu", "none"),
 }
 #: Executions of each kernel step per timed algorithm or call, on a graph
 #: memo miss (``TorchBackend._timed_callable`` and
@@ -664,6 +667,138 @@ def check_kernels(torch, np) -> dict:
                      library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
                      shape=label)
     return results
+
+
+#: The fused SSD kernel's check (phase 3): one layer of the Mamba2-370M
+#: cell, (B, nc, Q, H, P, G, N); the kernel's error against a float64
+#: evaluation of ``_intra_chunks`` may be at most SSD_CHUNK_PLAIN_X times
+#: the plain float32 path's and SSD_CHUNK_RTOL of the largest entry.
+SSD_CHUNK_SHAPE = (2, 8, 256, 32, 64, 1, 128)
+SSD_CHUNK_PLAIN_X, SSD_CHUNK_RTOL = 4.0, 1e-5
+
+
+def ssd_chunk_work(b, nc, q, h, p, g, n):
+    """(FLOPs, FLOPs with the kernel's float32 operands in three bf16
+    parts, bytes) of the intra-chunk stage's forward and backward: the
+    Q x Q products over the j <= i triangle, no recomputation; a product
+    of a split operand and an exact one costs 3, of two split ones 6.
+    Bytes: x, B, C and dx, dB, dC in bf16, every other tensor float32,
+    each read or written once."""
+    tri = q * (q + 1) // 2
+    qq_n, qq_p, qnp = 2 * b * nc * g * tri * n, 2 * b * nc * h * tri * p, \
+        2 * b * nc * h * q * n * p
+    # C·Bᵀ (exact) and dC, dB (dS split); K·x (K split) and U = Lᵀ·dy
+    # (both split), dK = dy·xᵀ; the states, T = B·ds, x·dsᵀ (w ⊙ x split)
+    flops = 3 * qq_n + 3 * qq_p + 3 * qnp
+    split = (qq_n + 3 * 2 * qq_n) + (3 * qq_p + 6 * qq_p + 3 * qq_p) + \
+        (3 * qnp + 3 * qnp + 6 * qnp)
+    xs, bcs, row, ys, ss = b * nc * q * h * p, b * nc * q * g * n, \
+        b * nc * q * h, b * nc * q * h * p, b * nc * h * n * p
+    fwd = 2 * xs + 2 * 2 * bcs + 4 * 3 * row + 4 * ys + 4 * ss
+    bwd = (2 * xs + 2 * 2 * bcs + 4 * 3 * row + 4 * 2 * ys + 4 * ss
+           + 2 * xs + 2 * 2 * bcs + 4 * 3 * row)
+    return flops, split, fwd + bwd
+
+
+def check_ssd_chunk(torch, np) -> dict:
+    """Phase 3, the SSD's fused intra-chunk kernel at SSD_CHUNK_SHAPE:
+    forward and backward through ``models.ssm._intra_kernel`` against a
+    float64 evaluation of ``_intra_chunks`` on the same inputs (x, B and
+    C bf16 values held in float32, Δt in [2⁻¹⁰, 2⁻³], A in integer
+    steps, so that every float32 quantity is the kernel's own); y_intra,
+    s_c and the gradients of x, Δt, B and C each within
+    SSD_CHUNK_PLAIN_X times the plain float32 path's error and
+    SSD_CHUNK_RTOL of the largest entry. Then both timed forward and
+    backward on the main path's dtypes: the kernel on bf16 x, B and C,
+    the plain stage on float32 ones."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import ssm
+
+    b, nc, q, h, p, g, n = SSD_CHUNK_SHAPE
+    gen = torch.Generator().manual_seed(SEED)
+
+    def bf16(*dims):
+        return torch.randn(dims, generator=gen).bfloat16().float().to(DEVICE)
+
+    x, bm, cm = bf16(b, nc, q, h, p), bf16(b, nc, q, g, n), bf16(b, nc, q, g, n)
+    dt = (torch.randint(1, 129, (b, nc, q, h), generator=gen).float()
+          / 1024).to(DEVICE)
+    a = -(1 + torch.arange(h, device=DEVICE) % 16).float()
+    args = (x, dt, bm, cm, a)
+
+    def grads(stage, args, cot):
+        leaves = [t.detach().clone().requires_grad_(True) for t in args[:4]]
+        outs = stage(*leaves, args[4])
+        d = torch.autograd.grad(outs, leaves, [c.to(o.dtype) for c, o in
+                                               zip(cot, outs)])
+        return [o.detach() for o in outs[:2]] + list(d)
+
+    f64 = [t.double() for t in args]
+    outs = ssm._intra_chunks(*f64)
+    cot = [torch.randn(o.shape, generator=gen).double().to(DEVICE)
+           for o in outs]
+    del outs
+    want = grads(ssm._intra_chunks, f64, cot)
+    plain = grads(ssm._intra_chunks, args, cot)
+    ops.reset_launch_counts()
+    got = grads(ssm._intra_kernel, args, cot)
+    torch.cuda.synchronize()
+    launched = ops.launch_counts()["ssd_chunk"]
+    errors, ok = {}, launched == 4
+    for name, k, pl, w in zip(("y_intra", "s_c", "dx", "ddt", "dB", "dC"),
+                              got, plain, want):
+        err_k = float((k.double() - w).abs().max())
+        err_p = float((pl.double() - w).abs().max())
+        top = float(w.abs().max())
+        fine = err_k <= SSD_CHUNK_PLAIN_X * err_p and \
+            err_k <= SSD_CHUNK_RTOL * top
+        errors[name] = {"kernel": err_k, "plain": err_p, "max": top,
+                        "ok": fine}
+        ok = ok and fine
+    del want, plain, got, f64
+    print("ssd_chunk  [" + "x".join(map(str, SSD_CHUNK_SHAPE)) + "] error "
+          "against float64, kernel / plain float32 (largest entry): " +
+          ", ".join(f"{k} {e['kernel']:.3e} / {e['plain']:.3e} "
+                    f"({e['max']:.3e}){'' if e['ok'] else ' FAIL'}"
+                    for k, e in errors.items()) +
+          f"; launches {launched} (want 4)")
+    if not ok:
+        raise AssertionError(f"ssd_chunk disagrees with _intra_chunks beyond "
+                             f"{SSD_CHUNK_PLAIN_X}x the plain path's error or "
+                             f"{SSD_CHUNK_RTOL} of the largest entry, or "
+                             f"launched {launched} times, not 4")
+
+    main = (x.bfloat16(), dt, bm.bfloat16(), cm.bfloat16(), a)
+    cot = [c.float() for c in cot]
+
+    def step(stage, args):
+        return lambda: grads(stage, args, cot)
+
+    ms = time_ms(torch, step(ssm._intra_kernel, main))
+    ms_b2b = time_ms(torch, step(ssm._intra_kernel, main), inner=10)
+    fwd_ms = time_ms(torch, lambda: ssm._intra_kernel(*main))
+    plain_ms = time_ms(torch, step(ssm._intra_chunks, args))
+    plain_fwd_ms = time_ms(torch, lambda: ssm._intra_chunks(*args))
+    flops, split, nbytes = ssd_chunk_work(*SSD_CHUNK_SHAPE)
+    b_ms, b_by = bound(split, nbytes, PEAK_BF16_FLOPS)
+    unsplit_ms, unsplit_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+    print(f"ssd_chunk  [" + "x".join(map(str, SSD_CHUNK_SHAPE)) + "] "
+          f"forward and backward ({CARD['line']}): ms={ms:.4f} "
+          f"ms_b2b={ms_b2b:.4f} (forward {fwd_ms:.4f}) plain_ms="
+          f"{plain_ms:.4f} (forward {plain_fwd_ms:.4f}) ms/plain_ms="
+          f"{ms / plain_ms:.3f}; bound_ms={b_ms:.4f} ({b_by}: "
+          f"{split / 1e9:.2f} GFLOP with split operands, {nbytes / 1e6:.1f}"
+          f" MB) share_of_bound={b_ms / ms_b2b:.1%} (b2b); without the "
+          f"split {unsplit_ms:.4f} ms ({unsplit_by}: {flops / 1e9:.2f} "
+          f"GFLOP)")
+    return {"max_abs_err": max(e["kernel"] for e in errors.values()),
+            "errors": errors, "ms": ms, "ms_b2b": ms_b2b,
+            "forward_ms": fwd_ms, "plain_ms": plain_ms,
+            "plain_forward_ms": plain_fwd_ms, "library_ms": None,
+            "bound_ms": b_ms, "bound_by": b_by,
+            "bound_ms_unsplit": unsplit_ms,
+            "shape": "x".join(map(str, SSD_CHUNK_SHAPE)),
+            "check_launches": launched}
 
 
 def run_sweeps(torch, atlas_dir: Path):
@@ -2541,16 +2676,22 @@ def serve_mamba2(torch, np) -> dict:
     logits2, _, reprefill_ms, _, _ = timed_prefill(
         torch, api, model, cfg, seq, api.init_caches(model, cfg, b, max_s))
     launches = ops.launch_counts()
+    # the two prefills chunk the SSD (S 2048 and 2176, chunk 128): one
+    # forward launch of the fused kernel a layer each; decode none
+    want = dict.fromkeys(launches, 0) | {"ssd_chunk": 2 * cfg.n_layers}
     print(f"phase 11 mamba2 re-prefill {b}x{max_s}: {reprefill_ms:.1f} ms; "
-          f"launches {launches} (no kernel on this path)")
-    if any(launches.values()) or int(caches.ssm.length) != max_s:
-        raise AssertionError("mamba2 launched a kernel or lost a token")
+          f"launches {launches} (want {want})")
+    if launches != want or int(caches.ssm.length) != max_s:
+        raise AssertionError("mamba2 launched another kernel, the SSD's "
+                             "other than once a layer a prefill, or lost a "
+                             "token")
     v = cfg.vocab
     if not decode_agrees(torch, dec[..., :v], generated,
                          logits2[:, s0 - 1:, :v]):
         raise AssertionError("mamba2 decode disagrees with the re-prefill")
     del model, logits2, caches
     return {"prefill_ms": prefill_ms, "reprefill_ms": reprefill_ms,
+            "ssd_chunk_launches": launches["ssd_chunk"],
             "ssd_modes": picks, "profile": profiled, **decoded}
 
 
@@ -3656,27 +3797,77 @@ def train_zamba2(torch, np) -> dict:
             "tokens_per_s": tps, "chunked_calls": len(calls)}
 
 
+def train_ssd_launches(cfg, python_steps: int) -> int:
+    """The fused SSD kernel's launches in ``python_steps`` runs of a train
+    step's Python at TRAIN_SEQ tokens (a captured run's warm-up and
+    capture are two, its replays none; an eager step one): one forward
+    and three backward launches a Mamba2 layer where the SSD is chunked
+    (``remat`` "none", so no forward runs twice)."""
+    from repro_torch.models import ssm
+
+    c = cfg.ssm
+    q = min(c.chunk, TRAIN_SEQ)
+    chunked = TRAIN_SEQ % q == 0 and ssm.select_ssd_mode(
+        TRAIN_SEQ, c.d_state, c.head_dim, q, heads=c.n_heads,
+        discriminant=c.discriminant) == "chunked"
+    if cfg.remat != "none":
+        raise AssertionError(f"train_ssd_launches counts remat 'none', not "
+                             f"{cfg.remat!r}")
+    return 4 * cfg.n_layers * python_steps if chunked else 0
+
+
+def _launched(before: dict, after: dict) -> dict:
+    return {k: after[k] - before.get(k, 0) for k in after}
+
+
+def _gate_launches(label: str, got: dict, ssd: int) -> None:
+    """``got`` must be ``ssd`` launches of the fused SSD kernel and none of
+    any other hand kernel."""
+    want = dict.fromkeys(got, 0) | {"ssd_chunk": ssd}
+    print(f"{label} kernel launches {got} (want {want})")
+    if got != want:
+        raise AssertionError(f"{label} launched {got}, not {want}: the "
+                             f"training path reaches the fused SSD kernel "
+                             f"alone, once forward and three times backward "
+                             f"a chunked layer")
+
+
 def train_phase(torch, np) -> dict:
-    """Phase 14: training on the card, (a)–(e); no hand-kernel launch."""
+    """Phase 14: training on the card, (a)–(e); of the hand kernels only
+    the fused SSD one launches, as many times as each part runs its step's
+    Python (:func:`train_ssd_launches`)."""
+    import dataclasses
+
+    from repro_torch import configs
     from repro_torch.kernels import ops
 
+    mamba = dataclasses.replace(configs.get("mamba2_370m"),
+                                remat=MAMBA_REMAT)
+    # (part, its runs of the step's Python): (b) a capture's two, then
+    # the eager steps and one profiled eager step; (c) a capture; (d) an
+    # uninterrupted capture, the crashed one and the resumed one
+    ssd = {"chunked": 0,
+           "mamba2": train_ssd_launches(mamba, 2 + MAMBA_TRAIN_STEPS + 1),
+           "muon": train_ssd_launches(mamba, 2),
+           "resume": train_ssd_launches(mamba, 3 * 2),
+           "zamba2": train_ssd_launches(configs.get("zamba2_1p2b"), 2)}
     t0 = time.perf_counter()
     before = dict(ops.launch_counts())
     out = {"chunked": check_chunked(torch, np)}
+    _gate_launches("phase 14 (a)", _launched(before, ops.launch_counts()), 0)
     release(torch)
     for key, part in (("mamba2", train_mamba2),
                       ("muon", train_mamba2_muon),
                       ("resume", crash_and_resume),
                       ("zamba2", train_zamba2)):
         t1 = time.perf_counter()
+        start = dict(ops.launch_counts())
         out[key] = part(torch, np)
         release(torch)
+        _gate_launches(f"phase 14 {key}",
+                       _launched(start, ops.launch_counts()), ssd[key])
         print(f"phase 14 {key}: {time.perf_counter() - t1:.1f}s")
-    after = dict(ops.launch_counts())
-    print(f"phase 14 kernel launches: before {before}, after {after}")
-    if after != before:
-        raise AssertionError("phase 14 launched a hand kernel: the training "
-                             "path must not reach one")
+    out["ssd_chunk_launches"] = sum(ssd.values())
     out["seconds"] = time.perf_counter() - t0
     print(f"phase 14 took {out['seconds']:.1f}s")
     return out
@@ -4091,7 +4282,12 @@ def train_sharded_fake_world(torch) -> dict:
 
 
 def distribution_phase(torch, np, phase14: dict, smi: str) -> dict:
-    """Phase 15: (a) and (b) on the card's mesh of one, (c) on the host."""
+    """Phase 15: (a) and (b) on the card's mesh of one, (c) on the host;
+    of the hand kernels (b) launches the fused SSD one alone
+    (:func:`train_ssd_launches`)."""
+    import dataclasses
+
+    from repro_torch import configs
     from repro_torch.kernels import ops
 
     t0 = time.perf_counter()
@@ -4105,9 +4301,17 @@ def distribution_phase(torch, np, phase14: dict, smi: str) -> dict:
         if torch.distributed.is_initialized():
             torch.distributed.destroy_process_group()
         release(torch)
+    # (b) on the mesh of one: a capture's two runs of the step's Python,
+    # then the eager steps; the fake world's smoke step does not chunk
+    out["train"]["ssd_chunk_launches"] = train_ssd_launches(
+        dataclasses.replace(configs.get("mamba2_370m"), remat=MAMBA_REMAT),
+        2 + SHARD_TRAIN_STEPS)
+    _gate_launches("phase 15 (b)", _launched(launches, ops.launch_counts()),
+                   out["train"]["ssd_chunk_launches"])
+    launches = dict(ops.launch_counts())
     out["train"]["fake_world"] = train_sharded_fake_world(torch)
-    if ops.launch_counts() != launches:
-        raise AssertionError("phase 15 (b) launched a hand kernel")
+    _gate_launches("phase 15 (b) fake world",
+                   _launched(launches, ops.launch_counts()), 0)
     # (a) and (b) are host-bound: the dry-run's processes start after them
     t1 = time.perf_counter()
     out_dir = Path(tempfile.mkdtemp(prefix="chip-smoke-dryrun-"))
@@ -4434,6 +4638,7 @@ def main() -> int:
         raise AssertionError(f"SYRK / GEMM+SYRK instances spill: {spilled}")
 
     results = check_kernels(torch, np)
+    results["ssd_chunk"] = check_ssd_chunk(torch, np)
     time_gemm_configs(torch, np)
     time_symm_chain_configs(torch, np)
     time_syrk_gemm_syrk_configs(torch, np)
@@ -4474,6 +4679,9 @@ def main() -> int:
     memory_line(torch, 14)
     phase15 = distribution_phase(torch, np, phase14, smi)
     launches["flash_attention"] += phase15["serve"]["flash_launches"]
+    launches["ssd_chunk"] = (families["mamba2"]["ssd_chunk_launches"]
+                             + phase14["ssd_chunk_launches"]
+                             + phase15["train"]["ssd_chunk_launches"])
     memory_line(torch, 15)
     release(torch)
     phase16 = batched_phase(torch, np)
@@ -4519,6 +4727,16 @@ def main() -> int:
         "launches_internvl2": phase13["internvl2"]["launches"][
             "flash_attention"],
         "launches_shape_check": flash["check_launches"]}
+    ssd = next(k for k in kernels if k["name"] == "ssd_chunk")
+    ssd.update(errors=results["ssd_chunk"]["errors"],
+               forward_ms=results["ssd_chunk"]["forward_ms"],
+               plain_forward_ms=results["ssd_chunk"]["plain_forward_ms"],
+               bound_ms_unsplit=results["ssd_chunk"]["bound_ms_unsplit"],
+               launches_check=results["ssd_chunk"]["check_launches"],
+               launches_phase11_mamba2=families["mamba2"][
+                   "ssd_chunk_launches"],
+               launches_phase14=phase14["ssd_chunk_launches"],
+               launches_phase15=phase15["train"]["ssd_chunk_launches"])
     next(k for k in kernels if k["name"] == "flash_attention")["phase15"] = {
         "launches_yi9b_sharded_prefill": phase15["serve"]["flash_launches"],
         "sharded_prefill_ms": phase15["serve"]["prefill_ms"],

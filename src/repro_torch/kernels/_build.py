@@ -67,6 +67,16 @@ SIGNATURES: Dict[str, List[type]] = {
     # seq, scale, softcap, causal, window, stream
     "repro_flash_attention": [_I, _I, *(_STRIDED * 4), _I, _I, _I, _I,
                               _F, _F, _I, _I, _P],
+    # dtype, x, b, c (each a pointer and its batch, chunk, position and
+    # head strides), dt, cum, w, y, s, batch, chunks, q, heads, groups, n,
+    # p, stream
+    "repro_ssd_chunk_fwd": [_I, *([_P, _L, _L, _L, _L] * 3), *[_P] * 5,
+                            *[_I] * 7, _P],
+    # dtype, x, b, c (strided), dt, cum, w, y, dy, ds, dx, db, dc, ddt,
+    # dcum, dw, two scratch buffers, batch, chunks, q, heads, groups, n, p,
+    # head slices, stream
+    "repro_ssd_chunk_bwd": [_I, *([_P, _L, _L, _L, _L] * 3), *[_P] * 14,
+                            *[_I] * 8, _P],
 }
 
 _lock = threading.Lock()

@@ -23,7 +23,9 @@ boundary and goes through the custom operator
 runs that operator on each rank's local heads
 (:func:`.flash_attention.flash_attention_sharded`). ``tri2full`` is data
 movement (the paper charges it no flops) and stays a plain tensor op on
-either device, as in the reference.
+either device, as in the reference. ``ssd_chunk`` (the SSD's fused
+intra-chunk stage, :mod:`.ssd_chunk`) has no entry here: the model calls
+its module directly; it is in :data:`KERNELS` for its launch counter.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ from . import flash_attention as _flash
 from . import gemm as _gemm
 from . import gemm_syrk as _gemm_syrk
 from . import ref
+from . import ssd_chunk as _ssd_chunk
 from . import symm as _symm
 from . import syrk as _syrk
 from ._checks import check_attention, check_matrices, check_same
@@ -45,7 +48,7 @@ from ._checks import check_attention, check_matrices, check_same
 #: The kernel modules, each holding its own ``launches`` counter.
 KERNELS = {"gemm": _gemm, "syrk": _syrk, "symm": _symm,
            "chain_gemm": _chain_gemm, "gemm_syrk": _gemm_syrk,
-           "flash_attention": _flash}
+           "flash_attention": _flash, "ssd_chunk": _ssd_chunk}
 
 
 def launch_counts() -> Dict[str, int]:

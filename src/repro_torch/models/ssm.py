@@ -21,7 +21,9 @@ reference does. Inside :func:`repro_torch.sharding.context.
 activation_sharding` the chunk tensors run chunk-sharded over ``model``
 and the inter-chunk states heads-sharded (``shard_ssd_chunks``,
 ``shard_ssd_states``), as in the reference, each stage on a rank's own
-data (``local_map``); outside it the hooks are the identity.
+data (``local_map``); outside it the hooks are the identity. On the card
+the intra-chunk stage is the fused kernel of
+:mod:`repro_torch.kernels.ssd_chunk`; elsewhere it is :func:`_intra_chunks`.
 
 Caches are updated in place, as the port's KV caches are.
 """
@@ -40,6 +42,7 @@ from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.core.flops import gemm as gemm_call
 from repro_torch.core.perfmodel import AnalyticalHopperProfile, KernelProfile
+from repro_torch.kernels import ssd_chunk
 from repro_torch.runtime import spans
 from repro_torch.sharding.context import (batch_axes, grad_in_layout,
                                           placements_of, replicate,
@@ -177,6 +180,18 @@ def _intra_chunks(xc, dtc, bc, cc, a):
     return y_intra, s_c, chunk_decay, cum
 
 
+def _intra_kernel(xc, dtc, bc, cc, a):
+    """:func:`_intra_chunks` on the card: the fused kernel
+    (:func:`repro_torch.kernels.ssd_chunk.intra`) does the work of the
+    (B,nc,Q,Q,H) forms and reads x, B and C in their own dtype; the
+    (B,nc,Q,H) terms stay here."""
+    cum = torch.cumsum(dtc * a, dim=2)
+    total = cum[:, :, -1:, :]
+    w = torch.exp(total - cum) * dtc
+    y_intra, s_c = ssd_chunk.intra(xc, bc, cc, dtc, cum, w)
+    return y_intra, s_c, torch.exp(total[:, :, 0, :]), cum
+
+
 def _inter_chunks(s_c, chunk_decay, h0=None):
     """The recurrence H_c = d_c · H_{c-1} + S_c over the chunks → (the
     state entering each chunk (B,nc,H,N,P): h0, or zeros, first; the
@@ -203,20 +218,20 @@ def _chunk_outputs(y_intra, cc, cum, h_prev):
     return y_intra + y_inter
 
 
-def _sharded_stages(xc, with_h0: bool):
+def _sharded_stages(xc, with_h0: bool, stage):
     """The three stages of :func:`ssd_chunked` on each rank's own data
-    (``local_map``): the chunk stages in the reference's
-    ``shard_ssd_chunks`` layout (batch over the data axes, chunks over
-    ``model``), the recurrence in its ``shard_ssd_states`` layout (heads
-    over ``model``, every chunk); DTensor moves the states between the
-    two."""
+    (``local_map``), ``stage`` the intra-chunk one: the chunk stages in
+    the reference's ``shard_ssd_chunks`` layout (batch over the data axes,
+    chunks over ``model``), the recurrence in its ``shard_ssd_states``
+    layout (heads over ``model``, every chunk); DTensor moves the states
+    between the two."""
     mesh, bax = xc.device_mesh, batch_axes()
     b, nc, _, h = xc.shape[:4]
     chunks = list(placements_of(mesh, (b, nc), (bax, "model")))
     heads = list(placements_of(mesh, (b, 1, h), (bax, None, "model")))
     state = list(placements_of(mesh, (b, h), (bax, "model")))
     rep = [Replicate()] * mesh.ndim
-    intra = local_map(_intra_chunks, out_placements=(chunks,) * 4,
+    intra = local_map(stage, out_placements=(chunks,) * 4,
                       in_placements=(chunks,) * 4 + (rep,),
                       device_mesh=mesh, redistribute_inputs=True)
     inter = local_map(_inter_chunks, out_placements=(heads, state),
@@ -243,20 +258,28 @@ def ssd_chunked(x, dt, a_log, bmat, cmat, chunk: int,
     nc = s // q
     a = -torch.exp(a_log.float())
     f32 = torch.float32
+    # the kernel reads x, B and C as they come; the plain stage and the
+    # inter-chunk stage take them in float32
+    card = x.device.type == "cuda"
+    stage = _intra_kernel if card else _intra_chunks
+    spans.count("ssm.ssd.intra.kernel" if card else "ssm.ssd.intra.plain")
 
-    xc = shard_ssd_chunks(x.to(f32).reshape(bsz, nc, q, h, p))
+    xc = shard_ssd_chunks((x if card else x.to(f32)).reshape(
+        bsz, nc, q, h, p))
     dtc = shard_ssd_chunks(dt.to(f32).reshape(bsz, nc, q, h))
     # B and C stay per group here; each stage repeats them to the heads
-    bc = shard_ssd_chunks(bmat.to(f32).reshape(bsz, nc, q, g, n))
+    bc = shard_ssd_chunks((bmat if card else bmat.to(f32)).reshape(
+        bsz, nc, q, g, n))
     cc = shard_ssd_chunks(cmat.to(f32).reshape(bsz, nc, q, g, n))
-    intra, inter, outputs = _intra_chunks, _inter_chunks, _chunk_outputs
+    c_in = shard_ssd_chunks(cmat.reshape(bsz, nc, q, g, n)) if card else cc
+    intra, inter, outputs = stage, _inter_chunks, _chunk_outputs
     if isinstance(xc, DTensor):
-        intra, inter, outputs = _sharded_stages(xc, h0 is not None)
+        intra, inter, outputs = _sharded_stages(xc, h0 is not None, stage)
         h0 = None if h0 is None else replicate(h0, xc.device_mesh)
 
     y_intra, s_c, chunk_decay, cum = spans.region_end(
         "ssm.ssd.intra",
-        *intra(*spans.region("ssm.ssd.intra", xc, dtc, bc, cc, a)))
+        *intra(*spans.region("ssm.ssd.intra", xc, dtc, bc, c_in, a)))
     s_c = shard_ssd_states(s_c, h_axis=2)
     chunk_decay = shard_ssd_states(chunk_decay, h_axis=2)
     s_c, chunk_decay, h0, y_intra, cc, cum = spans.region(

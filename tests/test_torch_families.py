@@ -15,6 +15,8 @@ route: the reference's Pallas kernel in interpret mode, the port's plain
 version (CPU tensors).
 """
 
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -197,6 +199,139 @@ def test_ssd_chunked_matches_reference(with_h0, chunk):
         np.testing.assert_allclose(y.numpy(),
                                    ssm.ssd_quadratic(*targs).numpy(),
                                    rtol=1e-3, atol=1e-3)
+
+
+def _chunk_inputs(seed, g, chunk, s=48):
+    """``_ssd_inputs`` (P = 16) in float64 and the chunk layout of
+    ``ssd_chunked``'s stages: x, Δt, B, C (B, nc, Q, ...) and A."""
+    x, dt, a_log, bm, cm = (torch.from_numpy(t).double() for t in
+                            _ssd_inputs(seed, s=s, p=16, g=g))
+    nc = s // chunk
+    return (x.reshape(2, nc, chunk, *x.shape[2:]),
+            dt.reshape(2, nc, chunk, dt.shape[2]),
+            bm.reshape(2, nc, chunk, *bm.shape[2:]),
+            cm.reshape(2, nc, chunk, *cm.shape[2:]), -torch.exp(a_log))
+
+
+#: (G, Q): one and two groups, Q a multiple of 16 and a ragged one.
+SSD_CHUNK_CASES = [(1, 16), (2, 16), (1, 24), (2, 24)]
+
+
+def _decay(cum):
+    """(B, nc, H, Q, Q): exp(cum_i − cum_j) where j <= i, else 0."""
+    c = cum.transpose(2, 3)
+    diff = c[..., :, None] - c[..., None, :]
+    mask = torch.ones(diff.shape[-2:], dtype=torch.bool).tril()
+    return torch.exp(torch.where(mask, diff, torch.full_like(diff, -1e30)))
+
+
+def _heads(t, h):
+    """(B, nc, Q, G, N) → (B, nc, Q, H, N), each group's heads."""
+    return t.repeat_interleave(h // t.shape[3], dim=3)
+
+
+class _KernelFormulas(torch.autograd.Function):
+    """What ``kernels/ssd_chunk.cu`` computes, in plain torch: the forward
+    (y_intra = K·x, s_c = Bᵀ·(w ⊙ x)) and the backward in the kernels'
+    own decomposition. With U = (C·Bᵀ ⊙ L)ᵀ·dy and T = B·ds a head:
+    dx = Δt·U + w·T, dΔt = x·U, dw = x·T and dcum = dy·y − Δt·(x·U)
+    rowwise; d(C·Bᵀ) is dK ⊙ L ⊙ Δt_j summed over a group's heads,
+    dK = dy·xᵀ, whence dC and dB, and dB adds Σ_h w_h ⊙ (x_h·ds_hᵀ)."""
+
+    @staticmethod
+    def forward(ctx, x, bmat, cmat, dt, cum, w):
+        h = x.shape[3]
+        scores = torch.einsum("bcign,bcjgn->bcgij", cmat, bmat)
+        k = (scores.repeat_interleave(h // bmat.shape[3], dim=2)
+             * _decay(cum) * dt.transpose(2, 3)[..., None, :])
+        y = torch.einsum("bchij,bcjhp->bcihp", k, x)
+        s = torch.einsum("bcjhn,bcjhp->bchnp", _heads(bmat, h) * w[..., None],
+                         x)
+        ctx.save_for_backward(x, bmat, cmat, dt, cum, w, y)
+        return y, s
+
+    @staticmethod
+    def backward(ctx, dy, ds):
+        x, bmat, cmat, dt, cum, w, y = ctx.saved_tensors
+        b, nc, q, h, _ = x.shape
+        g, n = bmat.shape[3:]
+        decay = _decay(cum)
+        scores = torch.einsum("bcign,bcjgn->bcgij", cmat, bmat)
+        sl = scores.repeat_interleave(h // g, dim=2) * decay
+        u = torch.einsum("bchij,bcihp->bcjhp", sl, dy)
+        t = torch.einsum("bcjhn,bchnp->bcjhp", _heads(bmat, h), ds)
+        dx = dt[..., None] * u + w[..., None] * t
+        ddt = (x * u).sum(-1)
+        dw = (x * t).sum(-1)
+        dcum = (dy * y).sum(-1) - dt * ddt
+        dk = torch.einsum("bcihp,bcjhp->bchij", dy, x)
+        dsg = (dk * decay * dt.transpose(2, 3)[..., None, :]).reshape(
+            b, nc, g, h // g, q, q).sum(3)
+        dc = torch.einsum("bcgij,bcjgn->bcign", dsg, bmat)
+        states = torch.einsum("bcjhp,bchnp->bcjhn", x * w[..., None], ds)
+        db = (torch.einsum("bcgij,bcign->bcjgn", dsg, cmat)
+              + states.reshape(b, nc, q, g, h // g, n).sum(4))
+        return dx, db, dc, ddt, dcum, dw
+
+
+@pytest.mark.parametrize("g,chunk", SSD_CHUNK_CASES)
+def test_ssd_chunk_plain_forward_matches_intra_chunks(g, chunk, monkeypatch):
+    """``_intra_kernel`` (cum, w and the chunk decays around the kernel)
+    with the kernel's formulas in its place gives ``_intra_chunks``' four
+    outputs."""
+    from repro_torch.kernels import ssd_chunk
+    monkeypatch.setattr(ssd_chunk, "intra", _KernelFormulas.apply)
+    args = _chunk_inputs(5, g, chunk)
+    for got, want in zip(ssm._intra_kernel(*args),
+                         ssm._intra_chunks(*args)):
+        torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("g,chunk", SSD_CHUNK_CASES)
+def test_ssd_chunk_plain_backward_matches_autograd(g, chunk, monkeypatch):
+    """The backward kernels' formulas give the gradients of x, Δt, B and
+    C that autograd takes through ``_intra_chunks``, and ``gradcheck``
+    holds them against finite differences."""
+    from repro_torch.kernels import ssd_chunk
+    monkeypatch.setattr(ssd_chunk, "intra", _KernelFormulas.apply)
+    args = _chunk_inputs(6, g, chunk)
+    gen = torch.Generator().manual_seed(7)
+    cot = [torch.randn(o.shape, generator=gen, dtype=torch.float64)
+           for o in ssm._intra_chunks(*args)]
+    grads = []
+    for stage in (ssm._intra_kernel, ssm._intra_chunks):
+        leaves = [t.clone().requires_grad_(True) for t in args[:4]]
+        grads.append(torch.autograd.grad(stage(*leaves, args[4]), leaves,
+                                         cot))
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=1e-10, atol=1e-10)
+    x, dt, bm, cm, a = (t[:1, :1] if t.dim() > 1 else t for t in args)
+    cum = torch.cumsum(dt * a, dim=2)
+    w = torch.exp(cum[:, :, -1:] - cum) * dt
+    assert torch.autograd.gradcheck(
+        _KernelFormulas.apply, [t.clone().requires_grad_(True) for t in
+                                (x, bm, cm, dt, cum, w)], fast_mode=True)
+
+
+@pytest.mark.parametrize("field,size,named", [
+    ("n", 24, "N=24"), ("p", 272, "P=272"), ("g", 3, "G=3"),
+    ("dt_q", 7, "dt must be (B, nc, Q, H)"), ("x_dims", 4, "x must have 5"),
+    ("device", None, "runs on CUDA tensors only")])
+def test_ssd_chunk_refuses_what_the_kernel_cannot_take(field, size, named):
+    """The wrapper's ValueError names the dim it refuses: N or P not a
+    multiple of 16 or over 256, heads not a multiple of the groups, a
+    mismatched operand; and it names the device of CPU tensors, which
+    the kernel does not take."""
+    from repro_torch.kernels import ssd_chunk
+    dims = dict(n=16, p=16, g=2, dt_q=8, x_dims=5)
+    if field in dims:
+        dims[field] = size
+    x = torch.zeros((1, 2, 8, 4, dims["p"])[:dims["x_dims"]])
+    bm = torch.zeros(1, 2, 8, dims["g"], dims["n"])
+    dt = torch.zeros(1, 2, dims["dt_q"], 4)
+    cum = w = torch.zeros(1, 2, 8, 4)
+    with pytest.raises(ValueError, match=re.escape(named)):
+        ssd_chunk.intra(x, bm, bm, dt, cum, w)
 
 
 def test_ssd_chunked_state_handoff_matches_the_whole_sequence():

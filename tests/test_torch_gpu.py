@@ -425,13 +425,13 @@ def test_abab_alg2_without_fusion_launches_gemm_and_syrk(cuda, monkeypatch):
     fused = backend.execute(alg, operands)
     assert ops.launch_counts() == {"gemm": 0, "syrk": 0, "symm": 0,
                                    "chain_gemm": 0, "gemm_syrk": 1,
-                                   "flash_attention": 0}
+                                   "flash_attention": 0, "ssd_chunk": 0}
     monkeypatch.setenv("REPRO_NO_FUSION", "1")
     ops.reset_launch_counts()
     _close_scaled(backend.execute(alg, operands), fused)
     assert ops.launch_counts() == {"gemm": 1, "syrk": 1, "symm": 0,
                                    "chain_gemm": 0, "gemm_syrk": 0,
-                                   "flash_attention": 0}
+                                   "flash_attention": 0, "ssd_chunk": 0}
 
 
 #: Families and points of the graph-timing tests: every kernel of the
@@ -1739,3 +1739,177 @@ def test_captured_sharded_train_step_on_a_fake_world_of_four(cuda):
     if all(np.isfinite(eager[0][k]) and captured[0][k] == eager[0][k]
            for k in ("loss", "grad_norm")):
         _captured_against_eager(eager, captured)
+
+
+#: (B, nc, Q, H, P, G, N): one layer of the Mamba2-370M cell (chunk 256),
+#: Zamba2-1.2B's Mamba2 blocks, the tiny presets, and a ragged Q (a
+#: prefill's min(chunk, S)) with two groups and N of 48.
+SSD_CHUNK_SHAPES = [(2, 8, 256, 32, 64, 1, 128), (1, 16, 128, 64, 64, 1, 64),
+                    (2, 2, 32, 4, 32, 1, 16), (2, 3, 100, 4, 32, 2, 48)]
+
+
+def _ssd_chunk_case(shape, device, seed=0):
+    """x, Δt, B, C and A of a chunked SSD: x, B and C bf16 values (held
+    in float32), Δt in [2⁻¹⁰, 2⁻³] and A in -1..-16 integer steps, so
+    that Δt·A and its within-chunk cumsum are exact in float32 and every
+    float32 quantity downstream is the kernel's own."""
+    from repro_torch.models import ssm
+    b, nc, q, h, p, g, n = shape
+    gen = torch.Generator().manual_seed(seed)
+
+    def bf16(*dims):
+        return torch.randn(dims, generator=gen).bfloat16().float().to(device)
+    x, bm, cm = bf16(b, nc, q, h, p), bf16(b, nc, q, g, n), bf16(b, nc, q, g, n)
+    dt = (torch.randint(1, 129, (b, nc, q, h), generator=gen).float()
+          / 1024).to(device)
+    a = -(1 + torch.arange(h, device=device) % 16).float()
+    return ssm, (x, dt, bm, cm, a)
+
+
+def _intra_grads(stage, args, cotangents):
+    """The stage's four outputs and the gradients of x, Δt, B and C."""
+    leaves = [t.detach().clone().requires_grad_(True) for t in args[:4]]
+    outs = stage(*leaves, args[4])
+    grads = torch.autograd.grad(outs, leaves, [c.to(o.dtype) for c, o in
+                                               zip(cotangents, outs)])
+    return [o.detach() for o in outs[:2]] + list(grads)
+
+
+@pytest.mark.parametrize("shape", SSD_CHUNK_SHAPES)
+def test_ssd_chunk_kernel_holds_float32_precision(cuda, shape):
+    """The kernel path (``_intra_kernel``: the fused kernel's forward and
+    backward) against a float64 evaluation of ``_intra_chunks`` on the
+    same inputs: y_intra, s_c and the gradients of x, Δt, B and C each
+    within 4x the plain float32 path's own error and within 1e-5 of the
+    largest entry (float32 x, B and C, which take the kernel's three-part
+    route; the bf16 route computes the same numbers, the next test)."""
+    ssm, args = _ssd_chunk_case(shape, cuda)
+    f64 = [t.double() for t in args]
+    gen = torch.Generator().manual_seed(1)
+    outs = ssm._intra_chunks(*f64)
+    cot = [torch.randn(o.shape, generator=gen).double().to(cuda)
+           for o in outs]
+    want = _intra_grads(ssm._intra_chunks, f64, cot)
+    plain = _intra_grads(ssm._intra_chunks, args, cot)
+    before = ops.launch_counts()["ssd_chunk"]
+    got = _intra_grads(ssm._intra_kernel, args, cot)
+    assert ops.launch_counts()["ssd_chunk"] == before + 4
+    for name, k, p, w in zip(("y_intra", "s_c", "dx", "ddt", "dB", "dC"),
+                             got, plain, want):
+        err_k = float((k.double() - w).abs().max())
+        err_p = float((p.double() - w).abs().max())
+        top = float(w.abs().max())
+        assert err_k <= 4 * err_p and err_k <= 1e-5 * top, (
+            name, err_k, err_p, top)
+
+
+@pytest.mark.parametrize("shape", SSD_CHUNK_SHAPES)
+def test_ssd_chunk_bf16_route_computes_the_float32_routes_numbers(cuda,
+                                                                  shape):
+    """bf16 x, B and C (one exact part) give what the same values in
+    float32 (three parts, two of them zero) give: y_intra, s_c and the
+    float32 gradients bit for bit, dx, dB and dC as their bf16 rounding."""
+    from repro_torch.kernels import ssd_chunk
+    ssm, (x, dt, bm, cm, a) = _ssd_chunk_case(shape, cuda)
+    cum = torch.cumsum(dt * a, dim=2)
+    w = torch.exp(cum[:, :, -1:] - cum) * dt
+    gen = torch.Generator().manual_seed(2)
+    runs = []
+    for dtype in (torch.float32, torch.bfloat16):
+        xs, bs, cs = (t.to(dtype) for t in (x, bm, cm))
+        y, s = ssd_chunk.intra(xs, bs, cs, dt, cum, w)
+        if not runs:
+            dy = torch.randn(y.shape, generator=gen).to(cuda)
+            ds = torch.randn(s.shape, generator=gen).to(cuda)
+        grads = ssd_chunk.backward(xs, bs, cs, dt, cum, w, y, dy, ds)
+        runs.append((y, s, *grads))
+    for f32, bf in zip(*runs):
+        assert torch.equal(f32.to(bf.dtype), bf)
+
+
+def test_ssd_chunk_kernel_is_deterministic(cuda):
+    """Two forward and backward passes at the cell's shape give the same
+    bits: every sum, the head sums of dB and dC included, has one order."""
+    ssm, args = _ssd_chunk_case(SSD_CHUNK_SHAPES[0], cuda)
+    x, dt, bm, cm, a = args
+    args = (x.bfloat16(), dt, bm.bfloat16(), cm.bfloat16(), a)
+    gen = torch.Generator().manual_seed(3)
+    cot = [torch.randn(o.shape, generator=gen).to(cuda)
+           for o in ssm._intra_chunks(*(t.float() for t in args[:4]), a)]
+    first = _intra_grads(ssm._intra_kernel, args, cot)
+    second = _intra_grads(ssm._intra_kernel, args, cot)
+    for one, two in zip(first, second):
+        assert torch.equal(one, two)
+
+
+def test_ssd_chunk_kernel_captured_in_a_cuda_graph(cuda):
+    """Forward and backward captured in a CUDA graph and replayed equal
+    the eager call bit for bit; the capture counts the launches it
+    records (one forward, three backward)."""
+    ssm, args = _ssd_chunk_case(SSD_CHUNK_SHAPES[3], cuda)
+    x, dt, bm, cm, a = args
+    args = (x.bfloat16(), dt, bm.bfloat16(), cm.bfloat16(), a)
+    gen = torch.Generator().manual_seed(4)
+    cot = [torch.randn(o.shape, generator=gen).to(cuda)
+           for o in ssm._intra_chunks(*(t.float() for t in args[:4]), a)]
+    eager = _intra_grads(ssm._intra_kernel, args, cot)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        _intra_grads(ssm._intra_kernel, args, cot)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = ops.launch_counts()["ssd_chunk"]
+    with torch.cuda.graph(graph):
+        static = _intra_grads(ssm._intra_kernel, args, cot)
+    assert ops.launch_counts()["ssd_chunk"] == before + 4
+    graph.replay()
+    torch.cuda.synchronize()
+    for one, two in zip(eager, static):
+        assert torch.equal(one, two)
+
+
+def test_ssd_chunk_kernel_under_activation_sharding_on_a_mesh_of_one(cuda):
+    """``ssd_chunked`` at a chunked shape inside ``activation_sharding`` on
+    the (1, 1) mesh of an NCCL world of one, where ``local_map`` hands the
+    kernel each rank's local chunk tensors: the output and the gradients
+    of x, Δt, A, B and C equal the unsharded kernel call's, forward and
+    backward launching the kernel once and three times."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import ssm
+    from repro_torch.sharding.context import activation_sharding, \
+        replicate, shard_batch
+    gen = torch.Generator().manual_seed(5)
+    b, s, h, p, g, n, chunk = 2, 256, 4, 32, 1, 16, 64
+    x, bm, cm = (torch.randn(dims, generator=gen).to(cuda, torch.bfloat16)
+                 for dims in ((b, s, h, p), (b, s, g, n), (b, s, g, n)))
+    dt = (torch.rand((b, s, h), generator=gen) * 0.1 + 1e-3).to(cuda)
+    a_log = torch.log(torch.linspace(1.0, 16.0, h)).to(cuda)
+    dy = torch.randn((b, s, h, p), generator=gen).to(cuda, torch.bfloat16)
+
+    def run(wrap):
+        leaves = [t.detach().clone().requires_grad_(True)
+                  for t in (x, dt, a_log, bm, cm)]
+        ops.reset_launch_counts()
+        y = ssm.ssd_chunked(*(wrap(t, i) for i, t in enumerate(leaves)),
+                            chunk=chunk)
+        y = y.full_tensor() if hasattr(y, "full_tensor") else y
+        grads = torch.autograd.grad(y, leaves, dy)
+        return [y.detach(), *grads], ops.launch_counts()["ssd_chunk"]
+
+    want, plain_launches = run(lambda t, i: t)
+    _nccl_world_of_one()
+    try:
+        mesh = make_host_mesh(model=1)
+        with activation_sharding(mesh):
+            got, launches = run(lambda t, i: replicate(t) if i == 2
+                                else shard_batch(t))
+    finally:
+        dist.destroy_process_group()
+    assert plain_launches == launches == 4
+    for name, one, two in zip(("y", "dx", "ddt", "da_log", "dB", "dC"), got,
+                              want):
+        assert not hasattr(one, "full_tensor"), name
+        torch.testing.assert_close(one, two, rtol=1e-5, atol=1e-6,
+                                   msg=name)

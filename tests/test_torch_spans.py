@@ -235,7 +235,15 @@ def test_ssd_mode_counters_count_the_picks():
         _grads(cfg)
     pick = ssm.select_ssd_mode(64, cfg.ssm.d_state, cfg.ssm.head_dim,
                                cfg.ssm.chunk, heads=cfg.ssm.n_heads)
-    assert dict(rec.counts) == {f"ssm.ssd.mode.{pick}": cfg.n_layers}
+    want = {f"ssm.ssd.mode.{pick}": cfg.n_layers}
+    if pick == "chunked":   # each chunked call counts its intra-chunk route
+        want["ssm.ssd.intra.plain"] = cfg.n_layers
+    assert dict(rec.counts) == want
+    with Recorder("cpu") as rec:
+        ssm.ssd_chunked(*(torch.zeros(shape) for shape in (
+            (1, 64, 4, 16), (1, 64, 4), (4,), (1, 64, 1, 16), (1, 64, 1, 16))),
+            chunk=32)
+    assert dict(rec.counts) == {"ssm.ssd.intra.plain": 1}
 
 
 def test_self_time_is_the_duration_less_the_children():
