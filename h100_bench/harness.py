@@ -9,12 +9,15 @@ gives it:
 * ``mixes/<traffic>.json`` — a traffic mix: its generator and parameters;
 * ``traffic/<generator>.py`` — a generator, ``run(ctx) -> record``;
 * ``workloads/<cell>.json`` — a cell's limits of the correctness check;
-* ``metrics/<metric>.py`` — a reader, ``read(record) -> value or None``.
+* ``metrics/<metric>.py`` — a reader, ``read(record) -> value or None``,
+  most of them a line over ``readers.py`` (the program's spans and
+  counters, a kernel's share of its roofline).
 
 The record is a dict that the generator fills (set-up and window seconds,
-counts, host-clock samples, the reduced device trace, the numbers that the
-correctness check compared); a reader that finds nothing to read returns
-None, and the metric is left out of the line.
+counts, host-clock samples, the reduced device trace, in a traced run the
+program's spans and counters, the numbers that the correctness check
+compared); a reader that finds nothing to read returns None, and the
+metric is left out of the line.
 """
 
 from __future__ import annotations

@@ -2,7 +2,8 @@
 arXiv:2405.21060): the matrix products of every projection, the depthwise
 convolution, the SSD in its chunked form (per token and head 2·Q·(N + P)
 within the chunk and 4·N·P for the states) and the tied output head.
-Elementwise work is left out.
+Elementwise work is left out. Also the operations and bytes of the SSD's
+fused intra-chunk kernel (:func:`ssd_chunk_work`).
 """
 
 from __future__ import annotations
@@ -38,3 +39,27 @@ def forward_flops_per_token(cfg: dict, seq_len: int) -> float:
     sequence's length)."""
     per_layer = matmul_flops_per_token(cfg) + ssd_flops_per_token(cfg)
     return cfg["n_layers"] * per_layer + 2 * cfg["d_model"] * cfg["vocab"]
+
+
+def ssd_chunk_work(cfg: dict, batch: int, seq_len: int) -> tuple:
+    """(FLOPs, bytes) of one layer's intra-chunk stage, forward and
+    backward, as the fused kernel (``ssd_chunk``) does it: the model's
+    Q x Q products over the j <= i triangle with no recomputation (not
+    the kernel's float32 operands split in bf16 parts, so that a kernel
+    that splits less cannot read over its bound); x, B, C and their
+    gradients in bf16, every other tensor in float32, each read or
+    written once."""
+    s = cfg["ssm"]
+    b, q, h, p = batch, s["chunk"], s["n_heads"], s["head_dim"]
+    g, n, nc = s["n_groups"], s["d_state"], -(-seq_len // s["chunk"])
+    tri = q * (q + 1) // 2
+    # C·Bᵀ, dC and dB; K·x, U = Lᵀ·dy and dK = dy·xᵀ; the chunk states,
+    # T = B·ds and x·dsᵀ
+    flops = 3 * (2 * b * nc * g * tri * n + 2 * b * nc * h * tri * p
+                 + 2 * b * nc * h * q * n * p)
+    xs, bcs, row = b * nc * q * h * p, b * nc * q * g * n, b * nc * q * h
+    states = b * nc * h * n * p
+    fwd = 2 * xs + 2 * 2 * bcs + 4 * 3 * row + 4 * xs + 4 * states
+    bwd = (2 * xs + 2 * 2 * bcs + 4 * 3 * row + 4 * 2 * xs + 4 * states
+           + 2 * xs + 2 * 2 * bcs + 4 * 3 * row)
+    return flops, fwd + bwd

@@ -16,6 +16,7 @@ import pytest
 from h100_bench import harness
 from h100_bench.tests import smoke
 from h100_bench.trace import TraceSummary
+from h100_bench.traffic import train_loop
 
 BENCH = harness.benchmark()
 CELLS = [w["name"] for w in BENCH["workloads"]]
@@ -122,6 +123,17 @@ def test_trace_summary():
     gaps = t.idle_gaps(2)
     assert gaps[0] == ["after_on_step", pytest.approx(400e-9)]
     assert gaps[1] == ["after_on_step", pytest.approx(150e-9)]
+    # the program's host ranges: a gap is named by the innermost range
+    # open where the device starts again, else by the latest boundary
+    ranges = [(850, 960, "train.loop.read_metrics"),
+              (880, 920, "adamw.update"), (200, 260, "train.loop.on_step"),
+              (390, 395, "train.loop.replay")]
+    t = TraceSummary(ivs, marks, ranges)
+    assert t.idle_gaps(3) == [["adamw.update", pytest.approx(400e-9)],
+                              ["train.loop.replay", pytest.approx(150e-9)],
+                              ["start", pytest.approx(50e-9)]]
+    assert t.host_at(930) == "train.loop.read_metrics"
+    assert t.host_at(350) == "after_on_step"
 
 
 @pytest.mark.parametrize("cell", CELLS)
@@ -139,6 +151,59 @@ def test_small_run_on_the_cpu(cell):
     assert set(line["checks"]) == set(limits)
     for name, c in line["checks"].items():
         assert math.isfinite(c["value"]) and c["limit"] == limits[name]
+
+
+def _recorders_seen(monkeypatch):
+    """The active span recorder at each of the loop's steps."""
+    from repro_torch.runtime import spans
+    seen, begin = [], spans.begin_step
+
+    def begin_step(step):
+        seen.append(spans.active())
+        begin(step)
+
+    monkeypatch.setattr(spans, "begin_step", begin_step)
+    return seen
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_an_untraced_run_makes_no_recorder(cell, monkeypatch):
+    seen = _recorders_seen(monkeypatch)
+    f, pc = smoke.files(cell, **smoke.TRAIN)
+    line = harness.run_cell(cell, 2 ** 31 + 17, 0.3, False, device="cpu",
+                            files=f, port_cfg=pc)
+    assert line["correct"] and seen and set(seen) == {None}
+    assert "spans" not in line["detail"] and "counts" not in line["detail"]
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_a_traced_run_on_the_cpu_reads_spans_and_counters(cell, monkeypatch):
+    seen = _recorders_seen(monkeypatch)
+    f, pc = smoke.files(cell, **smoke.TRAIN)
+    line = harness.run_cell(cell, 2 ** 31 + 19, 4.0, True, device="cpu",
+                            files=f, port_cfg=pc)
+    assert line["correct"] and seen and None not in seen
+    detail = line["detail"]
+    read = detail["span_steps"]
+    assert 1 <= len(read) <= train_loop.SPAN_STEPS
+    assert read == list(range(read[0], read[0] + len(read)))
+    device = detail["spans"]["device"]
+    for name in ("train.step", "train.forward", "train.backward",
+                 "ssm.ssd", "ssm.ssd.bwd", "adamw.update"):
+        total, own = device[name]
+        assert total > 0 and -1e-6 <= own <= total + 1e-6
+    assert "train.loop.eager_step" in detail["spans"]["host"]
+    counts = detail["counts"]
+    # every step runs the model's Python on the CPU: one pick a layer
+    picks = counts.get("ssm.ssd.mode.chunked", 0) + \
+        counts.get("ssm.ssd.mode.quadratic", 0)
+    assert picks == pc.n_layers * (f["mix"]["params"]["check_steps"]
+                                   + line["attempted"])
+    assert counts.get("ssm.ssd.intra.kernel", 0) == 0
+    # no device metric from the CPU's clocks; gaps carry the host's names
+    assert set(line["metrics"]) <= {"train_step_wall_ms"}
+    for name, _ in line["breakdown"]["idle_gaps"]:
+        assert name.startswith("train.") or name in ("after_on_step", "end")
 
 
 def test_port_config_compares_the_keys_the_file_names():

@@ -41,3 +41,15 @@ def test_peaks_are_the_data_sheets():
     h100 = roofline.peaks("NVIDIA H100 80GB HBM3")
     assert h100 == {"bf16_flops": 989e12, "hbm_bytes_per_s": 3.35e12}
     assert roofline.peaks("cpu") is None
+
+
+def test_ssd_chunk_work_at_the_cells_shape():
+    # one layer at B 2, nc 8, Q 256, H 32, P 64, G 1, N 128: the triangle
+    # 32,896; C·Bᵀ 134,742,016, the x products 2,155,872,256, the states
+    # 2,147,483,648 FLOPs, each three times (forward and backward):
+    # 13.31 GFLOP. Bytes: x 8,388,608 values, B and C 524,288 each, rows
+    # 131,072, states 4,194,304: forward 70,778,880, backward 124,780,544
+    flops, nbytes = ssm.ssd_chunk_work(MAMBA2, 2, 2048)
+    assert flops == 13_314_293_760
+    assert nbytes == 195_559_424
+    assert nbytes / 3.35e12 > flops / 989e12      # the bytes bound it

@@ -7,27 +7,35 @@ the harness's own span boundaries (:meth:`Tracer.mark`, a zero-length
 (:meth:`Tracer.stop`). The reduction keeps every device interval (kernel,
 memcpy, memset) of the window as arrays, so a reader can ask for the
 device time between two marks, the device's busy time (the union of the
-intervals), the kernels that took the most time, and the idle gaps, each
-named by the harness span that the host was in when the device started
-again.
+intervals), the kernels that took the most time, and the idle gaps.
+
+It also keeps the program's own host ranges (``repro:<name>``, which
+``repro_torch.runtime.spans`` opens under the profiler), so that an idle
+gap is named by the innermost program range open on the host when the
+device started again; where none is open, by the latest boundary before
+that moment, a harness mark or the start of a program range (a CUDA
+graph's replay opens only an empty range at its start).
 """
 
 from __future__ import annotations
 
 import bisect
 from collections import defaultdict
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 NAME_CHARS = 100      # kernel names are cut to this many characters
+HARNESS, PROGRAM = "bench:", "repro:"
 
 
 class TraceSummary:
     def __init__(self, intervals: List[Tuple[int, int, str]],
-                 marks: List[Tuple[int, str]]):
+                 marks: List[Tuple[int, str]],
+                 ranges: Sequence[Tuple[int, int, str]] = ()):
         self.marks = sorted(marks)
         if len(self.marks) < 2:
             raise ValueError("a traced window needs a start and an end mark")
         self.t0, self.t1 = self.marks[0][0], self.marks[-1][0]
+        self.ranges = sorted(ranges)
         ivs = sorted((s, e, n) for s, e, n in intervals
                      if e > self.t0 and s < self.t1)
         self.starts = [max(s, self.t0) for s, _, _ in ivs]
@@ -73,19 +81,31 @@ class TraceSummary:
 
     def idle_gaps(self, n: int = 10) -> List[List]:
         """The ``n`` longest stretches of the window with no device
-        interval, each named by the last mark before the device started
-        again."""
+        interval, each named by :meth:`host_at` the moment the device
+        started again."""
         gaps, edge = [], self.t0
         for s, e in self.busy_spans() + [(self.t1, self.t1)]:
             if s > edge:
                 gaps.append((s - edge, s))
             edge = max(edge, e)
-        times = [t for t, _ in self.marks]
-        out = []
-        for length, end in sorted(gaps, reverse=True)[:n]:
-            i = max(0, bisect.bisect_left(times, end) - 1)
-            out.append([self.marks[i][1], length / 1e9])
-        return out
+        return [[self.host_at(end), length / 1e9]
+                for length, end in sorted(gaps, reverse=True)[:n]]
+
+    def host_at(self, t: int) -> str:
+        """What the host was doing at ``t``: the innermost program range
+        open then (the latest to start of those that hold ``t``), else the
+        latest harness mark or program range start before ``t``."""
+        inner = None
+        for start, end, name in self.ranges:
+            if start > t:
+                break
+            if end > t:
+                inner = name
+        if inner is not None:
+            return inner
+        bounds = self.marks + [(s, name) for s, _, name in self.ranges]
+        before = [b for b in bounds if b[0] < t]
+        return max(before)[1] if before else self.marks[0][1]
 
     def mark_times(self, name: str) -> List[int]:
         return [t for t, m in self.marks if m == name]
@@ -97,17 +117,23 @@ def _is_device(event) -> bool:
 
 
 def summarize(prof) -> TraceSummary:
-    """Reduce a stopped ``torch.profiler.profile`` to a summary."""
-    intervals, marks = [], []
+    """Reduce a stopped ``torch.profiler.profile`` to a summary: the
+    device intervals, the harness's marks and the program's host
+    ranges."""
+    intervals, marks, ranges = [], [], []
     for ev in prof.profiler.kineto_results.events():
-        name = ev.name()
-        if name.startswith("bench:"):
-            if not str(ev.device_type()).endswith("CUDA"):
-                marks.append((ev.start_ns(), name[len("bench:"):]))
+        name, start = ev.name(), ev.start_ns()
+        on_host = not str(ev.device_type()).endswith("CUDA")
+        if name.startswith(HARNESS):
+            if on_host:
+                marks.append((start, name[len(HARNESS):]))
+        elif name.startswith(PROGRAM):
+            if on_host:
+                ranges.append((start, start + ev.duration_ns(),
+                               name[len(PROGRAM):]))
         elif _is_device(ev):
-            start = ev.start_ns()
             intervals.append((start, start + ev.duration_ns(), name))
-    return TraceSummary(intervals, marks)
+    return TraceSummary(intervals, marks, ranges)
 
 
 class Tracer:
@@ -136,7 +162,7 @@ class Tracer:
         if self.prof is None:
             return
         from torch.profiler import record_function
-        with record_function(f"bench:{span}"):
+        with record_function(HARNESS + span):
             pass
 
     def stop(self, span: str = "end") -> None:

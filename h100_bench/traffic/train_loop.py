@@ -12,6 +12,14 @@ reference runs the same steps once the window has closed. The window then
 times the same loop's next steps until ``seconds`` have passed, and the
 ``on_step`` hook ends the run by raising.
 
+A ``--trace 1`` run also keeps the program's spans and counters: a
+``repro_torch.runtime.spans.Recorder`` is active around the loop (its
+marks ride in the captured graph, so a traced step reads a little
+longer), and the ``SPAN_STEPS`` window steps after the profiler's
+window are read (``collect`` in the hook, outside a step's wall). With
+``--trace 0`` no recorder is made, and the graph holds the program's
+kernels alone.
+
 Mix parameters: ``batch``, ``seq_len``, ``peak_lr``, ``warmup``,
 ``total_steps`` (the schedule's length; the window ends the run long
 before), ``zipf_a``, ``check_steps``, ``trace_steps`` (steps in the traced
@@ -20,6 +28,7 @@ window of a ``--trace 1`` run).
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import statistics
 import time
@@ -57,6 +66,24 @@ class _WindowClosed(Exception):
     pass
 
 
+#: Window steps whose device spans a traced run reads, after the
+#: profiler's window: enough for a median that one odd step does not
+#: move, few because each read costs some 5 ms of host time in the hook.
+SPAN_STEPS = 8
+
+
+def span_recorder(ctx):
+    """A span recorder for a traced run; None for an untraced one, or
+    where the program has no ``repro_torch.runtime.spans``."""
+    if not ctx.trace:
+        return None
+    try:
+        from repro_torch.runtime import spans
+    except ImportError:
+        return None
+    return spans.Recorder(ctx.device)
+
+
 def run(ctx) -> dict:
     import torch
     from repro_torch.train import loop as loop_mod
@@ -69,10 +96,12 @@ def run(ctx) -> dict:
     spec = reference.family(cfg).param_spec(cfg)
     n_check = mix["check_steps"]
     tracer = Tracer(ctx.trace)
+    recorder = span_recorder(ctx)
     held: Dict[str, object] = {"p0": weights.make(spec, ctx.seed, device)}
     rec: Dict[str, object] = {"kind": "train", "losses": [],
                               "step_walls": [], "traced_walls": [],
-                              "trace_steps": 0, "failed": 0}
+                              "trace_steps": 0, "span_steps": [],
+                              "failed": 0}
 
     def make_state(*args, **kwargs):
         state = original(*args, **kwargs)
@@ -105,6 +134,10 @@ def run(ctx) -> dict:
         rec["step_walls"].append(wall)
         rec["failed"] += not np.isfinite(metrics["loss"])
         done = len(rec["step_walls"])
+        if recorder is not None and tracer.summary is not None and \
+                len(rec["span_steps"]) < SPAN_STEPS:
+            recorder.collect()
+            rec["span_steps"].append(step)
         if done == 1:
             tracer.start("after_on_step")
         elif tracer.active:
@@ -122,12 +155,13 @@ def run(ctx) -> dict:
     original = loop_mod.make_train_state
     loop_mod.make_train_state = make_state
     try:
-        loop_mod.train(ctx.port_cfg, source, mix["total_steps"],
-                       optimizer=cfg["optimizer"]["name"],
-                       peak_lr=mix["peak_lr"], warmup=mix["warmup"],
-                       log_every=1 << 40, seed=ctx.seed,
-                       log_fn=lambda _: None, on_step=on_step,
-                       device=device)
+        with recorder or contextlib.nullcontext():
+            loop_mod.train(ctx.port_cfg, source, mix["total_steps"],
+                           optimizer=cfg["optimizer"]["name"],
+                           peak_lr=mix["peak_lr"], warmup=mix["warmup"],
+                           log_every=1 << 40, seed=ctx.seed,
+                           log_fn=lambda _: None, on_step=on_step,
+                           device=device)
         raise RuntimeError("the training loop ended before the window did")
     except _WindowClosed:
         pass
@@ -139,6 +173,11 @@ def run(ctx) -> dict:
     rec["attempted"] = rec["window_steps"]
     rec["memory_peak_bytes"] = ctx.memory_peak()
     rec["trace"] = tracer.summary
+    if recorder is not None:
+        rec["spans"] = {
+            "device": recorder.summary("device", steps=rec["span_steps"]),
+            "host": recorder.summary("host")}
+        rec["counts"] = dict(recorder.counts)
     gc.collect()
     ctx.free_device()
     rec["checks"] = _checks(ctx, cfg, spec, source, opt, n_check, rec)
@@ -150,6 +189,13 @@ def run(ctx) -> dict:
             w * 1e3 for w in rec["traced_walls"]]
         rec["detail"]["untraced_step_wall_ms"] = \
             statistics.median(untraced) * 1e3 if untraced else None
+    if "spans" in rec:
+        rec["detail"]["spans"] = {
+            clock: {name: [v["total_ms"], v["self_ms"]]
+                    for name, v in by.items()}
+            for clock, by in rec["spans"].items()}
+        rec["detail"]["counts"] = rec["counts"]
+        rec["detail"]["span_steps"] = rec["span_steps"]
     return rec
 
 
