@@ -6,6 +6,7 @@ from .base import (
     ALIASES,
     ARCH_IDS,
     SHAPES,
+    VARIANTS,
     ShapeSpec,
     all_cells,
     get,
@@ -15,6 +16,6 @@ from .base import (
 )
 
 __all__ = [
-    "ALIASES", "ARCH_IDS", "SHAPES", "ShapeSpec", "all_cells", "get",
-    "get_smoke", "normalize", "shape_applicable",
+    "ALIASES", "ARCH_IDS", "SHAPES", "VARIANTS", "ShapeSpec", "all_cells",
+    "get", "get_smoke", "normalize", "shape_applicable",
 ]

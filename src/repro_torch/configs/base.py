@@ -3,8 +3,9 @@
 Own copy of the reference's ``configs/base.py``. Each ported architecture
 lives in ``configs/<id>.py`` exposing ``config()`` (the exact published
 configuration) and ``smoke()`` (a reduced same-family variant for CPU
-tests). All ten of the reference's architectures are ported: the
-dense, moe, ssm, hybrid, encdec and vlm families.
+tests); ``VARIANTS`` names further presets of a module (Zamba2-1.2B with
+its published shared block). All ten of the reference's architectures
+are ported: the dense, moe, ssm, hybrid, encdec and vlm families.
 
 Shape cells:
   train_4k     seq 4096,   global_batch 256  (train_step)
@@ -33,6 +34,12 @@ ARCH_IDS = (
     "olmoe_1b_7b",
     "zamba2_1p2b",
 )
+
+#: Presets of an architecture beyond its own two: name → (architecture,
+#: the module's function of the full config, of the smoke config).
+VARIANTS = {
+    "zamba2_1p2b_published": ("zamba2_1p2b", "published", "published_smoke"),
+}
 
 # Assignment ids → module names (dashes/dots not importable).
 ALIASES = {
@@ -86,10 +93,16 @@ def _module(name: str):
 
 
 def get(name: str) -> ModelConfig:
+    if name in VARIANTS:
+        arch, full, _ = VARIANTS[name]
+        return getattr(_module(arch), full)()
     return _module(name).config()
 
 
 def get_smoke(name: str) -> ModelConfig:
+    if name in VARIANTS:
+        arch, _, small = VARIANTS[name]
+        return getattr(_module(arch), small)()
     return _module(name).smoke()
 
 

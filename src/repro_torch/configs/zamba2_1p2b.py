@@ -2,9 +2,19 @@
 
 38 Mamba2 layers (d_model 2048, ssm_state 64) with a single *shared*
 attention+MLP block (32H kv=32, d_ff 8192) applied every 6 Mamba2 layers.
-The shared block uses sliding-window attention (4096) so the long_500k
-decode cell stays sub-quadratic with a ring-buffer KV cache.
+
+``config()`` and ``smoke()`` are the JAX package's presets: their shared
+block is the reference's (``shared_block="reference"``), which reads the
+hidden state alone as 32 heads of 64, has no adapters and uses
+sliding-window attention (4096) so the long_500k decode cell stays
+sub-quadratic with a ring-buffer KV cache. ``published()`` and
+``published_smoke()`` (the ``zamba2_1p2b_published`` preset) compute
+Zamba2's published block (``models.hybrid``): [hidden, embedding] in,
+4,096 wide, as 32 heads of 128, the exact GELU, rank-128 adapters on q,
+k, v and the MLP's gate_up, a ``linear`` a application, no window.
 """
+
+import dataclasses
 
 from repro_torch.models.ssm import SSMConfig
 from repro_torch.models.transformer import ModelConfig
@@ -58,3 +68,22 @@ def smoke() -> ModelConfig:
         shared_window=32,
         max_seq=256,
     )
+
+
+def _published(cfg: ModelConfig, adapter_rank: int) -> ModelConfig:
+    return dataclasses.replace(
+        cfg, name=cfg.name + "-published", shared_block="published",
+        head_dim=2 * cfg.d_model // cfg.n_heads, activation="gelu_exact",
+        adapter_rank=adapter_rank, attn_adapters=True, shared_window=0)
+
+
+def published() -> ModelConfig:
+    """Zamba2-1.2B with its published shared block, at the preset's
+    widths (the SSD chunk stays the preset's)."""
+    return _published(config(), 128)
+
+
+def published_smoke() -> ModelConfig:
+    """The smoke preset with the published block: 5 layers, so that the
+    block is applied twice (before layers 2 and 4), adapters of rank 8."""
+    return _published(dataclasses.replace(smoke(), n_layers=5), 8)

@@ -83,7 +83,12 @@ def new_length(device=None) -> torch.Tensor:
 
 
 class Attention(nn.Module):
-    def __init__(self, cfg: AttnConfig, *, generator, device, dtype):
+    """q, k, v from ``cfg.d_model``; ``wo`` back to ``d_out`` (default
+    ``cfg.d_model``: Zamba2's shared block attends from [hidden,
+    embedding], twice the model's width, and returns to the model's)."""
+
+    def __init__(self, cfg: AttnConfig, *, generator, device, dtype,
+                 d_out: Optional[int] = None):
         super().__init__()
         kw = dict(generator=generator, device=device, dtype=dtype)
         hd = cfg.head_dim
@@ -93,8 +98,8 @@ class Attention(nn.Module):
                         ("embed", "kv_heads"), **kw)
         self.wv = Dense(cfg.d_model, cfg.n_kv_heads * hd,
                         ("embed", "kv_heads"), **kw)
-        self.wo = Dense(cfg.n_heads * hd, cfg.d_model, ("heads", "embed"),
-                        **kw)
+        self.wo = Dense(cfg.n_heads * hd, d_out or cfg.d_model,
+                        ("heads", "embed"), **kw)
 
 
 def _whole_parts(t: torch.Tensor, dim: int, n: int) -> torch.Tensor:
@@ -116,11 +121,18 @@ def _split_heads(t: torch.Tensor, n: int, dh: int) -> torch.Tensor:
 
 
 def _project_qkv(p: Attention, cfg: AttnConfig, x: torch.Tensor,
-                 positions: torch.Tensor, rope: Optional[Tuple]):
-    b, s, _ = x.shape
-    q = _split_heads(dense(p.wq, x), cfg.n_heads, cfg.head_dim)
-    k = _split_heads(dense(p.wk, x), cfg.n_kv_heads, cfg.head_dim)
-    v = _split_heads(dense(p.wv, x), cfg.n_kv_heads, cfg.head_dim)
+                 positions: torch.Tensor, rope: Optional[Tuple],
+                 deltas: Optional[Tuple] = None):
+    """q, k, v (B, S, heads, Dh) of x, RoPE applied to q and k;
+    ``deltas`` (dq, dk, dv), each (B, S, heads·Dh), are added to the
+    projections before the heads split (Zamba2's per-application
+    adapters)."""
+    projs = [dense(p.wq, x), dense(p.wk, x), dense(p.wv, x)]
+    if deltas is not None:
+        projs = [w + d for w, d in zip(projs, deltas)]
+    q = _split_heads(projs[0], cfg.n_heads, cfg.head_dim)
+    k = _split_heads(projs[1], cfg.n_kv_heads, cfg.head_dim)
+    v = _split_heads(projs[2], cfg.n_kv_heads, cfg.head_dim)
     q, k, v = shard_heads(q), shard_heads(k), shard_heads(v)
     if rope is not None:
         cos, sin = rope
@@ -293,18 +305,20 @@ def apply_train(p: Attention, cfg: AttnConfig, x: torch.Tensor,
                 rope: Optional[Tuple] = None,
                 positions: Optional[torch.Tensor] = None,
                 return_kv: bool = False,
-                differentiable: bool = True):
+                differentiable: bool = True,
+                deltas: Optional[Tuple] = None):
     """Full-sequence attention (training forward / prefill compute).
 
     ``differentiable=False`` (inference prefill) routes through the flash
     kernel; the (B, S, H, D) projections go in as (B, H, S, D) views and
     the kernel's output comes back (B, S, H, D)-contiguous, so neither
-    transpose copies on the card.
+    transpose copies on the card. ``deltas`` are added to the q, k and v
+    projections (:func:`_project_qkv`).
     """
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device).expand(b, s)
-    q, k, v = _project_qkv(p, cfg, x, positions, rope)
+    q, k, v = _project_qkv(p, cfg, x, positions, rope, deltas)
     use_flash = (not differentiable and cfg.use_flash
                  and s % 128 == 0 and s >= 256)
     if use_flash:
@@ -446,7 +460,8 @@ def pv_wo_output(p_attn: torch.Tensor, v: torch.Tensor, wo: Dense,
 
 
 def apply_decode(p: Attention, cfg: AttnConfig, x: torch.Tensor,
-                 cache: KVCache, rope: Optional[Tuple] = None
+                 cache: KVCache, rope: Optional[Tuple] = None,
+                 deltas: Optional[Tuple] = None
                  ) -> Tuple[torch.Tensor, KVCache]:
     """One-token step: x (B, 1, d). K/V are written into the cache at
     ``length`` (in place), then the new token attends to positions
@@ -466,14 +481,15 @@ def apply_decode(p: Attention, cfg: AttnConfig, x: torch.Tensor,
 
     The cache quantizes *storage* only (bf16 k/v): the contraction runs
     at activation precision, float32 logits and probabilities, as in the
-    reference.
+    reference. ``deltas`` are added to the q, k and v projections
+    (:func:`_project_qkv`).
     """
     b, s1, _ = x.shape
     if s1 != 1:
         raise ValueError(f"apply_decode takes one token per sequence, got "
                          f"x of shape {tuple(x.shape)}")
     idx = cache.length
-    q, k, v = _project_qkv(p, cfg, x, idx.expand(b, 1), rope)
+    q, k, v = _project_qkv(p, cfg, x, idx.expand(b, 1), rope, deltas)
     write_positions(cache.k, k, idx)
     write_positions(cache.v, v, idx)
     hkv = cfg.n_kv_heads

@@ -1,19 +1,42 @@
 """Hybrid Mamba2 + shared-attention assembly (zamba2 family).
 
-Counterpart of the reference's ``models/hybrid.py``. Zamba2 interleaves
-Mamba2 blocks with a *shared* transformer block whose parameters are
-reused at every application point (arXiv:2411.15242): ``n_layers``
-Mamba2 blocks and, after every ``attn_every`` of them, the single shared
-attention+MLP block, with sliding-window attention whose decode cache is
-a ring buffer of ``shared_window`` slots.
+Zamba2 interleaves Mamba2 blocks with a *shared* transformer block whose
+parameters are reused at every application point (arXiv:2411.15242).
+``ModelConfig.shared_block`` picks which block this module computes:
 
-As in the reference, zamba2's concatenated [hidden, embedding] input to
-the shared block and its per-application LoRA deltas are omitted. There
-is no prefill: ``serve.decode.generate`` feeds the prompt token by token.
-Caches are updated in place, as the port's other caches are, and a
+* ``"reference"`` (the default, and every preset's) — the counterpart of
+  the JAX package's ``models/hybrid.py``: ``n_layers`` Mamba2 blocks and,
+  after every ``attn_every`` of them, the single shared attention + SiLU
+  GLU block on the hidden state alone, added to the residual stream, with
+  sliding-window attention whose decode cache is a ring buffer of
+  ``shared_window`` slots. Zamba2's concatenated [hidden, embedding]
+  input and its per-application adapters are omitted, as in the JAX
+  package.
+* ``"published"`` — Zamba2's own block (``transformers``'
+  ``Zamba2HybridLayer``): before each Mamba2 layer i of
+  ``hybrid_layer_ids``, application a runs memory block a mod
+  ``num_mem_blocks`` on u = rmsnorm([x, x₀]) (x₀ the embedding output,
+  2·d_model wide): attention from 2·d_model to ``n_heads`` heads of
+  ``head_dim`` with RoPE and logits scaled by (head_dim / 2)^-½, back to
+  d_model; ``pre_ff_norm`` on its output (no residual inside the block);
+  the GLU MLP ``activation(gate) · up`` from one ``gate_up`` product.
+  Application a has its own rank-``adapter_rank`` adapters (A then B, no
+  bias) on the MLP's gate_up and, with ``attn_adapters``, on q, k and v,
+  and its own ``linear`` (d_model → d_model), whose output t is added to
+  the input of Mamba2 layer i before its pre-norm:
+  x ← x + mamba_i(rmsnorm(x + t)). The block's weights are shared by the
+  applications, so their gradient sums over them; an adapter or a
+  ``linear`` gets its own application's. The decode cache holds every
+  position (no ring unless ``shared_window`` is set).
+
+There is no prefill: ``serve.decode.generate`` feeds the prompt token by
+token. Caches are updated in place, as the port's other caches are, and a
 decode step reads its position only on the device (the RoPE row, the
-ring slot and its mask are arithmetic on the cache's length tensor), so
-it can be captured in a CUDA graph.
+cache slot and its mask are arithmetic on the cache's length tensor), so
+it can be captured in a CUDA graph. The published block's training path
+marks device regions ``hybrid.shared`` ⊃ ``hybrid.shared.attn``,
+``hybrid.shared.mlp`` (and their ``.bwd``) around every application and
+counts ``hybrid.shared.applications`` (:mod:`repro_torch.runtime.spans`).
 """
 
 from __future__ import annotations
@@ -23,6 +46,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 from torch import nn
 
+from repro_torch.runtime import spans
 from repro_torch.sharding.context import shard_seq
 
 from . import attention, layers, ssm as ssm_lib
@@ -37,7 +61,14 @@ class HybridCaches(NamedTuple):
     shared_kv: KVCache       # stacked (n_attn, B, window, Hkv, Dh)
 
 
+def published(cfg: ModelConfig) -> bool:
+    """Whether ``cfg`` computes Zamba2's published shared block."""
+    return cfg.shared_block == "published"
+
+
 def n_shared_applications(cfg: ModelConfig) -> int:
+    if published(cfg):
+        return len(cfg.hybrid_layer_ids)
     return cfg.n_layers // cfg.attn_every if cfg.attn_every else 0
 
 
@@ -54,6 +85,65 @@ class SharedBlock(nn.Module):
         self.mlp = layers.GluMLP(cfg.d_model, cfg.d_ff, **kw)
 
 
+class Adapter(nn.Module):
+    """A rank-r adapter x ↦ (x·A)·B with no bias: ``a`` ~ N(0, 1/d_in),
+    ``b`` ~ N(0, 0.02²)."""
+
+    def __init__(self, d_in: int, rank: int, d_out: int, axes, *,
+                 generator, device, dtype):
+        super().__init__()
+        kw = dict(generator=generator, device=device, dtype=dtype)
+        self.a = layers.Dense(d_in, rank, (axes[0], "lora"), **kw)
+        self.b = layers.Dense(rank, d_out, ("lora", axes[1]), scale=0.02,
+                              **kw)
+
+
+def adapter(p: Adapter, x: torch.Tensor) -> torch.Tensor:
+    return layers.dense(p.b, layers.dense(p.a, x))
+
+
+class MemBlock(nn.Module):
+    """One published shared block: ``input_norm`` (2·d_model), ``attn``
+    (:meth:`ModelConfig.shared_attn_cfg`), ``pre_ff_norm`` and the GLU
+    MLP's ``gate_up`` (d_model → 2·d_ff, [gate, up]) and ``down``."""
+
+    def __init__(self, cfg: ModelConfig, *, generator, device, dtype):
+        super().__init__()
+        kw = dict(generator=generator, device=device, dtype=dtype)
+        norm = dict(device=device, dtype=dtype)
+        self.input_norm = layers.RMSNorm(2 * cfg.d_model, **norm)
+        self.attn = attention.Attention(cfg.shared_attn_cfg, d_out=cfg.d_model,
+                                        **kw)
+        self.pre_ff_norm = layers.RMSNorm(cfg.d_model, **norm)
+        self.gate_up = layers.Dense(cfg.d_model, 2 * cfg.d_ff,
+                                    ("embed", "ffn"), **kw)
+        self.down = layers.Dense(cfg.d_ff, cfg.d_model, ("ffn", "embed"),
+                                 **kw)
+
+
+class Application(nn.Module):
+    """What one application of the published block owns: its adapters
+    (``q``, ``k``, ``v`` with ``attn_adapters``; ``gate_up``) and its
+    ``linear`` (d_model → d_model)."""
+
+    def __init__(self, cfg: ModelConfig, *, generator, device, dtype):
+        super().__init__()
+        kw = dict(generator=generator, device=device, dtype=dtype)
+        acfg, r = cfg.shared_attn_cfg, cfg.adapter_rank
+        if cfg.attn_adapters:
+            hq = acfg.n_heads * acfg.head_dim
+            hkv = acfg.n_kv_heads * acfg.head_dim
+            self.q = Adapter(acfg.d_model, r, hq, ("embed", "heads"), **kw)
+            self.k = Adapter(acfg.d_model, r, hkv, ("embed", "kv_heads"),
+                             **kw)
+            self.v = Adapter(acfg.d_model, r, hkv, ("embed", "kv_heads"),
+                             **kw)
+        self.gate_up = Adapter(cfg.d_model, r, 2 * cfg.d_ff,
+                               ("embed", "ffn"), **kw)
+        self.linear = layers.Dense(cfg.d_model, cfg.d_model,
+                                   ("embed", "embed"), **kw)
+
+
 class HybridLM(nn.Module):
     def __init__(self, cfg: ModelConfig, *, generator, device, dtype):
         super().__init__()
@@ -61,7 +151,14 @@ class HybridLM(nn.Module):
         self.embed = layers.Embed(cfg.padded_vocab, cfg.d_model, **kw)
         self.blocks = nn.ModuleList(
             SSMBlock(cfg, **kw) for _ in range(cfg.n_layers))
-        self.shared = SharedBlock(cfg, **kw)
+        if published(cfg):
+            self.mem_blocks = nn.ModuleList(
+                MemBlock(cfg, **kw) for _ in range(cfg.num_mem_blocks))
+            self.applications = nn.ModuleList(
+                Application(cfg, **kw)
+                for _ in range(n_shared_applications(cfg)))
+        else:
+            self.shared = SharedBlock(cfg, **kw)
         self.final_norm = layers.RMSNorm(cfg.d_model, device=device,
                                          dtype=dtype)
 
@@ -73,6 +170,17 @@ def init(cfg: ModelConfig, generator: Optional[torch.Generator], *,
     if cfg.family != "hybrid" or cfg.ssm is None:
         raise ValueError(f"{cfg.name}: hybrid.init takes the hybrid family "
                          f"with an SSM config, not {cfg.family}")
+    if cfg.shared_block not in ("reference", "published"):
+        raise ValueError(f"{cfg.name}: shared_block must be reference or "
+                         f"published, not {cfg.shared_block!r}")
+    ids = cfg.hybrid_layer_ids
+    if published(cfg) and (cfg.adapter_rank < 1 or cfg.num_mem_blocks < 1
+                           or not ids or not 0 <= min(ids) <= max(ids)
+                           < cfg.n_layers):
+        raise ValueError(f"{cfg.name}: the published shared block needs an "
+                         f"adapter_rank and num_mem_blocks of at least 1 "
+                         f"and hybrid layers among the {cfg.n_layers}, not "
+                         f"{ids}")
     return HybridLM(cfg, generator=generator, device=device, dtype=dtype)
 
 
@@ -94,6 +202,69 @@ def _shared_block_train(cfg: ModelConfig, sp: SharedBlock, x: torch.Tensor,
     return shard_seq(x + layers.glu_mlp(sp.mlp, h))
 
 
+def _mamba_train(cfg: ModelConfig, bp: SSMBlock, x: torch.Tensor,
+                 t: Optional[torch.Tensor]) -> torch.Tensor:
+    """x + mamba(rmsnorm(x + t)): a Mamba2 block whose normed input takes
+    the published block's output ``t`` (None: none) and whose residual
+    does not."""
+    h = layers.rmsnorm(bp.pre_norm, x if t is None else x + t)
+    return shard_seq(x + ssm_lib.apply_train(bp.mixer, cfg.ssm, h))
+
+
+def _qkv_deltas(ap: Application, u: torch.Tensor):
+    if not hasattr(ap, "q"):
+        return None
+    return adapter(ap.q, u), adapter(ap.k, u), adapter(ap.v, u)
+
+
+def _published_mlp(cfg: ModelConfig, mb: MemBlock, ap: Application,
+                   o: torch.Tensor) -> torch.Tensor:
+    """W_down(act(gate) · up) of rmsnorm(o), [gate, up] = W_gu·h plus the
+    application's gate_up adapter."""
+    h = layers.rmsnorm(mb.pre_ff_norm, o)
+    gate, up = (layers.dense(mb.gate_up, h)
+                + adapter(ap.gate_up, h)).chunk(2, dim=-1)
+    return layers.dense(mb.down, layers.ACTIVATIONS[cfg.activation](gate)
+                        * up)
+
+
+def _published_block_train(cfg: ModelConfig, mb: MemBlock, ap: Application,
+                           x: torch.Tensor, x0: torch.Tensor,
+                           rope) -> torch.Tensor:
+    """One application of the published block → t (B, S, d_model)."""
+    spans.count("hybrid.shared.applications")
+    x, x0 = spans.region("hybrid.shared", x, x0)
+    u = layers.rmsnorm(mb.input_norm, torch.cat([x, x0], dim=-1))
+    u = spans.region("hybrid.shared.attn", u)
+    o = spans.region_end("hybrid.shared.attn", attention.apply_train(
+        mb.attn, cfg.shared_attn_cfg, u, rope=rope,
+        deltas=_qkv_deltas(ap, u)))
+    o = spans.region("hybrid.shared.mlp", o)
+    m = spans.region_end("hybrid.shared.mlp",
+                         _published_mlp(cfg, mb, ap, o))
+    return spans.region_end("hybrid.shared", layers.dense(ap.linear, m))
+
+
+def _published_train(model: HybridLM, cfg: ModelConfig,
+                     tokens: torch.Tensor) -> torch.Tensor:
+    """The published layout's hidden states before the final norm."""
+    x0 = layers.embed(model.embed, tokens)
+    rope = layers.rope_frequencies(cfg.head_dim, x0.shape[1],
+                                   cfg.rope_theta, device=x0.device)
+    app = {layer: a for a, layer in enumerate(cfg.hybrid_layer_ids)}
+    x = x0
+    for i, bp in enumerate(model.blocks):
+        t = None
+        if i in app:
+            a = app[i]
+            t = _published_block_train(
+                cfg, model.mem_blocks[a % cfg.num_mem_blocks],
+                model.applications[a], x, x0, rope)
+        x = maybe_remat(lambda x, t, bp=bp: _mamba_train(cfg, bp, x, t),
+                        cfg.remat)(x, t)
+    return x
+
+
 def apply_train(model: HybridLM, cfg: ModelConfig, tokens: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens (B, S) → (logits (B, S, vocab) fp32, aux_loss = 0). The
@@ -101,6 +272,10 @@ def apply_train(model: HybridLM, cfg: ModelConfig, tokens: torch.Tensor
     is not, as in the reference); the shared block's attention takes the
     differentiable route, :func:`~repro_torch.models.attention.
     chunked_attention` from ``CHUNKED_THRESHOLD`` positions on."""
+    if published(cfg):
+        x = _published_train(model, cfg, tokens)
+        return _logits(cfg, model, x), torch.zeros(
+            (), dtype=torch.float32, device=x.device)
     x = layers.embed(model.embed, tokens)
     s = x.shape[1]
     rope = layers.rope_frequencies(cfg.head_dim, s, cfg.rope_theta,
@@ -126,12 +301,14 @@ def apply_train(model: HybridLM, cfg: ModelConfig, tokens: torch.Tensor
 def init_caches(cfg: ModelConfig, batch: int, max_s: int,
                 dtype=torch.bfloat16, device=None) -> HybridCaches:
     """Zeroed SSM caches for every layer and, for each application of the
-    shared block, a windowed KV cache: a ring buffer of
-    min(``shared_window``, ``max_s``) slots."""
+    shared block, a KV cache: the reference block's a ring buffer of
+    min(``shared_window``, ``max_s``) slots, the published block's
+    ``max_s`` positions."""
     ssm = ssm_lib.init_cache(cfg.ssm, batch, dtype, device=device,
                              n_layers=cfg.n_layers)
     na = max(1, n_shared_applications(cfg))
-    eff = min(cfg.shared_window or max_s, max_s)
+    eff = max_s if published(cfg) else min(cfg.shared_window or max_s,
+                                           max_s)
     shape = (na, batch, eff, cfg.n_kv_heads, cfg.head_dim)
     kv = KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                  v=torch.zeros(shape, dtype=dtype, device=device),
@@ -196,11 +373,47 @@ def _shared_block_decode(cfg: ModelConfig, sp: SharedBlock, x: torch.Tensor,
     return x, kv
 
 
+def _published_decode(model: HybridLM, cfg: ModelConfig,
+                      tokens: torch.Tensor,
+                      caches: HybridCaches) -> torch.Tensor:
+    """The published layout's decode step (the equations of
+    :func:`_published_train` on one token, x₀ its own embedding, through
+    each application's KV cache) → hidden states before the final norm."""
+    x0 = layers.embed(model.embed, tokens)
+    skv = caches.shared_kv
+    rope = layers.rope_frequencies(cfg.head_dim, skv.k.shape[2],
+                                   cfg.rope_theta, device=x0.device)
+    acfg = cfg.shared_attn_cfg
+    app = {layer: a for a, layer in enumerate(cfg.hybrid_layer_ids)}
+    x = x0
+    for i, bp in enumerate(model.blocks):
+        h = x
+        if i in app:
+            a = app[i]
+            mb, ap = model.mem_blocks[a % cfg.num_mem_blocks], \
+                model.applications[a]
+            u = layers.rmsnorm(mb.input_norm, torch.cat([x, x0], dim=-1))
+            o, _ = attention.apply_decode(
+                mb.attn, acfg, u, skv._replace(k=skv.k[a], v=skv.v[a]),
+                rope=rope, deltas=_qkv_deltas(ap, u))
+            h = x + layers.dense(ap.linear, _published_mlp(cfg, mb, ap, o))
+        sc = caches.ssm._replace(conv=caches.ssm.conv[i],
+                                 state=caches.ssm.state[i])
+        x = shard_seq(x + ssm_lib.apply_decode(
+            bp.mixer, cfg.ssm, layers.rmsnorm(bp.pre_norm, h), sc)[0])
+    return x
+
+
 def apply_decode(model: HybridLM, cfg: ModelConfig, tokens: torch.Tensor,
                  caches: HybridCaches) -> Tuple[torch.Tensor, HybridCaches]:
     """One-token decode: tokens (B, 1) → (logits (B, 1, V), ``caches``,
     the same object, with the SSM tails and states and the shared K/V
     written and both lengths advanced, in place)."""
+    if published(cfg):
+        x = _published_decode(model, cfg, tokens, caches)
+        caches.ssm.length.add_(1)
+        caches.shared_kv.length.add_(1)
+        return _logits(cfg, model, x), caches
     x = layers.embed(model.embed, tokens)
     skv = caches.shared_kv
     rope = _rope_at(cfg, skv.length)

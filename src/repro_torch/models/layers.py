@@ -71,7 +71,9 @@ class Embed(nn.Module):
 
 
 class RMSNorm(nn.Module):
-    """``g`` (d,), ones."""
+    """``g`` (d,), ones; ``d`` is the width it normalises, which need not
+    be the model's (Zamba2's shared block normalises [hidden,
+    embedding], 2·d_model wide)."""
 
     def __init__(self, d: int, *, device, dtype):
         super().__init__()
@@ -171,6 +173,16 @@ def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.gelu``'s default, the tanh approximation."""
     return F.gelu(x, approximate="tanh")
+
+
+def gelu_exact(x: torch.Tensor) -> torch.Tensor:
+    """The exact GELU, x·Φ(x) with the error function (Zamba2's
+    ``hidden_act`` "gelu")."""
+    return F.gelu(x)
+
+
+#: A GLU's activation by the name a config gives it.
+ACTIVATIONS = {"silu": F.silu, "gelu": gelu, "gelu_exact": gelu_exact}
 
 
 # ----------------------------------------------------------------- RoPE ---

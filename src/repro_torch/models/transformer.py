@@ -69,6 +69,22 @@ class ModelConfig:
     # activation rematerialization of the training path, per block:
     # none | dots | full (:func:`maybe_remat`)
     remat: str = "none"
+    # hybrid: the shared block :mod:`.hybrid` computes. "reference" is the
+    # JAX package's (the hidden state alone, no adapters); "published" is
+    # Zamba2's ([hidden, embedding] in, ``num_mem_blocks`` blocks taken in
+    # turn, a rank-``adapter_rank`` adapter on the MLP's gate_up of every
+    # application and, with ``attn_adapters``, on its q, k and v) before
+    # the Mamba2 layers of ``hybrid_layer_ids``
+    shared_block: str = "reference"
+    num_mem_blocks: int = 1
+    adapter_rank: int = 0
+    attn_adapters: bool = False
+    hybrid_layers: Tuple[int, ...] = ()    # () = every attn_every-th
+
+    def __post_init__(self):
+        # a list set by dotted path (a benchmark's configuration file)
+        # is kept as the tuple that a frozen config hashes
+        object.__setattr__(self, "hybrid_layers", tuple(self.hybrid_layers))
 
     @property
     def padded_vocab(self) -> int:
@@ -87,6 +103,26 @@ class ModelConfig:
             rope_theta=self.rope_theta, logit_softcap=self.attn_softcap,
         )
 
+    @property
+    def shared_attn_cfg(self) -> AttnConfig:
+        """The published shared block's attention: [hidden, embedding] in
+        (2·d_model; its output is d_model wide), logits scaled by
+        (head_dim / 2)^-½, as Zamba2's, and a window of ``shared_window``
+        (0: none)."""
+        return self.attn_cfg._replace(
+            d_model=2 * self.d_model, window=self.shared_window,
+            query_pre_scale=(self.head_dim / 2) ** -0.5)
+
+    @property
+    def hybrid_layer_ids(self) -> list:
+        """The Mamba2 layers whose input the published shared block's
+        applications feed: ``hybrid_layers``, or where that is empty every
+        ``attn_every``-th from ``attn_every`` on (``transformers``' default
+        pattern)."""
+        if self.hybrid_layers or not self.attn_every:
+            return list(self.hybrid_layers)
+        return list(range(self.attn_every, self.n_layers, self.attn_every))
+
     def layer_windows(self) -> Tuple[int, ...]:
         if not self.window_pattern:
             return (0,) * self.n_layers
@@ -96,9 +132,10 @@ class ModelConfig:
 
     def param_count(self) -> int:
         """The reference's analytic parameter count: embedding, attention,
-        MLP, MoE and SSM projections, and an encoder's blocks and the
-        decoder's cross-attention (norm gains, the SSM conv and its
-        per-head vectors left out)."""
+        MLP, MoE and SSM projections, the hybrid's shared block (the
+        published one with its adapters and ``linear``s), and an encoder's
+        blocks and the decoder's cross-attention (norm gains, the SSM conv
+        and its per-head vectors left out)."""
         d = self.d_model
         n = self.vocab * d * (1 if self.tied_embeddings else 2)
         L = self.n_layers
@@ -119,7 +156,9 @@ class ModelConfig:
             proj = 2 * s.d_inner + 2 * s.n_groups * s.d_state + s.n_heads
             # every hybrid layer is an SSM layer; the shared block below
             n += L * (d * proj + s.d_inner * d)
-        if self.shared_attn:
+        if self.shared_attn and self.shared_block == "published":
+            n += self._published_shared_count()
+        elif self.shared_attn:
             n += attn + 3 * d * self.d_ff
         if self.encoder_layers:
             # the encoder's blocks (plain 2-matrix MLP), then the
@@ -127,6 +166,19 @@ class ModelConfig:
             n += self.encoder_layers * (attn + 2 * d * self.d_ff)
             n += L * attn
         return n
+
+    def _published_shared_count(self) -> int:
+        """The published shared blocks (attention from 2·d_model, the GLU
+        MLP's gate_up and down) and each application's adapters and
+        ``linear``."""
+        d, r = self.d_model, self.adapter_rank
+        hq = self.n_heads * self.head_dim
+        hkv = self.n_kv_heads * self.head_dim
+        block = 2 * d * (hq + 2 * hkv) + hq * d + 3 * d * self.d_ff
+        app = d * d + r * (d + 2 * self.d_ff)
+        if self.attn_adapters:
+            app += r * (2 * d + hq) + 2 * r * (2 * d + hkv)
+        return self.num_mem_blocks * block + len(self.hybrid_layer_ids) * app
 
     def active_param_count(self) -> int:
         """Active params per token (MoE: top-k experts only)."""

@@ -219,10 +219,13 @@ def check_capacity(cfg: ModelConfig, prompt_len: int, max_new: int,
     ``max_s`` positions: :func:`generate` writes positions 0 to
     prompt_len + max_new - 2. The check is made on the host before the
     first step, since a (captured) step cannot read its position there.
-    The SSM family keeps no KV cache, and the hybrid family's is a ring
-    buffer that wraps."""
+    The SSM family keeps no KV cache, and the hybrid family's reference
+    block's is a ring buffer that wraps (the published block's holds every
+    position)."""
     need = prompt_len + max_new - 1
-    if cfg.family not in ("ssm", "hybrid") and need > max_s:
+    bounded = cfg.family not in ("ssm", "hybrid") or \
+        cfg.shared_block == "published"
+    if bounded and need > max_s:
         raise ValueError(f"KV cache full: length {max_s} of {max_s} "
                          f"positions; a prompt of {prompt_len} and "
                          f"{max_new} new tokens write {need}")
