@@ -295,6 +295,9 @@ KERNEL_SOURCES = {
     # The SSD's intra-chunk stage on the training path; the reference's
     # SSD is plain jnp.
     "ssd_chunk": ("src/repro_torch/kernels/csrc/ssd_chunk.cu", "none"),
+    # Training's attention, forward and backward; the reference's
+    # _chunked_core is plain jnp.
+    "flash_train": ("src/repro_torch/kernels/csrc/flash_train.cu", "none"),
 }
 #: Executions of each kernel step per timed algorithm or call, on a graph
 #: memo miss (``TorchBackend._timed_callable`` and
@@ -3367,6 +3370,10 @@ CHUNKED_SHAPE = (1, 32, TRAIN_SEQ, 64, 4096)
 #: CHUNKED_ATOL, 3× the largest excess measured on an H100 (dk, 3.80e-6).
 CHUNKED_TOL = {"float32": (1e-4, 1e-4, None, None),
                "bfloat16": (2 ** -6,) * 4}
+#: Runs of (a)'s bf16 step: two checked, then time_ms's warm-up and 3
+#: repetitions. bf16 takes training's attention kernels, float32 the
+#: plain core.
+CHUNKED_BF16_STEPS = 6
 CHUNKED_ATOL = 1.15e-5
 #: The resumed run's losses and final ``final_norm.g`` against an
 #: uninterrupted run: the reference's test tolerance.
@@ -3820,16 +3827,19 @@ def _launched(before: dict, after: dict) -> dict:
     return {k: after[k] - before.get(k, 0) for k in after}
 
 
-def _gate_launches(label: str, got: dict, ssd: int) -> None:
-    """``got`` must be ``ssd`` launches of the fused SSD kernel and none of
-    any other hand kernel."""
-    want = dict.fromkeys(got, 0) | {"ssd_chunk": ssd}
+def _gate_launches(label: str, got: dict, ssd: int,
+                   attn: int = 0) -> None:
+    """``got`` must be ``ssd`` launches of the fused SSD kernel, ``attn``
+    of training's attention kernels and none of any other hand kernel."""
+    want = dict.fromkeys(got, 0) | {"ssd_chunk": ssd, "flash_train": attn}
     print(f"{label} kernel launches {got} (want {want})")
     if got != want:
         raise AssertionError(f"{label} launched {got}, not {want}: the "
-                             f"training path reaches the fused SSD kernel "
-                             f"alone, once forward and three times backward "
-                             f"a chunked layer")
+                             f"training path reaches the fused SSD kernel, "
+                             f"once forward and three times backward a "
+                             f"chunked layer, and the attention kernels, "
+                             f"once forward and three times backward a "
+                             f"bf16 chunked attention, alone")
 
 
 def train_phase(torch, np) -> dict:
@@ -3840,6 +3850,7 @@ def train_phase(torch, np) -> dict:
 
     from repro_torch import configs
     from repro_torch.kernels import ops
+    from repro_torch.models import hybrid
 
     mamba = dataclasses.replace(configs.get("mamba2_370m"),
                                 remat=MAMBA_REMAT)
@@ -3851,10 +3862,16 @@ def train_phase(torch, np) -> dict:
            "muon": train_ssd_launches(mamba, 2),
            "resume": train_ssd_launches(mamba, 3 * 2),
            "zamba2": train_ssd_launches(configs.get("zamba2_1p2b"), 2)}
+    # training's attention kernels: (a)'s bf16 steps, and zamba2's shared
+    # attention at each application of a capture's two runs of Python
+    attn = {"chunked": 4 * CHUNKED_BF16_STEPS,
+            "zamba2": 4 * 2 * hybrid.n_shared_applications(
+                configs.get("zamba2_1p2b"))}
     t0 = time.perf_counter()
     before = dict(ops.launch_counts())
     out = {"chunked": check_chunked(torch, np)}
-    _gate_launches("phase 14 (a)", _launched(before, ops.launch_counts()), 0)
+    _gate_launches("phase 14 (a)", _launched(before, ops.launch_counts()), 0,
+                   attn["chunked"])
     release(torch)
     for key, part in (("mamba2", train_mamba2),
                       ("muon", train_mamba2_muon),
@@ -3865,9 +3882,11 @@ def train_phase(torch, np) -> dict:
         out[key] = part(torch, np)
         release(torch)
         _gate_launches(f"phase 14 {key}",
-                       _launched(start, ops.launch_counts()), ssd[key])
+                       _launched(start, ops.launch_counts()), ssd[key],
+                       attn.get(key, 0))
         print(f"phase 14 {key}: {time.perf_counter() - t1:.1f}s")
     out["ssd_chunk_launches"] = sum(ssd.values())
+    out["flash_train_launches"] = sum(attn.values())
     out["seconds"] = time.perf_counter() - t0
     print(f"phase 14 took {out['seconds']:.1f}s")
     return out
@@ -4598,6 +4617,126 @@ def memory_line(torch, phase: int) -> None:
           f"{now - CLOCK['start']:.1f} s since the start")
 
 
+#: Training's attention kernels' check (phase 3): Zamba2-1.2B's shared
+#: attention, (B, S, H, Hkv, D), causal at its scale (128 / 2)^-1/2; each
+#: of out, dq, dk and dv within FLASH_TRAIN_PLAIN_X times the error of
+#: ``_ChunkedCore`` against float64 dense autograd, relative to the
+#: largest value, on the same bf16 inputs.
+FLASH_TRAIN_SHAPE = (1, 2048, 32, 32, 128)
+FLASH_TRAIN_SCALE = 0.125
+FLASH_TRAIN_PLAIN_X = 1.5
+
+
+def flash_train_work(b, s, h, hkv, d, causal=True, window=0):
+    """(FLOPs, bytes) of one attention forward and backward, as
+    ``h100_bench/metrics/attention_train_roofline.py`` counts them:
+    4·D a visible (query, key) pair and head forward (q·kᵀ, P·v), twice
+    that backward (dv, dP, dq, dk), no recomputation and no split parts;
+    q, k, v, O, dO, dq, dk and dv in bf16 and the LSE in float32, each
+    read or written once."""
+    pairs = sum((q if causal else s - 1) - (max(0, q - window + 1)
+                                            if window > 0 else 0) + 1
+                for q in range(s))
+    flops = 3 * 4 * b * h * d * pairs
+    nbytes = 2 * 4 * b * s * (h + hkv) * d + 4 * b * h * s
+    return flops, nbytes
+
+
+def check_flash_train(torch, np) -> dict:
+    """Phase 3, training's attention kernels at FLASH_TRAIN_SHAPE:
+    ``chunked_attention`` (which takes the kernels on bf16 operands, 4
+    launches) forward and backward against float64 autograd of
+    ``_dense_attention`` beside ``chunked_plain`` (``_ChunkedCore``);
+    then both timed, forward, backward and the two, one call (``ms``) and
+    back to back (``ms_b2b``)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention
+
+    b, s, h, hkv, d = FLASH_TRAIN_SHAPE
+    cfg = attention.AttnConfig(d_model=h * d, n_heads=h, n_kv_heads=hkv,
+                               head_dim=d, query_pre_scale=FLASH_TRAIN_SCALE)
+    gen = torch.Generator().manual_seed(SEED)
+    q, k, v, g = (torch.randn((b, s, n, d), generator=gen).bfloat16()
+                  .to(DEVICE) for n in (h, hkv, hkv, h))
+
+    def leaves(dtype=torch.bfloat16):
+        return [t.to(dtype).detach().requires_grad_(True) for t in (q, k, v)]
+
+    def vjp(fn, dtype):
+        xs = leaves(dtype)
+        out = fn(cfg, *xs)
+        out.backward(g.to(dtype))
+        return [t.detach().double() for t in (out, *(x.grad for x in xs))]
+
+    want = vjp(attention._dense_attention, torch.float64)
+    plain = vjp(attention.chunked_plain, torch.bfloat16)
+    ops.reset_launch_counts()
+    got = vjp(attention.chunked_attention, torch.bfloat16)
+    torch.cuda.synchronize()
+    launched = ops.launch_counts()["flash_train"]
+    errors, ok = {}, launched == 4
+    for name, gk, pl, w in zip(("out", "dq", "dk", "dv"), got, plain, want):
+        top = float(w.abs().max())
+        err_k = float((gk - w).abs().max()) / top
+        err_p = float((pl - w).abs().max()) / top
+        fine = err_k <= FLASH_TRAIN_PLAIN_X * err_p
+        errors[name] = {"kernel": err_k, "plain": err_p, "max": top,
+                        "ok": fine}
+        ok = ok and fine
+    del want, plain, got
+    label = "x".join(map(str, FLASH_TRAIN_SHAPE))
+    print(f"flash_train [{label}] error against float64 dense autograd, "
+          f"relative to the largest value, kernel / plain: " +
+          ", ".join(f"{n} {e['kernel']:.3e} / {e['plain']:.3e}"
+                    f"{'' if e['ok'] else ' FAIL'}" for n, e in errors.items())
+          + f"; launches {launched} (want 4)")
+    if not ok:
+        raise AssertionError(f"flash_train is beyond {FLASH_TRAIN_PLAIN_X}x "
+                             f"the plain core's error or launched {launched} "
+                             f"times, not 4")
+
+    def fwd(fn):
+        def run():
+            with torch.no_grad():
+                fn(cfg, q, k, v)
+        return run
+
+    def bwd(fn):
+        xs = leaves()
+        out = fn(cfg, *xs)
+        return lambda: torch.autograd.grad(out, xs, g, retain_graph=True)
+
+    def both(fn):
+        def run():
+            xs = leaves()
+            torch.autograd.grad(fn(cfg, *xs), xs, g)
+        return run
+
+    times = {}
+    for key, fn in (("", attention.chunked_attention),
+                    ("plain_", attention.chunked_plain)):
+        for part, make in (("forward_", fwd), ("backward_", bwd), ("", both)):
+            run = make(fn)
+            times[f"{key}{part}ms"] = time_ms(torch, run)
+            times[f"{key}{part}ms_b2b"] = time_ms(torch, run, inner=10)
+            del run
+    flops, nbytes = flash_train_work(b, s, h, hkv, d)
+    b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+    print(f"flash_train [{label}] causal ({CARD['line']}): forward and "
+          f"backward ms={times['ms']:.4f} ms_b2b={times['ms_b2b']:.4f} "
+          f"(forward {times['forward_ms']:.4f} / {times['forward_ms_b2b']:.4f}"
+          f", backward {times['backward_ms']:.4f} / "
+          f"{times['backward_ms_b2b']:.4f}); plain_ms={times['plain_ms']:.4f}"
+          f" (forward {times['plain_forward_ms']:.4f}, backward "
+          f"{times['plain_backward_ms']:.4f}) ms/plain_ms="
+          f"{times['ms'] / times['plain_ms']:.3f}; bound_ms={b_ms:.4f} "
+          f"({b_by}: {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB) "
+          f"share_of_bound={b_ms / times['ms_b2b']:.1%} (b2b)")
+    return {"max_abs_err": max(e["kernel"] for e in errors.values()),
+            "errors": errors, **times, "library_ms": None,
+            "bound_ms": b_ms, "bound_by": b_by, "shape": label}
+
+
 def release(torch) -> None:
     """Hand the memory of the last phase's backends and graphs back to the
     card (a released graph's pool is freed only by ``empty_cache``)."""
@@ -4639,6 +4778,8 @@ def main() -> int:
 
     results = check_kernels(torch, np)
     results["ssd_chunk"] = check_ssd_chunk(torch, np)
+    results["flash_train"] = check_flash_train(torch, np)
+    release(torch)
     time_gemm_configs(torch, np)
     time_symm_chain_configs(torch, np)
     time_syrk_gemm_syrk_configs(torch, np)
@@ -4682,6 +4823,7 @@ def main() -> int:
     launches["ssd_chunk"] = (families["mamba2"]["ssd_chunk_launches"]
                              + phase14["ssd_chunk_launches"]
                              + phase15["train"]["ssd_chunk_launches"])
+    launches["flash_train"] = phase14["flash_train_launches"]
     memory_line(torch, 15)
     release(torch)
     phase16 = batched_phase(torch, np)

@@ -77,6 +77,16 @@ SIGNATURES: Dict[str, List[type]] = {
     # head slices, stream
     "repro_ssd_chunk_bwd": [_I, *([_P, _L, _L, _L, _L] * 3), *[_P] * 14,
                             *[_I] * 8, _P],
+    # head_dim, q, k, v (each a pointer and its batch, position and head
+    # strides), o, o32, lse, batch, heads, kv_heads, seq, scale, softcap,
+    # causal, window, stream
+    "repro_flash_train_fwd": [_I, *([_P, _L, _L, _L] * 3), _P, _P, _P,
+                              *[_I] * 4, _F, _F, _I, _I, _P],
+    # head_dim, q, k, v (strided), o32, lse, dout (strided), delta, dq, dk,
+    # dv, then as the forward
+    "repro_flash_train_bwd": [_I, *([_P, _L, _L, _L] * 3), _P, _P,
+                              _P, _L, _L, _L, *[_P] * 4, *[_I] * 4, _F, _F,
+                              _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -24,8 +24,10 @@ runs that operator on each rank's local heads
 (:func:`.flash_attention.flash_attention_sharded`). ``tri2full`` is data
 movement (the paper charges it no flops) and stays a plain tensor op on
 either device, as in the reference. ``ssd_chunk`` (the SSD's fused
-intra-chunk stage, :mod:`.ssd_chunk`) has no entry here: the model calls
-its module directly; it is in :data:`KERNELS` for its launch counter.
+intra-chunk stage, :mod:`.ssd_chunk`) and ``flash_train`` (training's
+attention, forward and backward, :mod:`.flash_train`) have no entry here:
+the models call their modules directly; they are in :data:`KERNELS` for
+their launch counters.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from torch.distributed.tensor import DTensor
 
 from . import chain_gemm as _chain_gemm
 from . import flash_attention as _flash
+from . import flash_train as _flash_train
 from . import gemm as _gemm
 from . import gemm_syrk as _gemm_syrk
 from . import ref
@@ -48,7 +51,8 @@ from ._checks import check_attention, check_matrices, check_same
 #: The kernel modules, each holding its own ``launches`` counter.
 KERNELS = {"gemm": _gemm, "syrk": _syrk, "symm": _symm,
            "chain_gemm": _chain_gemm, "gemm_syrk": _gemm_syrk,
-           "flash_attention": _flash, "ssd_chunk": _ssd_chunk}
+           "flash_attention": _flash, "ssd_chunk": _ssd_chunk,
+           "flash_train": _flash_train}
 
 
 def launch_counts() -> Dict[str, int]:

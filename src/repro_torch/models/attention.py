@@ -6,10 +6,12 @@ Counterpart of the reference's ``models/attention.py``:
   ``differentiable=False`` (prefill) it runs the hand-written flash
   kernel when the sequence is a multiple of 128 and at least 256, else
   masked dense attention — the reference's routing exactly. A
-  differentiable call (training) takes :func:`chunked_attention`, the
-  blockwise scan with its own backward (``_ChunkedCore``), from
+  differentiable call (training) takes :func:`chunked_attention` from
   ``CHUNKED_THRESHOLD`` positions on (a multiple of 512), and masked
-  dense attention below. The flash kernel has no backward and is never on
+  dense attention below: on the card the training kernels
+  (:mod:`repro_torch.kernels.flash_train`, forward and backward) where
+  they take the operands, else the blockwise scan with its own backward
+  (``_ChunkedCore``). The prefill kernel has no backward and is never on
   the training path.
 * ``apply_prefill`` — the same forward, writing K/V into the cache.
 * ``apply_decode`` — one new token against the cache, graph-safe: the
@@ -45,7 +47,9 @@ import torch
 from torch import nn
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from repro_torch.kernels import flash_train
 from repro_torch.kernels import ops as kops
+from repro_torch.runtime import spans
 from repro_torch.serve.plan_cache import default_plan_service, planner_enabled
 from repro_torch.sharding.context import (attention_shards, grad_in_layout,
                                           shard_heads, shard_offset,
@@ -279,21 +283,40 @@ def chunked_attention(cfg: AttnConfig, q, k, v, block: int = 512
                       ) -> torch.Tensor:
     """Flash-style attention with its own backward (O(S·block) memory
     forward and backward): q (B,Sq,H,Dh), k/v (B,Sk,Hkv,Dh) →
-    (B,Sq,H,Dh). GQA keys are repeated to H heads before the core, so
-    their gradient sums back through the repeat."""
+    (B,Sq,H,Dh). On the card, bf16 operands of a head dim and shape the
+    training kernels take (:func:`repro_torch.kernels.flash_train.takes`)
+    run them, GQA without repeating K/V; anything else, and every CPU
+    run, takes :func:`chunked_plain` (``_ChunkedCore``). The counters
+    ``attention.train.kernel`` / ``.plain`` say which, a call."""
     sk = k.shape[1]
     if sk % block:
         raise ValueError(f"chunked attention: {sk} keys are not a multiple "
                          f"of the block {block}")
     scale = cfg.query_pre_scale or q.shape[-1] ** -0.5
-    args = (scale, cfg.causal, cfg.window, cfg.logit_softcap, block)
 
     def core(q, k, v):
-        group = q.shape[2] // k.shape[2]
-        return _ChunkedCore.apply(q, k.repeat_interleave(group, dim=2),
-                                  v.repeat_interleave(group, dim=2), *args)
+        if flash_train.takes(q, k, v, cfg.window):
+            spans.count("attention.train.kernel")
+            return flash_train.attention(
+                q, k, v, scale=scale, causal=cfg.causal, window=cfg.window,
+                logit_softcap=cfg.logit_softcap)
+        spans.count("attention.train.plain")
+        return chunked_plain(cfg, q, k, v, block)
 
     return _per_rank(core, q, k, v)
+
+
+def chunked_plain(cfg: AttnConfig, q, k, v, block: int = 512
+                  ) -> torch.Tensor:
+    """``_ChunkedCore`` of plain tensors, the training kernels' plain
+    version: GQA keys are repeated to H heads before the core, so their
+    gradient sums back through the repeat."""
+    scale = cfg.query_pre_scale or q.shape[-1] ** -0.5
+    group = q.shape[2] // k.shape[2]
+    return _ChunkedCore.apply(q, k.repeat_interleave(group, dim=2),
+                              v.repeat_interleave(group, dim=2), scale,
+                              cfg.causal, cfg.window, cfg.logit_softcap,
+                              block)
 
 
 # Sequence length above which training uses the chunked (flash-style)

@@ -425,13 +425,15 @@ def test_abab_alg2_without_fusion_launches_gemm_and_syrk(cuda, monkeypatch):
     fused = backend.execute(alg, operands)
     assert ops.launch_counts() == {"gemm": 0, "syrk": 0, "symm": 0,
                                    "chain_gemm": 0, "gemm_syrk": 1,
-                                   "flash_attention": 0, "ssd_chunk": 0}
+                                   "flash_attention": 0, "ssd_chunk": 0,
+                                   "flash_train": 0}
     monkeypatch.setenv("REPRO_NO_FUSION", "1")
     ops.reset_launch_counts()
     _close_scaled(backend.execute(alg, operands), fused)
     assert ops.launch_counts() == {"gemm": 1, "syrk": 1, "symm": 0,
                                    "chain_gemm": 0, "gemm_syrk": 0,
-                                   "flash_attention": 0, "ssd_chunk": 0}
+                                   "flash_attention": 0, "ssd_chunk": 0,
+                                   "flash_train": 0}
 
 
 #: Families and points of the graph-timing tests: every kernel of the
@@ -1107,7 +1109,9 @@ def test_chunked_core_on_the_card_matches_dense_autograd(cuda, dtype, window,
     at 1e-4 of the largest value, dk and dv (rounded to bf16 per key
     block) element by element within half a bf16 ulp of the summed query
     heads' dense values plus CHUNKED_CARD_ATOL; bf16 at 2**-6 of the
-    largest value, as the flash kernel is held; no kernel launch."""
+    largest value, as the flash kernel is held; no kernel launch. The
+    core is called directly (``chunked_plain``): ``chunked_attention``
+    takes the training kernels for bf16 on the card."""
     from repro_torch.models import attention
 
     cfg = attention.AttnConfig(d_model=256, n_heads=4, n_kv_heads=hkv,
@@ -1123,7 +1127,7 @@ def test_chunked_core_on_the_card_matches_dense_autograd(cuda, dtype, window,
     ops.reset_launch_counts()
     results = []
     for fn, c, kv in (
-            (attention.chunked_attention, cfg, (k, v)),
+            (attention.chunked_plain, cfg, (k, v)),
             (attention._dense_attention, cfg, (k, v)),
             (attention._dense_attention, mha,
              [t.repeat_interleave(group, dim=2) for t in (k, v)])):
@@ -1146,6 +1150,69 @@ def test_chunked_core_on_the_card_matches_dense_autograd(cuda, dtype, window,
         print(f"chunked {dtype} window {window} hkv {hkv}: "
               f"{'dk dv'.split()[i - 2]} over half a bf16 ulp {excess:.3e}")
         assert excess <= CHUNKED_CARD_ATOL, (i, excess)
+
+
+#: Training's attention kernels: (B, S, H, D), Hkv, causal, window,
+#: soft-cap, the scale of q and k (1.7 peaks the rows as chip_smoke.py's
+#: flash check does; 4 puts the logits where a cap of 50 bends them).
+FLASH_TRAIN_CASES = [
+    ((1, 2048, 32, 128), 32, True, 0, 0.0, 1.0),      # zamba2_1p2b.train's
+    ((1, 2048, 4, 64), 2, True, 300, 0.0, 1.7),
+    ((1, 2048, 4, 64), 4, True, 300, 0.0, 1.7),
+    ((1, 2048, 4, 64), 2, False, 300, 0.0, 1.7),
+    ((1, 2048, 4, 64), 4, True, 0, 50.0, 4.0)]
+#: The kernels' error may be at most this many times the plain core's.
+FLASH_TRAIN_PLAIN_X = 1.5
+
+
+@pytest.mark.parametrize("shape,hkv,causal,window,cap,qk", FLASH_TRAIN_CASES)
+def test_flash_train_matches_dense_autograd_within_the_chunked_core(
+        cuda, shape, hkv, causal, window, cap, qk):
+    """``chunked_attention`` on bf16 operands takes the training kernels
+    (4 launches, ``attention.train.kernel``): out, dq, dk and dv against
+    float64 autograd of ``_dense_attention``, each within
+    FLASH_TRAIN_PLAIN_X times the error of ``_ChunkedCore`` on the same
+    bf16 inputs, relative to the largest value; two calls bit for bit."""
+    from repro_torch.models import attention
+    from repro_torch.runtime.spans import Recorder
+
+    b, s, h, d = shape
+    cfg = attention.AttnConfig(d_model=h * d, n_heads=h, n_kv_heads=hkv,
+                               head_dim=d, causal=causal, window=window,
+                               logit_softcap=cap)
+    rng = np.random.default_rng(s + h + hkv + window)
+
+    def draw(heads, scale=1.0):
+        x = rng.standard_normal((b, s, heads, d)) * scale
+        return torch.tensor(x, dtype=torch.float32, device=cuda).bfloat16()
+
+    q, k, v, g = draw(h, qk), draw(hkv, qk), draw(hkv), draw(h)
+
+    def vjp(fn, dtype):
+        leaves = [t.to(dtype).detach().requires_grad_(True) for t in (q, k, v)]
+        out = fn(cfg, *leaves)
+        out.backward(g.to(dtype))
+        return [t.detach().double() for t in (out, *(x.grad for x in leaves))]
+
+    want = vjp(attention._dense_attention, torch.float64)
+    plain = vjp(attention.chunked_plain, torch.bfloat16)
+    ops.reset_launch_counts()
+    with Recorder() as rec:
+        got = vjp(attention.chunked_attention, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_train"] == 4
+    assert dict(rec.counts) == {"attention.train.kernel": 1}
+    again = vjp(attention.chunked_attention, torch.bfloat16)
+    for name, gk, pl, w, ag in zip(("out", "dq", "dk", "dv"), got, plain,
+                                   want, again):
+        top = float(w.abs().max())
+        err_k = float((gk - w).abs().max()) / top
+        err_p = float((pl - w).abs().max()) / top
+        print(f"flash_train {shape} hkv {hkv} causal {causal} window "
+              f"{window} cap {cap}: {name} kernel {err_k:.3e} plain "
+              f"{err_p:.3e} of max {top:.3e}")
+        assert err_k <= FLASH_TRAIN_PLAIN_X * err_p, name
+        assert torch.equal(gk, ag), name
 
 
 def test_mamba2_smoke_train_step_on_the_card_matches_the_cpu(cuda):

@@ -169,7 +169,7 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     ops.flash_attention(q, q, q)
     assert ops.launch_counts() == before
     assert set(before) == {"gemm", "syrk", "symm", "chain_gemm", "gemm_syrk",
-                           "flash_attention", "ssd_chunk"}
+                           "flash_attention", "ssd_chunk", "flash_train"}
 
 
 def test_build_without_nvcc_raises(monkeypatch):
